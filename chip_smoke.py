@@ -10,7 +10,9 @@ CUDA toolkit.  It:
    CUDA versions, and builds the hand-written kernels from ``src/``;
 2. holds each kernel against its plain PyTorch version on the card, at
    ragged small shapes and at the paper shapes, for every dtype it takes:
-   pad/unpad bitwise, sbgemv at rel <= 1e-12 (f64), 1e-5 (f32), 2e-2 (bf16);
+   pad/unpad bitwise, sbgemv at rel <= 1e-12 (f64), 1e-5 (f32), 2e-2 (bf16),
+   and checks that automatic dispatch on the card launches the sbgemv
+   kernels at tall as well as short-wide shapes;
 3. drives the main path, ``FFTMatvec.from_block_column`` -> ``matvec`` /
    ``rmatvec`` at the paper's shape N_t=1000, N_d=100, N_m=5000, for the
    seven named precision configs, with the launch counters reset just
@@ -124,12 +126,20 @@ def check_pad_kernels(dev, R, T, P, timed, results, time_fn):
           f"versions for all 9 dtype pairs", flush=True)
 
 
-def _complex_library(Ar, Ai, x_re, x_im, mode):
-    """One torch.bmm on complex tensors built from the planes (built
-    outside the timed call), or None for bf16: torch has no complex bf16
-    matmul."""
+def _library(Ar, Ai, x_re, x_im, mode):
+    """One torch.bmm for the same function, its operands built outside the
+    timed call.  f32/f64: complex tensors built from the planes.  bf16
+    (torch has no complex bf16 matmul): the real planes stacked, A as
+    (B, 2m, n) for mode N or (B, m, 2n) for T/H and x as (B, ., 2), so one
+    bmm reads the same bytes and gives all four real products; the final
+    re/im combine is left out."""
     if Ar.dtype == torch.bfloat16:
-        return None
+        X = torch.stack([x_re, x_im], dim=-1)
+        if mode == "N":
+            As = torch.cat([Ar, Ai], dim=1)
+            return lambda _: torch.bmm(As, X)
+        As = torch.cat([Ar, Ai], dim=2)
+        return lambda _: torch.bmm(As.mT, X)
     Ac = torch.complex(Ar, Ai)
     xc = torch.complex(x_re, x_im).unsqueeze(-1)
     if mode == "N":
@@ -183,15 +193,38 @@ def check_sbgemv_kernels(dev, B, m, n, timed, results, time_fn):
             flops = 8 * B * m * n
             acc = "float64" if dt == torch.float64 else "float32"
             b_ms, b_by = bound_ms(nbytes, flops, acc)
-            lib = _complex_library(Ar, Ai, xr, xi, mode)
+            lib = _library(Ar, Ai, xr, xi, mode)
             results[kname][name(dt)] = {
                 "shape": [B, m, n], "mode": mode, "max_abs_err": err,
                 "ms": time_fn(kfn, None), "plain_ms": time_fn(pfn, None),
-                "library_ms": time_fn(lib, None) if lib else None,
+                "library_ms": time_fn(lib, None),
                 "bytes": nbytes, "flops": flops,
                 "bound_ms": b_ms, "bound_by": b_by}
             del lib
         del Ar, Ai
+
+
+def check_dispatch_on_card(dev):
+    """Automatic dispatch on the card takes the kernel at every shape:
+    short-wide blocks and tall ones (m * 4 > n), every mode and dtype."""
+    from repro_torch.kernels import _build, ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for B, m, n in ((3, 3, 77), (2, 300, 50)):
+        for dt in DTYPES:
+            A = [torch.randn((B, m, n), generator=gen, device=dev).to(dt)
+                 for _ in range(2)]
+            for mode in "NTH":
+                x = [torch.randn((B, n if mode == "N" else m), generator=gen,
+                                 device=dev).to(dt) for _ in range(2)]
+                kname = ("sbgemv_n_complex" if mode == "N"
+                         else "sbgemv_th_complex")
+                before = _build.launch_counts[kname]
+                ops.sbgemv(*A, *x, mode)
+                if _build.launch_counts[kname] != before + 1:
+                    fail(f"ops.sbgemv mode {mode} {name(dt)} at {(B, m, n)} "
+                         f"did not launch {kname}")
+    print("ops.sbgemv on the card launched its kernel at (3, 3, 77) and "
+          "(2, 300, 50) for every mode and dtype", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +391,8 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     check_pad_kernels(dev, 5, 77, 154, False, results, time_fn)
     check_sbgemv_kernels(dev, 3, 3, 77, False, results, time_fn)
     check_sbgemv_kernels(dev, 2, 300, 50, False, results, time_fn)
+    if dev.type == "cuda":
+        check_dispatch_on_card(dev)
     check_pad_kernels(dev, N_m, N_t, 2 * N_t, timed, results, time_fn)
     check_sbgemv_kernels(dev, N_t + 1, N_d, N_m, timed, results, time_fn)
     drive_main_path(dev, N_t, N_d, N_m, timed, time_fn, report)
@@ -369,6 +404,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import PAPER_SINGLE
     from repro_torch.core import time_callable
     from repro_torch.kernels import _build
 
@@ -400,7 +436,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats(dev)
-    results, report = run(dev, 1000, 100, 5000, True, time_fn)
+    cfg = PAPER_SINGLE
+    results, report = run(dev, cfg.N_t, cfg.N_d, cfg.N_m, True, time_fn)
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     line = kernel_line(results, report["launches"])
 

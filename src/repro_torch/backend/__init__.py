@@ -4,5 +4,4 @@ from .spec import (BackendSpec, UnsupportedOnBackend,  # noqa: F401
                    BUILTIN_SPECS, CPU_TORCH, H100, KERNEL_DTYPES, TORCH_REF)
 from .registry import (BACKEND_ENV, known_backends,  # noqa: F401
                        probe_backend, resolve_backend)
-from .dispatch import (DispatchTable, default_table,  # noqa: F401
-                       DEFAULT_SHORT_WIDE_RATIO)
+from .dispatch import DispatchTable, default_table  # noqa: F401

@@ -1,18 +1,19 @@
-"""The dispatch table: shape -> kernel path, per backend.
+"""The dispatch table: which lowering runs an SBGEMV, per backend.
 
-The paper's rocBLAS host dispatcher, ported: :class:`DispatchTable` owns
-the transition point that sends an SBGEMV to the hand-written kernel or to
-the einsum twin, and the minor-axis cutover of the fused pad+cast kernels.
-Three paths:
+The paper's rocBLAS host dispatcher, ported.  Three paths:
 
     "kernel"  the hand-written CUDA kernels (``kernels/csrc``),
-    "torch"   the einsum twin with the kernel's traffic pattern,
+    "torch"   the plain PyTorch contraction (``kernels.ref.complex_contract``),
     "ref"     the oracles (``kernels.ref``).
 
 Explicit-vs-auto contract: ``force="kernel"`` demands the kernel and
-raises :class:`UnsupportedOnBackend` when the backend cannot run it;
-automatic dispatch (``force=None``) silently picks a supported path.
-Calibration of the transition points waits for the autotuner's slice.
+raises :class:`UnsupportedOnBackend` when the backend cannot run it.
+Automatic dispatch (``force=None``) takes the kernel on every shape and
+mode wherever the backend has the kernels (they mask their own edges), and
+raises there for a dtype they do not take: on the card nothing falls back
+to plain PyTorch unless the caller forces it.  Elsewhere it takes the
+plain contraction.  A shape crossover to cuBLAS waits until one is
+measured on the card.
 """
 
 from __future__ import annotations
@@ -24,23 +25,12 @@ from .spec import BackendSpec, UnsupportedOnBackend
 
 _PATHS = ("kernel", "torch", "ref")
 
-DEFAULT_SHORT_WIDE_RATIO = 4.0
-DEFAULT_PAD_CAST_MIN_COLS = 0
-
 
 @dataclasses.dataclass(frozen=True)
 class DispatchTable:
-    """Per-op transition points + an optional forced path.
+    """An optional forced path: None (auto) or one of
+    "kernel"/"torch"/"ref"."""
 
-    ``short_wide_ratio``   SBGEMV goes to the kernel when
-                           ``m * ratio <= n`` (m rows, n cols per block).
-    ``pad_cast_min_cols``  the fused pad+cast kernel runs from this
-                           minor-axis length up.
-    ``force``              None (auto) or one of "kernel"/"torch"/"ref".
-    """
-
-    short_wide_ratio: float = DEFAULT_SHORT_WIDE_RATIO
-    pad_cast_min_cols: int = DEFAULT_PAD_CAST_MIN_COLS
     force: Optional[str] = None
 
     def __post_init__(self):
@@ -48,47 +38,27 @@ class DispatchTable:
             raise ValueError(f"force must be one of {_PATHS}, "
                              f"got {self.force!r}")
 
-    def gemv_path(self, m: int, n: int, mode: str, dtype,
-                  spec: BackendSpec) -> str:
-        """Path for a (B, m, n) SBGEMV: "kernel"/"torch"/"ref"."""
-        if self.force == "kernel":
+    def gemv_path(self, dtype, spec: BackendSpec) -> str:
+        """Path for an SBGEMV on ``dtype`` planes: "kernel"/"torch"/"ref"."""
+        if self.force == "kernel" or (self.force is None and spec.kernels):
             # validated before the reference override: a forced kernel the
             # backend cannot run never reports success through another path
             if not spec.kernels:
                 raise UnsupportedOnBackend(
                     f"the CUDA kernels were explicitly requested but backend "
                     f"{spec.fingerprint()!r} has none; drop the explicit "
-                    f"request (auto dispatch takes the einsum twin) or run "
-                    f"on the card")
+                    f"request or run on the card")
             if not spec.kernel_supports(dtype):
                 raise UnsupportedOnBackend(
                     f"the CUDA kernels take bf16/f32/f64 planes, not {dtype}")
             return "kernel"
         if spec.reference or self.force == "ref":
             return "ref"
-        if self.force == "torch":
-            return "torch"
-        if (spec.kernel_supports(dtype) and mode in ("N", "T", "H")
-                and m * self.short_wide_ratio <= n):
-            return "kernel"
         return "torch"
-
-    def fuse_pad_cast(self, n_cols: int, dtype_in, dtype_out,
-                      spec: BackendSpec,
-                      prefer: Optional[bool] = None) -> bool:
-        """Whether the Phase-1/5 pad/unpad runs through the fused kernel.
-        ``prefer`` pins the answer where the backend has the kernel; None
-        consults the cutover."""
-        if spec.reference or not spec.kernel_supports(dtype_in, dtype_out):
-            return False
-        if prefer is not None:
-            return bool(prefer)
-        return n_cols >= self.pad_cast_min_cols
 
 
 def default_table(spec: BackendSpec) -> DispatchTable:
-    """The uncalibrated table for a spec (reference backends force the
-    oracle path so even the shape heuristic cannot route around them)."""
+    """The table for a spec (reference backends force the oracle path)."""
     if spec.reference:
         return DispatchTable(force="ref")
     return DispatchTable()

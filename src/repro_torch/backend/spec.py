@@ -16,11 +16,12 @@ import torch
 
 
 class UnsupportedOnBackend(TypeError):
-    """An *explicitly requested* kernel path cannot run on this backend.
+    """The kernel path was chosen but cannot run here.
 
-    Raised only for explicit requests (``force="kernel"`` dispatch, or a
-    kernel path on a tensor that is not on the card); automatic dispatch
-    never raises: it picks a supported path instead.
+    Raised for ``force="kernel"`` dispatch on a backend without kernels,
+    for a kernel path on a tensor that is not on the card, and for a dtype
+    the kernels do not take on a backend that has them (there automatic
+    dispatch takes the kernel and never falls back to plain PyTorch).
     """
 
 
@@ -37,8 +38,7 @@ class BackendSpec:
     ``device_kind`` is filled from the bound device (``""`` = unbound).
     ``kernels`` says the hand-written CUDA kernels run here; ``reference``
     forces the oracle lowerings (``kernels.ref``), bypassing both the
-    kernels and the einsum twin.  ``tile_precision`` gates tile-level
-    precision maps, which no port spec honours yet.
+    kernels and the plain contraction.
     """
 
     name: str
@@ -46,7 +46,6 @@ class BackendSpec:
     device_kind: str = ""
     kernels: bool = False
     reference: bool = False
-    tile_precision: bool = False
 
     def fingerprint(self) -> str:
         """Stable identity for cache keys: backend + hardware it bound to."""
@@ -59,8 +58,8 @@ class BackendSpec:
 
 H100 = BackendSpec(name="h100", platform="cuda", kernels=True)
 
-# Auto-selected for CPU tensors: the kernels' plain versions (einsum twin
-# for the gemv, the oracles for pad/unpad).
+# Auto-selected for CPU tensors: the kernels' plain versions (the plain
+# contraction for the gemv, the oracles for pad/unpad).
 CPU_TORCH = BackendSpec(name="cpu-torch", platform="cpu")
 
 # Forced reference backend on whatever device the data lives on.

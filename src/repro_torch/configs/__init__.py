@@ -1,1 +1,1 @@
-from .fftmatvec_paper import FFTMatvecConfig, PAPER_SINGLE, SMOKE  # noqa: F401
+from .fftmatvec_paper import FFTMatvecConfig, PAPER_SINGLE  # noqa: F401

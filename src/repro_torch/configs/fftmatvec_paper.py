@@ -1,7 +1,6 @@
-"""The paper's own workload: FFTMatvec p2o configs.
+"""The paper's own workload: the FFTMatvec p2o config.
 
 Single-GPU/figure config: N_m=5,000, N_d=100, N_t=1,000 (Figs. 2-3).
-Weak-scaling config (Fig. 4): N_m = 5,000 * p for p devices.
 """
 import dataclasses
 
@@ -14,10 +13,5 @@ class FFTMatvecConfig:
     N_m: int = 5000
     precision: str = "sssss"
 
-    def weak_scaled(self, p: int) -> "FFTMatvecConfig":
-        return dataclasses.replace(self, N_m=self.N_m * p,
-                                   name=f"{self.name}_p{p}")
-
 
 PAPER_SINGLE = FFTMatvecConfig(name="fftmatvec_paper")
-SMOKE = FFTMatvecConfig(name="fftmatvec_smoke", N_t=16, N_d=4, N_m=32)

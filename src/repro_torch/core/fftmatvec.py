@@ -29,19 +29,7 @@ from . import pipeline
 from . import precision as prec
 from .pipeline import ExecOpts, reorder_planes  # noqa: F401  (public API)
 from .precision import PrecisionConfig
-from .toeplitz import fourier_block_column
-
-
-def default_device(device=None) -> torch.device:
-    """``device``, or the card when None.  Entry points run on the card
-    unless the caller asks for the CPU; without a card they raise rather
-    than carry on there."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "operator on the CPU")
-    return torch.device("cuda")
+from .toeplitz import default_device, fourier_block_column
 
 
 def as_tensor(x, device) -> torch.Tensor:

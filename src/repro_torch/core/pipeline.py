@@ -55,28 +55,24 @@ _LATER = {
 
 @dataclasses.dataclass(frozen=True)
 class ExecOpts:
-    """How a plan lowers: a backend + a dispatch table + the pad/cast pin.
+    """How a plan lowers: a backend + a dispatch table.
 
-    ``backend``        a :class:`repro_torch.backend.BackendSpec`, a
-                       registered name ("h100", "cpu-torch", "torch-ref"),
-                       or None: the probe for the operator's device
-                       (``REPRO_TORCH_BACKEND`` override applies).
-    ``dispatch``       transition-point table; None = the backend's default.
-    ``fuse_pad_cast``  pin the fused pad+cast kernels on/off where the
-                       backend has them; None lets the table decide.
+    ``backend``   a :class:`repro_torch.backend.BackendSpec`, a registered
+                  name ("h100", "cpu-torch", "torch-ref"), or None: the
+                  probe for the operator's device (``REPRO_TORCH_BACKEND``
+                  override applies).
+    ``dispatch``  the gemv's forced path; None = the backend's default.
     """
 
     backend: Union[BackendSpec, str, None] = None
     dispatch: Optional[DispatchTable] = None
-    fuse_pad_cast: Optional[bool] = None
 
     def resolve(self, device) -> "ResolvedOpts":
         """Bind to the concrete backend for tensors on ``device``."""
         spec = resolve_backend(self.backend, device)
         table = self.dispatch if self.dispatch is not None \
             else default_table(spec)
-        return ResolvedOpts(spec=spec, table=table,
-                            fuse_pad_cast=self.fuse_pad_cast)
+        return ResolvedOpts(spec=spec, table=table)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +81,6 @@ class ResolvedOpts:
 
     spec: BackendSpec
     table: DispatchTable
-    fuse_pad_cast: Optional[bool]
 
 
 def _resolved(opts, device) -> ResolvedOpts:
@@ -142,8 +137,7 @@ def reorder_planes(re, im, level: str, *, to_tosi: bool):
 
 def _pad(stage, x, operands, N_t, opts):
     return kops.pad_cast(x, 2 * N_t, prec.real_dtype(stage.level),
-                         backend=opts.spec, dispatch=opts.table,
-                         fuse=opts.fuse_pad_cast)
+                         backend=opts.spec)
 
 
 def _fft(stage, x, operands, N_t, opts):
@@ -181,8 +175,7 @@ def _ifft(stage, x, operands, N_t, opts):
 
 def _unpad(stage, x, operands, N_t, opts):
     return kops.unpad_cast(x, N_t, prec.real_dtype(stage.level),
-                           backend=opts.spec, dispatch=opts.table,
-                           fuse=opts.fuse_pad_cast)
+                           backend=opts.spec)
 
 
 def _later(key):

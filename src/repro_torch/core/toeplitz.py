@@ -24,6 +24,18 @@ import numpy as np
 import torch
 
 
+def default_device(device=None) -> torch.device:
+    """``device``, or the card when None.  Entry points run on the card
+    unless the caller asks for the CPU; without a card they raise rather
+    than carry on there."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           "CPU")
+    return torch.device("cuda")
+
+
 def dense_from_block_column(F_col: torch.Tensor) -> torch.Tensor:
     """Materialize the full (N_t*N_d, N_t*N_m) matrix.  Test-scale only."""
     N_t, N_d, N_m = F_col.shape
@@ -113,7 +125,9 @@ def heat_equation_p2o(N_t: int, N_d: int, N_m: int, kappa: float = 0.05,
                       dt: float = 0.02, dtype=torch.float64,
                       device=None) -> torch.Tensor:
     """First block column of the p2o map of a 1-D periodic heat equation
-    (forward Euler on N_m points, N_d sensors): F_k = B A^{k-1} C dt."""
+    (forward Euler on N_m points, N_d sensors): F_k = B A^{k-1} C dt.
+    ``device=None`` means the card."""
+    device = default_device(device)
     n = N_m
     lam = kappa * dt * (n ** 2) / (2.0 * math.pi) ** 2
 

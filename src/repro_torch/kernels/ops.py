@@ -7,13 +7,12 @@ live on) and a :class:`repro_torch.backend.DispatchTable`, and routes
 between three lowerings:
 
     "kernel"  the hand-written CUDA kernels (``sbgemv.py``, ``pad_cast.py``),
-    "torch"   the einsum twin with the kernel's traffic pattern,
+    "torch"   the plain contraction (``ref.complex_contract``),
     "ref"     the oracles (``ref.py``): the forced ``torch-ref`` backend.
 
-Explicit-vs-auto contract: a *forced* kernel path the backend cannot run
-(no kernels, an unsupported dtype, or tensors that are not on the card)
-raises :class:`repro_torch.backend.UnsupportedOnBackend`; automatic
-dispatch takes the twin instead.
+On a backend with the kernels every op takes its kernel unless the caller
+forces another path for the gemv; a kernel path on tensors that are not on
+the card raises :class:`repro_torch.backend.UnsupportedOnBackend`.
 """
 
 from __future__ import annotations
@@ -46,26 +45,7 @@ def _require_card(t: torch.Tensor, spec) -> None:
         raise UnsupportedOnBackend(
             f"the CUDA kernel path of backend {spec.fingerprint()!r} was "
             f"selected for a tensor on {t.device}; move the data to the card "
-            f"or drop the explicit request")
-
-
-def _sbgemv_torch_fused(A_re, A_im, x_re, x_im, mode: str):
-    """Einsum path with the kernel's traffic pattern: both input-vector
-    planes are stacked so each A plane is contracted once against both.
-    Accumulates in f64 for f64 planes and in f32 otherwise (bf16 planes
-    are widened first: torch has no f32-accumulating bf16 einsum output)."""
-    acc = _ref.acc_dtype(A_re.dtype)
-    Ar, Ai = A_re.to(acc), A_im.to(acc)
-    X = torch.stack([x_re, x_im], dim=1).to(acc)          # (B, 2, n|m)
-    if mode == "N":
-        R = torch.einsum("bmn,bkn->bkm", Ar, X)
-        I = torch.einsum("bmn,bkn->bkm", Ai, X)
-        return R[:, 0] - I[:, 1], R[:, 1] + I[:, 0]
-    R = torch.einsum("bmn,bkm->bkn", Ar, X)
-    I = torch.einsum("bmn,bkm->bkn", Ai, X)
-    if mode == "H":   # conj(A)^T x
-        return R[:, 0] + I[:, 1], R[:, 1] - I[:, 0]
-    return R[:, 0] - I[:, 1], R[:, 1] + I[:, 0]           # "T"
+            f"or pick a backend that serves {t.device}")
 
 
 def sbgemv(A_re, A_im, x_re, x_im, mode: str = "N", *, out_dtype=None,
@@ -75,13 +55,16 @@ def sbgemv(A_re, A_im, x_re, x_im, mode: str = "N", *, out_dtype=None,
     A planes (B, m, n); mode "N": x (B, n) -> y (B, m); "T"/"H": x (B, m)
     -> y (B, n).  Returns (y_re, y_im) in ``out_dtype`` (default: A dtype).
     """
-    B, m, n = A_re.shape
+    if mode not in ("N", "T", "H"):
+        raise ValueError(f"bad mode {mode!r}")
     out_dtype = out_dtype or A_re.dtype
     spec, table = resolve_backend_dispatch(backend, dispatch, A_re.device)
-    path = table.gemv_path(m, n, mode, A_re.dtype, spec)
-    if path != "kernel":
-        fn = _ref.sbgemv_complex_ref if path == "ref" else _sbgemv_torch_fused
-        y_re, y_im = fn(A_re, A_im, x_re, x_im, mode)
+    path = table.gemv_path(A_re.dtype, spec)
+    if path == "ref":
+        y_re, y_im = _ref.sbgemv_complex_ref(A_re, A_im, x_re, x_im, mode)
+        return _ref.cast(y_re, out_dtype), _ref.cast(y_im, out_dtype)
+    if path == "torch":
+        y_re, y_im = _ref.complex_contract(A_re, A_im, x_re, x_im, mode)
         return _ref.cast(y_re, out_dtype), _ref.cast(y_im, out_dtype)
     _require_card(A_re, spec)
     if mode == "N":
@@ -91,26 +74,19 @@ def sbgemv(A_re, A_im, x_re, x_im, mode: str = "N", *, out_dtype=None,
                                      conj=(mode == "H"), out_dtype=out_dtype)
 
 
-def pad_cast(x, pad_to: int, out_dtype, *, backend=None, dispatch=None,
-             fuse=None):
-    """(R, T) -> (R, pad_to) fused zero-pad + cast (Phase-1 memory op).
-
-    ``fuse`` pins the fused-kernel decision where the backend has the
-    kernel (None consults the dispatch table's cutover)."""
-    spec, table = resolve_backend_dispatch(backend, dispatch, x.device)
-    if not table.fuse_pad_cast(x.shape[-1], x.dtype, out_dtype, spec,
-                               prefer=fuse):
+def pad_cast(x, pad_to: int, out_dtype, *, backend=None):
+    """(R, T) -> (R, pad_to) fused zero-pad + cast (Phase-1 memory op)."""
+    spec = resolve_backend(backend, x.device)
+    if not spec.kernels:
         return _ref.pad_cast_ref(x, pad_to, out_dtype)
     _require_card(x, spec)
     return _pad_cast.pad_cast(x, pad_to, out_dtype)
 
 
-def unpad_cast(x, keep: int, out_dtype, *, backend=None, dispatch=None,
-               fuse=None):
+def unpad_cast(x, keep: int, out_dtype, *, backend=None):
     """(R, P) -> (R, keep) fused unpad + cast (Phase-5 memory op)."""
-    spec, table = resolve_backend_dispatch(backend, dispatch, x.device)
-    if not table.fuse_pad_cast(x.shape[-1], x.dtype, out_dtype, spec,
-                               prefer=fuse):
+    spec = resolve_backend(backend, x.device)
+    if not spec.kernels:
         return _ref.unpad_cast_ref(x, keep, out_dtype)
     _require_card(x, spec)
     return _pad_cast.unpad_cast(x, keep, out_dtype)

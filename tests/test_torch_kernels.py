@@ -214,36 +214,46 @@ NAMES = {"pallas": "kernel", "xla": "torch", "ref": "ref"}
 @pytest.mark.parametrize("mode", ["N", "T", "H"])
 @pytest.mark.parametrize("force", [None, "ref"])
 def test_gemv_path_matches_jax_dispatch(mode, force):
+    """Where the TPU table picks its kernel or the oracle, the H100 table
+    picks the same.  Where the TPU table's short-wide crossover sends a
+    shape to XLA, the H100 table keeps the kernel: on the card no shape
+    falls back to plain PyTorch (the kernels mask their own edges)."""
     jt, tt = JaxTable(force=force), DispatchTable(force=force)
+    jax_paths = set()
     for m, n in GRID:
         for jdt, tdt in ((jnp.float32, torch.float32),
                          (jnp.bfloat16, torch.bfloat16)):
             want = NAMES[jt.gemv_path(m, n, mode, jdt, TPU_PALLAS)]
-            assert tt.gemv_path(m, n, mode, tdt, H100) == want
-        # f64 is a native kernel datapath on the card: where the TPU table
-        # sends f32 to its kernel, the H100 table sends f64 there too
-        want = NAMES[jt.gemv_path(m, n, mode, jnp.float32, TPU_PALLAS)]
-        assert tt.gemv_path(m, n, mode, torch.float64, H100) == want
+            jax_paths.add(want)
+            got = tt.gemv_path(tdt, H100)
+            assert got == ("kernel" if want == "torch" else want)
+            # f64 is a native kernel datapath on the card
+            assert tt.gemv_path(torch.float64, H100) == got
+    # the grid crosses the TPU table's crossover in auto mode
+    assert jax_paths == ({"kernel", "torch"} if force is None else {"ref"})
 
 
 def test_paper_shape_takes_the_kernels():
     t = DispatchTable()
-    for mode in "NH":
-        for dt in (torch.float64, torch.float32, torch.bfloat16):
-            assert t.gemv_path(100, 5000, mode, dt, H100) == "kernel"
-    assert t.fuse_pad_cast(1000, torch.float64, torch.bfloat16, H100)
+    for dt in (torch.float64, torch.float32, torch.bfloat16):
+        assert t.gemv_path(dt, H100) == "kernel"
+    # auto dispatch on the card raises for a dtype the kernels do not take
+    with pytest.raises(UnsupportedOnBackend):
+        t.gemv_path(torch.float16, H100)
+    assert DispatchTable(force="torch").gemv_path(torch.float16,
+                                                  H100) == "torch"
 
 
 def test_cpu_tensors_take_the_plain_paths():
     spec = probe_backend("cpu")
     assert spec.name == "cpu-torch" and not spec.kernels
-    assert DispatchTable().gemv_path(4, 5000, "H", torch.float32,
-                                     spec) == "torch"
-    assert not DispatchTable().fuse_pad_cast(10, torch.float32,
-                                             torch.float32, spec, prefer=True)
+    for dt in (torch.float64, torch.float32, torch.bfloat16):
+        assert DispatchTable().gemv_path(dt, spec) == "torch"
+    x = torch.randn(3, 10)
+    assert torch.equal(ops.pad_cast(x, 16, torch.float32),
+                       ref.pad_cast_ref(x, 16, torch.float32))
     ref_spec = resolve_backend("torch-ref", "cpu")
-    assert DispatchTable().gemv_path(4, 5000, "H", torch.float32,
-                                     ref_spec) == "ref"
+    assert DispatchTable().gemv_path(torch.float32, ref_spec) == "ref"
 
 
 def test_backend_env_override(monkeypatch):
@@ -264,8 +274,12 @@ def test_forced_kernel_on_cpu_raises():
     with pytest.raises(UnsupportedOnBackend):
         ops.pad_cast(x, 80, torch.float32, backend="h100")
     with pytest.raises(UnsupportedOnBackend):
-        DispatchTable(force="kernel").gemv_path(1, 8, "N", torch.float16,
-                                                H100)
+        ops.unpad_cast(x, 20, torch.float32, backend="h100")
+    with pytest.raises(UnsupportedOnBackend):
+        DispatchTable(force="kernel").gemv_path(torch.float16, H100)
+    with pytest.raises(UnsupportedOnBackend):
+        DispatchTable(force="kernel").gemv_path(torch.float32,
+                                                probe_backend("cpu"))
     with pytest.raises(ValueError):
         DispatchTable(force="pallas")
 

@@ -70,10 +70,16 @@ def test_dense_matrix_consistent_with_dense_matvec():
 
 @pytest.mark.parametrize("Nt,Nd,Nm", [(5, 3, 16), (8, 4, 10)])
 def test_heat_equation_p2o_matches_jax(Nt, Nd, Nm):
-    got = ttz.heat_equation_p2o(Nt, Nd, Nm)
+    got = ttz.heat_equation_p2o(Nt, Nd, Nm, device="cpu")
     want = jtz.heat_equation_p2o(Nt, Nd, Nm)
     assert got.shape == (Nt, Nd, Nm) and got.dtype == torch.float64
     assert _rel(got, want) <= 1e-13
+
+
+def test_heat_equation_p2o_without_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttz.heat_equation_p2o(4, 2, 8)
 
 
 def test_random_unrepresentable_loses_bits_on_f32_cast():
