@@ -7,22 +7,39 @@ Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit.  It:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the torch and
-   CUDA versions, and builds the hand-written kernels from ``src/``;
-2. holds each kernel against its plain PyTorch version on the card, at
-   ragged small shapes and at the paper shapes, for every dtype it takes:
-   pad/unpad bitwise, sbgemv at rel <= 1e-12 (f64), 1e-5 (f32), 2e-2 (bf16),
-   and checks that automatic dispatch on the card launches the sbgemv
-   kernels at tall as well as short-wide shapes;
-3. drives the main path, ``FFTMatvec.from_block_column`` -> ``matvec`` /
-   ``rmatvec`` at the paper's shape N_t=1000, N_d=100, N_m=5000, for the
-   seven named precision configs, with the launch counters reset just
-   before and read just after; checks the ddddd adjoint identity
-   (<= 1e-12), each config against the same operator under the
-   ``torch-ref`` oracles, that the error against ddddd grows d -> s -> h,
-   and ddddd against the dense oracle at a small shape (<= 1e-13);
+   CUDA versions, and builds the hand-written kernels from ``src/`` (one
+   ``nvcc`` per source, all started together);
+2. holds each of the seven kernels against its plain PyTorch version on
+   the card, at ragged small shapes and at the paper shapes, for every
+   dtype it takes: pad/unpad bitwise; sbgemv, sbgemm (S = 8 and 32) and
+   the Gram blocks at rel <= 1e-12 (f64), 1e-5 (f32), 2e-2 (bf16); and
+   checks that automatic dispatch on the card launches the kernels of
+   ``ops.sbgemv``, ``ops.sbgemm`` and ``ops.sbgemm_gram`` at tall as well
+   as short-wide shapes;
+3. drives the main paths at the paper's shape N_t=1000, N_d=100,
+   N_m=5000, each with the launch counters reset just before and read
+   just after:
+   a. ``matvec`` / ``rmatvec`` for the seven named precision configs:
+      the ddddd adjoint identity (<= 1e-12), each config against the
+      ``torch-ref`` oracles, error growth d -> s -> h, and ddddd against
+      the dense oracle at a small shape (<= 1e-13);
+   b. ``matmat`` / ``rmatmat`` on S = 8 columns for the seven configs:
+      each column against ``matvec`` of that column within its level's
+      tolerance, and the block adjoint identity at ddddd (<= 1e-12);
+   c. the exact Gram (S = 8, data and parameter space) against the
+      composed ``rmatmat(matmat(.))`` (<= 1e-12), with the mask stage's
+      pad/unpad launches counted, and the Hessian action at S = 1;
+   d. the data-space circulant G_hat, kernel against ``torch-ref``;
+   e. 30 fixed iterations of LSQR and CGNR on S = 8 observation blocks
+      at ddddd, kernel path against ``torch-ref``;
+   f. the inverse-problem example (``repro_torch.examples.
+      inverse_problem``) at its own shape, inside the reference example's
+      acceptance bands;
 4. times each kernel, its plain version and one PyTorch call for the same
    function (CUDA events, median of 20 after warm-up), the end-to-end
-   matvec/rmatvec per config and the per-phase split for ddddd and dssdd.
+   matvec/rmatvec per config and the per-phase split for ddddd and dssdd,
+   matmat/rmatmat per right-hand side against matvec, the solvers per
+   iteration, the Hessian action and the G_hat setup.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -43,14 +60,21 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit.
+# NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit: the
+# fastest rate the card has for each input type.  f64: the FP64 tensor
+# cores (67 TFLOP/s; the FP64 vector units give 34).  f32: the FP32 vector
+# units ("s" is IEEE f32; TF32 would round the inputs).  bf16: the tensor
+# cores with f32 accumulation.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}   # FP64 / FP32 vector
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
 TOL = {"d": 1e-12, "s": 1e-5, "h": 2e-2}
 LEVEL_OF = {torch.float64: "d", torch.float32: "s", torch.bfloat16: "h"}
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 REPEATS = 20
 SEED = 0
+S_BLOCK = 8          # the main path's block of right-hand sides
+S_WIDE = 32          # the Hessian-assembly chunk
+SOLVER_ITERS = 30
 
 
 def name(dt: torch.dtype) -> str:
@@ -69,6 +93,33 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 
 def max_abs(a, b) -> float:
     return (a.to(torch.float64) - b.to(torch.float64)).abs().max().item()
+
+
+def rel(got, want) -> float:
+    """||got - want|| / ||want|| in f64 (a zero reference divides by 1)."""
+    w = want.to(torch.float64)
+    return (got.to(torch.float64) - w).norm().item() / (w.norm().item() or 1.0)
+
+
+def check_planes(what: str, got, want, dt) -> float:
+    """Hold each output plane of a kernel against its plain version at the
+    level's tolerance; returns the largest absolute difference."""
+    tol = TOL[LEVEL_OF[dt]]
+    err = 0.0
+    for g, w in zip(got, want):
+        if tuple(g.shape) != tuple(w.shape) or g.dtype != w.dtype:
+            fail(f"{what}: kernel gives {tuple(g.shape)} {g.dtype}, plain "
+                 f"{tuple(w.shape)} {w.dtype}")
+        r = rel(g, w)
+        if not r <= tol:
+            fail(f"{what}: rel err {r:.3e} > {tol:g}")
+        err = max(err, max_abs(g, w))
+    return err
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def bound_ms(bytes_moved: float, flops: float, flop_dtype: str):
@@ -128,25 +179,43 @@ def check_pad_kernels(dev, R, T, P, timed, results, time_fn):
 
 def _library(Ar, Ai, x_re, x_im, mode):
     """One torch.bmm for the same function, its operands built outside the
-    timed call.  f32/f64: complex tensors built from the planes.  bf16
-    (torch has no complex bf16 matmul): the real planes stacked, A as
-    (B, 2m, n) for mode N or (B, m, 2n) for T/H and x as (B, ., 2), so one
-    bmm reads the same bytes and gives all four real products; the final
-    re/im combine is left out."""
+    timed call; x is (B, len) or (B, len, S).  f32/f64: complex tensors
+    built from the planes.  bf16 (torch has no complex bf16 matmul): the
+    real planes stacked, A as (B, 2m, n) for mode N or (B, m, 2n) for T/H
+    and x as (B, ., 2S), so one bmm reads the same bytes and gives all four
+    real products; the final re/im combine is left out."""
+    if x_re.ndim == 2:
+        x_re, x_im = x_re[..., None], x_im[..., None]
     if Ar.dtype == torch.bfloat16:
-        X = torch.stack([x_re, x_im], dim=-1)
+        X = torch.cat([x_re, x_im], dim=-1)
         if mode == "N":
             As = torch.cat([Ar, Ai], dim=1)
             return lambda _: torch.bmm(As, X)
         As = torch.cat([Ar, Ai], dim=2)
         return lambda _: torch.bmm(As.mT, X)
     Ac = torch.complex(Ar, Ai)
-    xc = torch.complex(x_re, x_im).unsqueeze(-1)
+    xc = torch.complex(x_re, x_im)
     if mode == "N":
         return lambda _: torch.bmm(Ac, xc)
     if mode == "H":
         return lambda _: torch.bmm(Ac.mH, xc)
     return lambda _: torch.bmm(Ac.mT, xc)
+
+
+def _library_gram(Ar, Ai, data: bool):
+    """One torch.bmm for the Gram blocks: A A^H (data) or A^H A on complex
+    tensors at f32/f64; at bf16 the stacked real planes against
+    themselves, which gives all four real products (combine left out)."""
+    if Ar.dtype == torch.bfloat16:
+        if data:
+            As = torch.cat([Ar, Ai], dim=1)              # (B, 2m, n)
+            return lambda _: torch.bmm(As, As.mT)
+        As = torch.cat([Ar, Ai], dim=2)                  # (B, m, 2n)
+        return lambda _: torch.bmm(As.mT, As)
+    Ac = torch.complex(Ar, Ai)
+    if data:
+        return lambda _: torch.bmm(Ac, Ac.mH)
+    return lambda _: torch.bmm(Ac.mH, Ac)
 
 
 def check_sbgemv_kernels(dev, B, m, n, timed, results, time_fn):
@@ -175,24 +244,15 @@ def check_sbgemv_kernels(dev, B, m, n, timed, results, time_fn):
                 pfn = lambda _: sk.sbgemv_th_complex_plain(Ar, Ai, xr, xi,
                                                            conj, dt)
                 x_elems, y_elems = B * m, B * n
-            got, want = kfn(None), pfn(None)
-            err = 0.0
-            for g, w in zip(got, want):
-                denom = w.to(torch.float64).norm().item() or 1.0
-                rel = (g.to(torch.float64) - w.to(torch.float64)).norm().item() / denom
-                if not rel <= TOL[LEVEL_OF[dt]]:
-                    fail(f"{kname} mode {mode} {name(dt)} at {(B, m, n)}: "
-                         f"rel err {rel:.3e} > {TOL[LEVEL_OF[dt]]:g}")
-                err = max(err, max_abs(g, w))
-            print(f"{kname} mode {mode} {name(dt)} at {(B, m, n)}: "
-                  f"max abs err vs plain {err:.3e}", flush=True)
+            what = f"{kname} mode {mode} {name(dt)} at {(B, m, n)}"
+            err = check_planes(what, kfn(None), pfn(None), dt)
+            print(f"{what}: max abs err vs plain {err:.3e}", flush=True)
             if not timed or mode == "T":
                 continue
             s = dt.itemsize
             nbytes = 2 * B * m * n * s + 2 * x_elems * s + 2 * y_elems * s
             flops = 8 * B * m * n
-            acc = "float64" if dt == torch.float64 else "float32"
-            b_ms, b_by = bound_ms(nbytes, flops, acc)
+            b_ms, b_by = bound_ms(nbytes, flops, name(dt))
             lib = _library(Ar, Ai, xr, xi, mode)
             results[kname][name(dt)] = {
                 "shape": [B, m, n], "mode": mode, "max_abs_err": err,
@@ -227,8 +287,117 @@ def check_dispatch_on_card(dev):
           "(2, 300, 50) for every mode and dtype", flush=True)
 
 
+def check_sbgemm_kernels(dev, B, m, n, S_list, timed, results, time_fn):
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    A64 = [torch.randn((B, m, n), generator=gen, device=dev,
+                       dtype=torch.float64) for _ in range(2)]
+    for dt in DTYPES:
+        Ar, Ai = (a.to(dt) for a in A64)
+        for S in S_list:
+            for mode in "NTH":
+                xlen, ylen = (n, m) if mode == "N" else (m, n)
+                Xr, Xi = (torch.randn((B, xlen, S), generator=gen, device=dev,
+                                      dtype=torch.float64).to(dt)
+                          for _ in range(2))
+                conj = mode == "H"
+                if mode == "N":
+                    kname = "sbgemm_n_complex"
+                    kfn = lambda _: sk.sbgemm_n_complex(Ar, Ai, Xr, Xi)
+                    pfn = lambda _: sk.sbgemm_n_complex_plain(Ar, Ai, Xr, Xi,
+                                                              dt)
+                else:
+                    kname = "sbgemm_th_complex"
+                    kfn = lambda _: sk.sbgemm_th_complex(Ar, Ai, Xr, Xi,
+                                                         conj=conj)
+                    pfn = lambda _: sk.sbgemm_th_complex_plain(
+                        Ar, Ai, Xr, Xi, conj, dt)
+                what = f"{kname} mode {mode} {name(dt)} at {(B, m, n, S)}"
+                err = check_planes(what, kfn(None), pfn(None), dt)
+                print(f"{what}: max abs err vs plain {err:.3e}", flush=True)
+                if not timed or mode == "T":
+                    continue
+                nbytes = 2 * dt.itemsize * (B * m * n + B * xlen * S
+                                            + B * ylen * S)
+                flops = 8 * B * m * n * S
+                b_ms, b_by = bound_ms(nbytes, flops, name(dt))
+                lib = _library(Ar, Ai, Xr, Xi, mode)
+                results[kname][f"{name(dt)} S={S}"] = {
+                    "shape": [B, m, n, S], "mode": mode, "max_abs_err": err,
+                    "ms": time_fn(kfn, None), "plain_ms": time_fn(pfn, None),
+                    "library_ms": time_fn(lib, None),
+                    "bytes": nbytes, "flops": flops,
+                    "bound_ms": b_ms, "bound_by": b_by}
+                del lib
+        del Ar, Ai
+
+
+def check_gram_kernel(dev, B, m, n, spaces, timed, results, time_fn):
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    A64 = [torch.randn((B, m, n), generator=gen, device=dev,
+                       dtype=torch.float64) for _ in range(2)]
+    for dt in DTYPES:
+        Ar, Ai = (a.to(dt) for a in A64)
+        for space in spaces:
+            data = space == "data"
+            kfn = lambda _: sk.sbgemm_gram_complex(Ar, Ai, data=data)
+            pfn = lambda _: sk.sbgemm_gram_complex_plain(Ar, Ai, data, dt)
+            what = (f"sbgemm_gram_complex {space} {name(dt)} at "
+                    f"{(B, m, n)}")
+            err = check_planes(what, kfn(None), pfn(None), dt)
+            print(f"{what}: max abs err vs plain {err:.3e}", flush=True)
+            if not timed:
+                continue
+            P, K = (m, n) if data else (n, m)
+            nbytes = 2 * dt.itemsize * (B * m * n + B * P * P)
+            flops = 8 * B * P * P * K
+            b_ms, b_by = bound_ms(nbytes, flops, name(dt))
+            lib = _library_gram(Ar, Ai, data)
+            results["sbgemm_gram_complex"][f"{name(dt)} {space}"] = {
+                "shape": [B, m, n], "space": space, "max_abs_err": err,
+                "ms": time_fn(kfn, None), "plain_ms": time_fn(pfn, None),
+                "library_ms": time_fn(lib, None),
+                "bytes": nbytes, "flops": flops,
+                "bound_ms": b_ms, "bound_by": b_by}
+            del lib
+        del Ar, Ai
+
+
+def check_block_dispatch_on_card(dev):
+    """Automatic dispatch on the card takes the SBGEMM and Gram kernels at
+    every shape: short-wide and tall blocks, one column and more than a
+    pass of 32, every mode, space and dtype."""
+    from repro_torch.kernels import _build, ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for B, m, n, S in ((3, 3, 77, 5), (2, 300, 50, 33), (2, 4, 9, 1)):
+        for dt in DTYPES:
+            A = [torch.randn((B, m, n), generator=gen, device=dev).to(dt)
+                 for _ in range(2)]
+            for mode in "NTH":
+                X = [torch.randn((B, n if mode == "N" else m, S),
+                                 generator=gen, device=dev).to(dt)
+                     for _ in range(2)]
+                kname = ("sbgemm_n_complex" if mode == "N"
+                         else "sbgemm_th_complex")
+                before = _build.launch_counts[kname]
+                ops.sbgemm(*A, *X, mode)
+                if _build.launch_counts[kname] != before + 1:
+                    fail(f"ops.sbgemm mode {mode} {name(dt)} at "
+                         f"{(B, m, n, S)} did not launch {kname}")
+            for space in ("parameter", "data"):
+                before = _build.launch_counts["sbgemm_gram_complex"]
+                ops.sbgemm_gram(*A, space=space)
+                if _build.launch_counts["sbgemm_gram_complex"] != before + 1:
+                    fail(f"ops.sbgemm_gram {space} {name(dt)} at {(B, m, n)}"
+                         f" did not launch sbgemm_gram_complex")
+    print("ops.sbgemm and ops.sbgemm_gram on the card launched their kernels "
+          "at (3, 3, 77, 5), (2, 300, 50, 33) and (2, 4, 9, 1) for every "
+          "mode, space and dtype", flush=True)
+
+
 # ---------------------------------------------------------------------------
-# 3 + 4b. The main path
+# 3 + 4b. The main paths
 # ---------------------------------------------------------------------------
 
 def drive_main_path(dev, N_t, N_d, N_m, timed, time_fn, report):
@@ -348,6 +517,297 @@ def drive_main_path(dev, N_t, N_d, N_m, timed, time_fn, report):
     report["phases"] = phases
 
 
+def drive_block_path(dev, N_t, N_d, N_m, timed, time_fn, report):
+    """matmat / rmatmat on S_BLOCK columns for the seven named configs;
+    returns the ddddd operator for the phases after it."""
+    from repro_torch.core import (FFTMatvec, NAMED_CONFIGS,
+                                  random_block_column, rel_l2)
+    from repro_torch.core.precision import DOUBLE
+    from repro_torch.kernels import _build
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    F_col = random_block_column(gen, N_t, N_d, N_m)
+    op_d = FFTMatvec.from_block_column(F_col, precision=DOUBLE, device=dev)
+    del F_col
+    S = S_BLOCK
+    M = torch.randn((N_m, N_t, S), generator=gen, device=dev,
+                    dtype=torch.float64)
+    D = torch.randn((N_d, N_t, S), generator=gen, device=dev,
+                    dtype=torch.float64)
+    ops = {cfg.to_string(): op_d.with_precision(cfg) for cfg in NAMED_CONFIGS}
+    _build.reset_launch_counts()
+    outs = {c: (op.matmat(M), op.rmatmat(D)) for c, op in ops.items()}
+    sync(dev)
+    counts = dict(_build.launch_counts)
+    n_cfg = len(ops)
+    expected = {"pad_cast": 2 * n_cfg, "unpad_cast": 2 * n_cfg,
+                "sbgemm_n_complex": n_cfg, "sbgemm_th_complex": n_cfg,
+                "sbgemv_n_complex": 0, "sbgemv_th_complex": 0}
+    block = {"S": S, "launches": counts, "launches_expected": expected}
+    report["block"] = block
+    print(f"matmat/rmatmat S={S} launches {counts} (expected {expected})",
+          flush=True)
+    check_launches(counts, expected)
+
+    rows = {}
+    for c, op in ops.items():
+        Y, X = outs[c]
+        lvl = op.precision.lowest()
+        if tuple(Y.shape) != (N_d, N_t, S) or tuple(X.shape) != (N_m, N_t, S) \
+                or not (torch.isfinite(Y).all() and torch.isfinite(X).all()):
+            fail(f"{c} matmat/rmatmat: non-finite output or wrong shape")
+        e_f = max(rel_l2(Y[..., s], op.matvec(M[..., s])) for s in range(S))
+        e_a = max(rel_l2(X[..., s], op.rmatvec(D[..., s])) for s in range(S))
+        rows[c] = {"lowest": lvl, "columns_vs_matvec": e_f,
+                   "columns_vs_rmatvec": e_a}
+        print(f"{c}: matmat columns vs matvec {e_f:.3e}, rmatmat columns vs "
+              f"rmatvec {e_a:.3e} (<= {TOL[lvl]:g})", flush=True)
+        if not (e_f <= TOL[lvl] and e_a <= TOL[lvl]):
+            fail(f"{c}: block columns differ from matvec/rmatvec "
+                 f"{e_f:.3e} / {e_a:.3e} > {TOL[lvl]:g}")
+    Y, X = outs["ddddd"]
+    lhs, rhs = torch.sum(Y * D).item(), torch.sum(M * X).item()
+    adj = abs(lhs - rhs) / (Y.norm().item() * D.norm().item())
+    block["adjoint_identity"] = adj
+    block["configs"] = rows
+    print(f"ddddd block adjoint identity {adj:.3e} (<= 1e-12)", flush=True)
+    if not adj <= 1e-12:
+        fail(f"block adjoint identity {adj:.3e} > 1e-12")
+    del outs, Y, X
+
+    if timed:
+        times = {}
+        for c, op in ops.items():
+            t = {"matmat_ms": time_fn(op.matmat, M),
+                 "rmatmat_ms": time_fn(op.rmatmat, D),
+                 "matvec_ms": time_fn(op.matvec, M[..., 0].contiguous()),
+                 "rmatvec_ms": time_fn(op.rmatvec, D[..., 0].contiguous())}
+            t["matmat_per_rhs_ms"] = t["matmat_ms"] / S
+            t["rmatmat_per_rhs_ms"] = t["rmatmat_ms"] / S
+            times[c] = t
+            print(f"{c}: matmat S={S} {t['matmat_ms']:.3f} ms "
+                  f"({t['matmat_per_rhs_ms']:.3f} a column; matvec "
+                  f"{t['matvec_ms']:.3f}), rmatmat {t['rmatmat_ms']:.3f} ms "
+                  f"({t['rmatmat_per_rhs_ms']:.3f}; rmatvec "
+                  f"{t['rmatvec_ms']:.3f})", flush=True)
+        block["times"] = times
+        Mw = torch.randn((N_m, N_t, S_WIDE), generator=gen, device=dev,
+                         dtype=torch.float64)
+        Dw = torch.randn((N_d, N_t, S_WIDE), generator=gen, device=dev,
+                         dtype=torch.float64)
+        wide = {}
+        for c in ("ddddd", "dssdd"):
+            t = {"matmat_ms": time_fn(ops[c].matmat, Mw),
+                 "rmatmat_ms": time_fn(ops[c].rmatmat, Dw)}
+            t["matmat_per_rhs_ms"] = t["matmat_ms"] / S_WIDE
+            t["rmatmat_per_rhs_ms"] = t["rmatmat_ms"] / S_WIDE
+            wide[c] = t
+            print(f"{c}: matmat S={S_WIDE} {t['matmat_ms']:.3f} ms, rmatmat "
+                  f"{t['rmatmat_ms']:.3f} ms", flush=True)
+        block["times_S32"] = wide
+    return op_d
+
+
+def drive_gram_path(dev, op_d, timed, time_fn, report):
+    """The exact fused Gram on S_BLOCK columns in both spaces against the
+    composed products, and the data-space Hessian action at S = 1."""
+    from repro_torch.core import GaussianInverseProblem, rel_l2
+    from repro_torch.kernels import _build
+
+    N_t, N_d, N_m = op_d.N_t, op_d.N_d, op_d.N_m
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    out = {}
+    report["gram_exact"] = out
+    for space, rows in (("data", N_d), ("parameter", N_m)):
+        V = torch.randn((rows, N_t, S_BLOCK), generator=gen, device=dev,
+                        dtype=torch.float64)
+        g = op_d.gram(space=space)
+        _build.reset_launch_counts()
+        got = g.apply(V)
+        sync(dev)
+        counts = dict(_build.launch_counts)
+        # pad + the mask stage's unpad and pad + unpad, and one product of
+        # each direction
+        expected = {"pad_cast": 2, "unpad_cast": 2, "sbgemm_n_complex": 1,
+                    "sbgemm_th_complex": 1}
+        check_launches(counts, expected)
+        composed = (op_d.rmatmat(op_d.matmat(V)) if space == "parameter"
+                    else op_d.matmat(op_d.rmatmat(V)))
+        e = rel_l2(got, composed)
+        out[space] = {"S": S_BLOCK, "vs_composed": e, "launches": counts}
+        print(f"exact Gram {space} S={S_BLOCK}: vs composed {e:.3e} "
+              f"(<= 1e-12), launches {counts}", flush=True)
+        if not e <= 1e-12:
+            fail(f"exact Gram {space} vs composed {e:.3e} > 1e-12")
+        if timed:
+            out[space]["apply_ms"] = time_fn(g.apply, V)
+            out[space]["composed_ms"] = time_fn(
+                (lambda v: op_d.rmatmat(op_d.matmat(v))) if space ==
+                "parameter" else (lambda v: op_d.matmat(op_d.rmatmat(v))), V)
+            print(f"  apply {out[space]['apply_ms']:.3f} ms, composed "
+                  f"{out[space]['composed_ms']:.3f} ms", flush=True)
+        del V, got, composed
+
+    prob = GaussianInverseProblem(op_d, noise_var=1e-4)
+    v = torch.randn((N_d * N_t,), generator=gen, device=dev,
+                    dtype=torch.float64)
+    _build.reset_launch_counts()
+    h = prob.hessian_action(v)
+    sync(dev)
+    counts = dict(_build.launch_counts)
+    check_launches(counts, {"pad_cast": 2, "unpad_cast": 2,
+                            "sbgemv_n_complex": 1, "sbgemv_th_complex": 1,
+                            "sbgemm_n_complex": 0, "sbgemm_th_complex": 0})
+    v2 = v.reshape(N_d, N_t)
+    want = (op_d.matvec(op_d.rmatvec(v2)) + 1e-4 * v2).reshape(-1)
+    e = rel_l2(h, want)
+    hess = {"vs_composed": e, "launches": counts}
+    report["hessian_action"] = hess
+    print(f"Hessian action S=1: vs composed {e:.3e} (<= 1e-12), launches "
+          f"{counts}", flush=True)
+    if not e <= 1e-12:
+        fail(f"Hessian action vs composed {e:.3e} > 1e-12")
+    if timed:
+        hess["ms"] = time_fn(prob.hessian_action, v)
+        print(f"  Hessian action {hess['ms']:.3f} ms", flush=True)
+
+
+def drive_circulant(dev, op_d, timed, time_fn, report):
+    """The data-space circulant Gram: G_hat through the Gram kernel against
+    the ``torch-ref`` oracle, and its action."""
+    from repro_torch.core import GramOperator, rel_l2
+    from repro_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    circ = GramOperator.from_matvec(op_d, space="data", mode="circulant")
+    sync(dev)
+    counts = dict(_build.launch_counts)
+    check_launches(counts, {"sbgemm_gram_complex": 1})
+    ref = GramOperator.from_matvec(op_d.with_backend("torch-ref"),
+                                   space="data", mode="circulant")
+    G_re, G_im = circ.G_hat_re, circ.G_hat_im
+    if not (torch.equal(G_re, G_re.mT) and torch.equal(G_im, -G_im.mT)):
+        fail("circulant G_hat is not exactly Hermitian")
+    e_re, e_im = rel(G_re, ref.G_hat_re), rel(G_im, ref.G_hat_im)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    v = torch.randn((op_d.N_d, op_d.N_t), generator=gen, device=dev,
+                    dtype=torch.float64)
+    e_apply = rel_l2(circ.apply(v), ref.apply(v))
+    out = {"shape": list(G_re.shape), "G_hat_re_vs_ref": e_re,
+           "G_hat_im_vs_ref": e_im, "apply_vs_ref": e_apply,
+           "launches": counts}
+    report["circulant"] = out
+    print(f"circulant data-space G_hat {tuple(G_re.shape)}: vs torch-ref "
+          f"{e_re:.3e} / {e_im:.3e}, action {e_apply:.3e} (<= 1e-12), "
+          f"launches {counts}", flush=True)
+    if not max(e_re, e_im, e_apply) <= 1e-12:
+        fail(f"circulant Gram vs torch-ref {e_re:.3e} / {e_im:.3e} / "
+             f"{e_apply:.3e} > 1e-12")
+    if timed:
+        out["setup_ms"] = time_fn(
+            lambda _: GramOperator.from_matvec(op_d, space="data",
+                                               mode="circulant"), None)
+        out["apply_ms"] = time_fn(circ.apply, v)
+        print(f"  G_hat setup {out['setup_ms']:.3f} ms, action "
+              f"{out['apply_ms']:.3f} ms", flush=True)
+
+
+def drive_solvers(dev, op_d, timed, time_fn, report):
+    """SOLVER_ITERS fixed iterations (tol = 0) of LSQR and CGNR on
+    S_BLOCK observation blocks at ddddd, kernel path against torch-ref.
+
+    Checks: LSQR's residual estimate |phibar| is a product of rotation
+    factors <= 1, so its history never rises (4 ulps allowed for the
+    rounding of a rotation's sqrt).  CG's residual norm is not monotone
+    in general; on this well-conditioned operator it falls until the f64
+    roundoff floor, so CGNR's history is held to never rising above 1e-13
+    and to reach 1e-10.  The iterates of the two paths agree to 1e-10: the
+    damped normal operator here has a condition number of a few, so the
+    ~1e-16 difference two summation orders make per iteration stays far
+    below that."""
+    import numpy as np
+
+    from repro_torch import solvers
+    from repro_torch.core import rel_l2
+    from repro_torch.kernels import _build
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    D = torch.randn((op_d.N_d, op_d.N_t, S_BLOCK), generator=gen, device=dev,
+                    dtype=torch.float64)
+    ref_op = op_d.with_backend("torch-ref")
+    out = {}
+    report["solvers"] = out
+    for sname, fn, damp in (("lsqr", solvers.lsqr, 0.1),
+                            ("cgnr", solvers.cg_normal_equations, 0.01)):
+        def solve(op):
+            return fn(op, D, damp=damp, tol=0.0, maxiter=SOLVER_ITERS)
+        _build.reset_launch_counts()
+        res = solve(op_d)
+        sync(dev)
+        counts = dict(_build.launch_counts)
+        # one F* for the start, then one F and one F* an iteration
+        n_it = SOLVER_ITERS
+        check_launches(counts, {"sbgemm_n_complex": n_it,
+                                "sbgemm_th_complex": n_it + 1,
+                                "pad_cast": 2 * n_it + 1,
+                                "unpad_cast": 2 * n_it + 1})
+        h = res.residual_history
+        if res.n_iters != n_it or h.shape != (n_it, S_BLOCK):
+            fail(f"{sname}: {res.n_iters} iterations, history {h.shape}")
+        if sname == "lsqr":
+            rises = int((h[1:] > h[:-1] * (1 + 4 * 2.0 ** -52)).sum())
+        else:
+            rises = int(((h[1:] > h[:-1]) & (h[1:] > 1e-13)).sum())
+            if not h[-1].max() <= 1e-10:
+                fail(f"cgnr: final residual {h[-1].max():.3e} > 1e-10")
+        ref_res = solve(ref_op)
+        e_x = rel_l2(res.x, ref_res.x)
+        out[sname] = {"iters": n_it, "damp": damp, "launches": counts,
+                      "final_relres_max": float(h[-1].max()),
+                      "history_col0": [float(x) for x in h[:, 0]],
+                      "rises": rises, "x_vs_ref": e_x,
+                      "history_vs_ref_max_abs": float(
+                          np.abs(h - ref_res.residual_history).max())}
+        print(f"{sname} {n_it} iterations S={S_BLOCK}: final relres "
+              f"{h[-1].max():.3e}, rises {rises}, x vs torch-ref {e_x:.3e} "
+              f"(<= 1e-10), launches {counts}", flush=True)
+        if rises:
+            fail(f"{sname}: the residual history rose {rises} times")
+        if not e_x <= 1e-10:
+            fail(f"{sname}: kernel path vs torch-ref {e_x:.3e} > 1e-10")
+        if timed:
+            # whole solves: the median of 3 after one warm-up
+            ms = time_fn(solve, op_d, repeats=3, warmup=1)
+            out[sname]["ms_per_iter"] = ms / n_it
+            print(f"  {sname}: {ms / n_it:.3f} ms an iteration", flush=True)
+
+
+def drive_example(dev, report):
+    """The inverse-problem example at its own shape, on the card."""
+    from repro_torch.examples import inverse_problem as example
+    from repro_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = example.run(dev, verbose=False)
+    sync(dev)
+    out["seconds"] = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    out["launches"] = counts
+    report["example"] = out
+    print(f"inverse-problem example {tuple(out['shape'])}: misfits CG "
+          f"{out['cg_misfit']:.3e}, mixed {out['mixed_misfit']:.3e}, batch "
+          f"max {out['batch_misfit_max']:.3e}; mixed vs f64 MAP "
+          f"{out['mixed_vs_f64_map']:.3e}; LSQR/CGNR iters "
+          f"{out['lsqr_iters']}/{out['cgnr_iters']}; EIG {out['eig']:.2f} "
+          f"vs {out['eig_2_sensors']:.2f} nats with 2 sensors; "
+          f"{out['seconds']:.1f} s; launches {counts}", flush=True)
+    bad = example.check(out)
+    if bad:
+        fail("inverse-problem example: " + "; ".join(bad))
+    check_launched(counts, REPLACES)
+
+
 def check_launches(counts, expected) -> None:
     for k, n in expected.items():
         if counts.get(k, 0) != n:
@@ -355,39 +815,64 @@ def check_launches(counts, expected) -> None:
                  f"path, expected {n}")
 
 
+def check_launched(counts, names) -> None:
+    missing = [k for k in names if not counts.get(k, 0)]
+    if missing:
+        fail(f"kernels {missing} were not launched on this path")
+
+
 # ---------------------------------------------------------------------------
 
+# kernel: (source, the TPU kernel it replaces, the results entry reported
+# at top level: f64 planes at the main path's shape)
 REPLACES = {
     "pad_cast": ("src/repro_torch/kernels/csrc/pad_cast.cu",
-                 "src/repro/kernels/pad_cast.py:27"),
+                 "src/repro/kernels/pad_cast.py:27", "float64"),
     "unpad_cast": ("src/repro_torch/kernels/csrc/pad_cast.cu",
-                   "src/repro/kernels/pad_cast.py:49"),
+                   "src/repro/kernels/pad_cast.py:49", "float64"),
     "sbgemv_n_complex": ("src/repro_torch/kernels/csrc/sbgemv.cu",
-                         "src/repro/kernels/sbgemv.py:120"),
+                         "src/repro/kernels/sbgemv.py:120", "float64"),
     "sbgemv_th_complex": ("src/repro_torch/kernels/csrc/sbgemv.cu",
-                          "src/repro/kernels/sbgemv.py:67"),
+                          "src/repro/kernels/sbgemv.py:67", "float64"),
+    "sbgemm_n_complex": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                         "src/repro/kernels/sbgemv.py:296",
+                         f"float64 S={S_BLOCK}"),
+    "sbgemm_th_complex": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                          "src/repro/kernels/sbgemv.py:243",
+                          f"float64 S={S_BLOCK}"),
+    "sbgemm_gram_complex": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                            "src/repro/kernels/sbgemv.py:342",
+                            "float64 data"),
 }
 
 
 def kernel_line(results, launches):
     """The per-kernel JSON: top-level numbers at f64 (the paper's ddddd
-    planes), every dtype under ``by_dtype``."""
+    planes) at the main path's shape, every dtype and shape under
+    ``by_dtype``."""
     out = []
-    for k, (src, rep) in REPLACES.items():
-        top = results[k]["float64"]
+    for k, (src, rep, key) in REPLACES.items():
+        top = results[k][key]
         out.append({"name": k, "route": "cuda", "source": src,
                     "replaces": rep, "launches": launches.get(k, 0),
                     "max_abs_err": top["max_abs_err"],
                     "ms": top["ms"], "plain_ms": top["plain_ms"],
                     "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-                    "library_ms": top["library_ms"], "dtype": "float64",
+                    "library_ms": top["library_ms"], "at": key,
                     "by_dtype": results[k]})
     return {"kernels": out}
+
+
+def free(dev) -> None:
+    """Hand the caching allocator's free blocks back between phases."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def run(dev, N_t, N_d, N_m, timed, time_fn):
     results = {k: {} for k in REPLACES}
     report = {}
+    # slice 1: pad/unpad and the SBGEMV kernels, matvec / rmatvec
     check_pad_kernels(dev, 5, 77, 154, False, results, time_fn)
     check_sbgemv_kernels(dev, 3, 3, 77, False, results, time_fn)
     check_sbgemv_kernels(dev, 2, 300, 50, False, results, time_fn)
@@ -396,6 +881,31 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     check_pad_kernels(dev, N_m, N_t, 2 * N_t, timed, results, time_fn)
     check_sbgemv_kernels(dev, N_t + 1, N_d, N_m, timed, results, time_fn)
     drive_main_path(dev, N_t, N_d, N_m, timed, time_fn, report)
+    free(dev)
+    # slice 2: the SBGEMM and Gram kernels, blocks, Gram, solvers, example
+    check_sbgemm_kernels(dev, 3, 7, 130, (5,), False, results, time_fn)
+    check_sbgemm_kernels(dev, 2, 300, 50, (1, 33), False, results, time_fn)
+    for shape in ((3, 7, 130), (2, 300, 50)):
+        check_gram_kernel(dev, *shape, ("parameter", "data"), False, results,
+                          time_fn)
+    if dev.type == "cuda":
+        check_block_dispatch_on_card(dev)
+    check_sbgemm_kernels(dev, N_t + 1, N_d, N_m, (S_BLOCK, S_WIDE), timed,
+                         results, time_fn)
+    free(dev)
+    # parameter-space G_hat at the paper shape is (1001, 5000, 5000) a
+    # plane: only the data space is held there
+    check_gram_kernel(dev, N_t + 1, N_d, N_m, ("data",), timed, results,
+                      time_fn)
+    free(dev)
+    op_d = drive_block_path(dev, N_t, N_d, N_m, timed, time_fn, report)
+    free(dev)
+    drive_gram_path(dev, op_d, timed, time_fn, report)
+    drive_circulant(dev, op_d, timed, time_fn, report)
+    drive_solvers(dev, op_d, timed, time_fn, report)
+    del op_d
+    free(dev)
+    drive_example(dev, report)
     return results, report
 
 
@@ -431,15 +941,22 @@ def main() -> int:
         print(f"  {src}: {len(regs)} kernels, at most {max(regs, default=0)} "
               f"registers a thread, spills: {spills or 'none'}")
 
-    def time_fn(fn, arg):
-        return time_callable(fn, arg, repeats=REPEATS, warmup=3)
+    def time_fn(fn, arg, repeats=REPEATS, warmup=3):
+        return time_callable(fn, arg, repeats=repeats, warmup=warmup)
 
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = PAPER_SINGLE
     results, report = run(dev, cfg.N_t, cfg.N_d, cfg.N_m, True, time_fn)
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    line = kernel_line(results, report["launches"])
+    print(f"peak device memory {report['peak_memory_gb']:.2f} GB", flush=True)
+    # each kernel's launches on the main path that uses it
+    launches = {**report["launches"],
+                **{k: report["block"]["launches"][k]
+                   for k in ("sbgemm_n_complex", "sbgemm_th_complex")},
+                "sbgemm_gram_complex":
+                    report["circulant"]["launches"]["sbgemm_gram_complex"]}
+    line = kernel_line(results, launches)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

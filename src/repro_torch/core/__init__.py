@@ -2,7 +2,10 @@
 
 Public API:
     PrecisionConfig, ExecOpts, FFTMatvec       mixed-precision matvec
-    pipeline.Stage / matvec_plan / run_plan    stage graph + executor
+    pipeline.Stage / matvec_plan / gram_plan   stage graph + executor
+    GramOperator (FFTMatvec.gram)              fused Fourier-domain Gram
+    GaussianInverseProblem                     MAP points, Hessians, EIG
+    error_model.relative_error_bound           paper eq. (6)
     toeplitz helpers                           dense oracles, setup, data
 """
 
@@ -15,6 +18,10 @@ from .precision import (PrecisionConfig, TileMap, all_configs,  # noqa: F401
 from .pipeline import (ExecOpts, Stage, matvec_plan, gram_plan,  # noqa: F401
                        run_plan, stage_counts, record_stages)
 from .fftmatvec import FFTMatvec, phase_callables  # noqa: F401
+from .gram import GramOperator  # noqa: F401
+from .hessian import GaussianInverseProblem  # noqa: F401
+from .error_model import (relative_error_bound, dominant_phase,  # noqa: F401
+                          lattice_bounds, phase_factors)
 from .toeplitz import (dense_from_block_column, dense_matvec,  # noqa: F401
                        dense_rmatvec, fourier_block_column,
                        random_block_column, random_unrepresentable,

@@ -11,12 +11,14 @@ Phases (paper §2.4), for ``d = F m``:
 plus the SOTI<->TOSI reorders between phases 2-3 and 3-4, which are pure
 memory ops at the lower of the adjacent phases' precisions (paper
 footnote 8).  The adjoint ``m = F* d`` runs the same phases with a
-conjugate-transpose SBGEMV.  Both compile to a
-:mod:`repro_torch.core.pipeline` plan and run through its executor.
+conjugate-transpose SBGEMV.  Blocks of S right-hand sides
+(``matmat``/``rmatmat``) run the same plans with an SBGEMM in Phase 3, and
+:meth:`FFTMatvec.gram` returns the fused Gram operator
+(:mod:`repro_torch.core.gram`).  Every variant compiles to a
+:mod:`repro_torch.core.pipeline` plan and runs through its executor.
 
-This slice is single-device and single-right-hand-side; meshes, S > 1
-blocks, the Gram operator and the autotuner raise ``NotImplementedError``
-naming the ROADMAP.md item that brings them.
+The operator is single-device; meshes and the autotuner raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -92,7 +94,14 @@ class FFTMatvec:
                                   "item 10 (tune/)")
 
     def gram(self, space: str = "parameter", mode: str = "exact"):
-        raise NotImplementedError(pipeline._LATER["gram"])
+        """The fused Fourier-domain Gram operator
+        (:class:`repro_torch.core.gram.GramOperator`): ``space="parameter"``
+        is F*F, ``space="data"`` is F F*; ``mode="exact"`` matches the
+        composed ``rmatvec(matvec(v))`` to roundoff, ``mode="circulant"``
+        applies precomputed per-bin blocks G_hat[k] in one 5-phase pass
+        (periodic-Gram semantics)."""
+        from .gram import GramOperator  # deferred: gram builds on this class
+        return GramOperator.from_matvec(self, space=space, mode=mode)
 
     # -- shapes --------------------------------------------------------------
     @property
@@ -133,13 +142,16 @@ class FFTMatvec:
         return self._apply(d, adjoint=True)
 
     def matmat(self, M):
-        """D = F M for M (N_m, N_t, S); only S = 1 in this slice."""
+        """D = F M over S stacked right-hand sides: M (N_m, N_t, S) ->
+        D (N_d, N_t, S), RHS axis minor.  A 2-D input is promoted to S = 1
+        and squeezed back, so ``matvec`` is its S = 1 case."""
         if M.ndim == 2:
             return self.matmat(M[..., None])[..., 0]
         return self._apply(M, adjoint=False)
 
     def rmatmat(self, D):
-        """M = F* D for D (N_d, N_t, S); only S = 1 in this slice."""
+        """M = F* D over S stacked right-hand sides: D (N_d, N_t, S) ->
+        M (N_m, N_t, S)."""
         if D.ndim == 2:
             return self.rmatmat(D[..., None])[..., 0]
         return self._apply(D, adjoint=True)

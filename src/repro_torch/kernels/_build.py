@@ -33,6 +33,8 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
 ENTRIES = {
     "pad_cast": {"pad_cast": (2, 4, 3), "unpad_cast": (2, 3, 3)},
     "sbgemv": {"sbgemv_n_complex": (6, 3, 3), "sbgemv_th_complex": (6, 3, 4)},
+    "sbgemm": {"sbgemm_n_complex": (6, 4, 3), "sbgemm_th_complex": (6, 4, 4),
+               "sbgemm_gram_complex": (4, 3, 4)},
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

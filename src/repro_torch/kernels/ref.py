@@ -28,15 +28,18 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def complex_contract(A_re, A_im, x_re, x_im, mode: str):
-    """Split-plane complex GEMV at the accumulator dtype, with no output
-    cast: modes "N" (y = A x), "T" (y = A^T x), "H" (y = A^H x)."""
+    """Split-plane complex GEMV, or GEMM when x carries a trailing RHS axis,
+    at the accumulator dtype, with no output cast: modes "N" (y = A x),
+    "T" (y = A^T x), "H" (y = A^H x).  A planes (B, m, n); x planes (B, n)
+    or (B, n, S) for "N", (B, m) or (B, m, S) otherwise."""
     acc = acc_dtype(A_re.dtype)
     Ar, Ai = A_re.to(acc), A_im.to(acc)
     xr, xi = x_re.to(acc), x_im.to(acc)
+    rhs = "s" if x_re.ndim == 3 else ""
     if mode == "N":
-        eq = "bmn,bn->bm"
+        eq = f"bmn,bn{rhs}->bm{rhs}"
     elif mode in ("T", "H"):
-        eq = "bmn,bm->bn"
+        eq = f"bmn,bm{rhs}->bn{rhs}"
     else:
         raise ValueError(f"bad mode {mode!r}")
     rr, ii = torch.einsum(eq, Ar, xr), torch.einsum(eq, Ai, xi)
@@ -44,6 +47,23 @@ def complex_contract(A_re, A_im, x_re, x_im, mode: str):
     if mode == "H":   # conj(A)^T x
         return rr + ii, ir - ri
     return rr - ii, ir + ri
+
+
+def gram_contract(A_re, A_im, space: str):
+    """Per-batch Gram blocks at the accumulator dtype, with no output cast
+    and no symmetrization: ``space="parameter"`` G = A^H A (B, n, n),
+    ``space="data"`` G = A A^H (B, m, m)."""
+    acc = acc_dtype(A_re.dtype)
+    Ar, Ai = A_re.to(acc), A_im.to(acc)
+    if space == "parameter":
+        eq = "bmn,bmk->bnk"           # (Ar - i Ai)^T (Ar + i Ai)
+        return (torch.einsum(eq, Ar, Ar) + torch.einsum(eq, Ai, Ai),
+                torch.einsum(eq, Ar, Ai) - torch.einsum(eq, Ai, Ar))
+    if space == "data":
+        eq = "bmn,bkn->bmk"           # (Ar + i Ai) (Ar^T - i Ai^T)
+        return (torch.einsum(eq, Ar, Ar) + torch.einsum(eq, Ai, Ai),
+                torch.einsum(eq, Ai, Ar) - torch.einsum(eq, Ar, Ai))
+    raise ValueError(f"bad gram space {space!r}")
 
 
 def sbgemv_complex_ref(A_re, A_im, x_re, x_im, mode: str = "N"):
@@ -54,6 +74,21 @@ def sbgemv_complex_ref(A_re, A_im, x_re, x_im, mode: str = "N"):
     """
     y_re, y_im = complex_contract(A_re, A_im, x_re, x_im, mode)
     return y_re.to(A_re.dtype), y_im.to(A_re.dtype)
+
+
+def sbgemm_complex_ref(A_re, A_im, X_re, X_im, mode: str = "N"):
+    """Strided-batched complex GEMM on split re/im planes: the modes of
+    :func:`sbgemv_complex_ref` with the RHS axis last, X (B, n, S) for "N"
+    and (B, m, S) otherwise.  Returns (Y_re, Y_im) in the input dtype."""
+    return sbgemv_complex_ref(A_re, A_im, X_re, X_im, mode)
+
+
+def sbgemm_gram_ref(A_re, A_im, space: str = "parameter"):
+    """Per-batch Hermitian Gram blocks on split re/im planes: G = A^H A
+    ("parameter", (B, n, n)) or A A^H ("data", (B, m, m)).  Returns
+    (G_re, G_im) in the input dtype."""
+    G_re, G_im = gram_contract(A_re, A_im, space)
+    return G_re.to(A_re.dtype), G_im.to(A_re.dtype)
 
 
 def sbgemv_real_ref(A, x, mode: str = "N"):

@@ -7,7 +7,10 @@ product.  The fix tiles the columns so a block computes a chunk of
 outputs.  The kernels in ``csrc/sbgemv.cu`` do that for the transpose
 modes and give the non-transpose mode one warp per output row; complex
 data is carried as split re/im planes, each A element read once for both
-output planes.
+output planes.  Their multi-RHS twins (SBGEMM, S right-hand sides on a
+trailing axis) and the per-bin Gram blocks G = A^H A live in
+``csrc/sbgemm.cu``; there each A element also serves every column of a
+pass, and f64 planes run on the FP64 tensor cores.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version beside it for CPU tensors.  Sums accumulate in f64 for f64 planes
@@ -22,32 +25,40 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import cast, complex_contract
+from .ref import cast, complex_contract, gram_contract
 
 
-def _check(A_re, A_im, x_re, x_im, x_axis: int, out_dtype, what: str) -> None:
+def _check_planes(planes, out_dtype, what: str) -> None:
+    if any(p.dtype != planes[0].dtype for p in planes):
+        raise TypeError(f"{what}: all planes must share one dtype")
+    for dt in (planes[0].dtype, out_dtype):
+        if dt not in _build.DTYPE_CODES:
+            raise TypeError(f"{what} takes bf16/f32/f64, not {dt}")
+    if any(p.device != planes[0].device for p in planes):
+        raise ValueError(f"{what}: planes on different devices")
+    if planes[0].device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: unsupported device {planes[0].device}")
+    if not all(p.is_contiguous() for p in planes):
+        raise ValueError(f"{what} needs contiguous planes")
+
+
+def _check(A_re, A_im, x_re, x_im, x_axis: int, out_dtype, what: str,
+           rhs: bool = False) -> None:
+    """Shapes of a GEMV (x (B, len)) or, with ``rhs``, a GEMM (X (B, len,
+    S)), ``len`` being A's axis ``x_axis``; then dtypes, device, layout."""
     if A_re.ndim != 3:
         raise ValueError(f"{what}: A planes must be (B, m, n), got "
                          f"{tuple(A_re.shape)}")
-    B, x_len = A_re.shape[0], A_re.shape[x_axis]
     if A_im.shape != A_re.shape:
         raise ValueError(f"{what}: A planes differ in shape")
+    want = (A_re.shape[0], A_re.shape[x_axis])
+    if rhs:
+        want += (x_re.shape[-1] if x_re.ndim == 3 else -1,)
     for x in (x_re, x_im):
-        if tuple(x.shape) != (B, x_len):
-            raise ValueError(f"{what}: x planes must be {(B, x_len)}, got "
+        if tuple(x.shape) != want:
+            raise ValueError(f"{what}: x planes must be {want}, got "
                              f"{tuple(x.shape)}")
-    planes = (A_re, A_im, x_re, x_im)
-    if any(p.dtype != A_re.dtype for p in planes):
-        raise TypeError(f"{what}: all planes must share one dtype")
-    for dt in (A_re.dtype, out_dtype):
-        if dt not in _build.DTYPE_CODES:
-            raise TypeError(f"{what} takes bf16/f32/f64, not {dt}")
-    if any(p.device != A_re.device for p in planes):
-        raise ValueError(f"{what}: planes on different devices")
-    if A_re.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{what}: unsupported device {A_re.device}")
-    if not all(p.is_contiguous() for p in planes):
-        raise ValueError(f"{what} needs contiguous planes")
+    _check_planes((A_re, A_im, x_re, x_im), out_dtype, what)
 
 
 def sbgemv_n_complex_plain(A_re, A_im, x_re, x_im, out_dtype):
@@ -63,18 +74,20 @@ def sbgemv_th_complex_plain(A_re, A_im, x_re, x_im, conj, out_dtype):
     return cast(y_re, out_dtype), cast(y_im, out_dtype)
 
 
-def _launch(entry: str, A_re, A_im, x_re, x_im, y_shape, out_dtype, *ints):
-    y_re = torch.empty(y_shape, dtype=out_dtype, device=A_re.device)
-    y_im = torch.empty(y_shape, dtype=out_dtype, device=A_re.device)
-    fn = getattr(_build.library("sbgemv"), entry)
-    err = fn(A_re.data_ptr(), A_im.data_ptr(), x_re.data_ptr(),
-             x_im.data_ptr(), y_re.data_ptr(), y_im.data_ptr(),
-             *A_re.shape, *ints, _build.DTYPE_CODES[A_re.dtype],
-             _build.DTYPE_CODES[out_dtype], A_re.device.index,
-             _build.stream_of(A_re))
+def _launch(source: str, entry: str, inputs, out_shape, out_dtype, sizes,
+            *ints):
+    """Launch C entry ``entry`` of ``csrc/<source>.cu`` on ``inputs`` (A
+    planes first) into two new ``out_shape`` planes; counts the launch."""
+    A = inputs[0]
+    outs = [torch.empty(out_shape, dtype=out_dtype, device=A.device)
+            for _ in range(2)]
+    fn = getattr(_build.library(source), entry)
+    err = fn(*(t.data_ptr() for t in (*inputs, *outs)), *sizes, *ints,
+             _build.DTYPE_CODES[A.dtype], _build.DTYPE_CODES[out_dtype],
+             A.device.index, _build.stream_of(A))
     _build.check(err, entry)
     _build.launch_counts[entry] += 1
-    return y_re, y_im
+    return tuple(outs)
 
 
 def sbgemv_n_complex(A_re, A_im, x_re, x_im,
@@ -86,8 +99,8 @@ def sbgemv_n_complex(A_re, A_im, x_re, x_im,
     B, m, n = A_re.shape
     if A_re.device.type == "cpu":
         return sbgemv_n_complex_plain(A_re, A_im, x_re, x_im, out_dtype)
-    return _launch("sbgemv_n_complex", A_re, A_im, x_re, x_im, (B, m),
-                   out_dtype)
+    return _launch("sbgemv", "sbgemv_n_complex", (A_re, A_im, x_re, x_im),
+                   (B, m), out_dtype, A_re.shape)
 
 
 def sbgemv_th_complex(A_re, A_im, x_re, x_im, *, conj: bool,
@@ -100,5 +113,76 @@ def sbgemv_th_complex(A_re, A_im, x_re, x_im, *, conj: bool,
     if A_re.device.type == "cpu":
         return sbgemv_th_complex_plain(A_re, A_im, x_re, x_im, conj,
                                        out_dtype)
-    return _launch("sbgemv_th_complex", A_re, A_im, x_re, x_im, (B, n),
-                   out_dtype, int(bool(conj)))
+    return _launch("sbgemv", "sbgemv_th_complex", (A_re, A_im, x_re, x_im),
+                   (B, n), out_dtype, A_re.shape, int(bool(conj)))
+
+
+# ---------------------------------------------------------------------------
+# Multi-RHS (SBGEMM) and per-bin Gram blocks: csrc/sbgemm.cu
+# ---------------------------------------------------------------------------
+
+def sbgemm_n_complex_plain(A_re, A_im, X_re, X_im, out_dtype):
+    """Plain version of ``sbgemm_n_complex``."""
+    return sbgemv_n_complex_plain(A_re, A_im, X_re, X_im, out_dtype)
+
+
+def sbgemm_th_complex_plain(A_re, A_im, X_re, X_im, conj, out_dtype):
+    """Plain version of ``sbgemm_th_complex``."""
+    return sbgemv_th_complex_plain(A_re, A_im, X_re, X_im, conj, out_dtype)
+
+
+def sbgemm_gram_complex_plain(A_re, A_im, data, out_dtype):
+    """Plain version of ``sbgemm_gram_complex``."""
+    G_re, G_im = gram_contract(A_re, A_im, "data" if data else "parameter")
+    return cast(G_re, out_dtype), cast(G_im, out_dtype)
+
+
+def sbgemm_n_complex(A_re, A_im, X_re, X_im,
+                     out_dtype: Optional[torch.dtype] = None):
+    """Y = A X per batch on split planes: A (B, m, n), X (B, n, S) ->
+    (Y_re, Y_im) of shape (B, m, S)."""
+    out_dtype = out_dtype or A_re.dtype
+    _check(A_re, A_im, X_re, X_im, 2, out_dtype, "sbgemm_n_complex", rhs=True)
+    B, m, n = A_re.shape
+    S = X_re.shape[2]
+    if A_re.device.type == "cpu":
+        return sbgemm_n_complex_plain(A_re, A_im, X_re, X_im, out_dtype)
+    return _launch("sbgemm", "sbgemm_n_complex", (A_re, A_im, X_re, X_im),
+                   (B, m, S), out_dtype, (B, m, n, S))
+
+
+def sbgemm_th_complex(A_re, A_im, X_re, X_im, *, conj: bool,
+                      out_dtype: Optional[torch.dtype] = None):
+    """Y = A^T X, or A^H X with ``conj``, per batch on split planes:
+    A (B, m, n), X (B, m, S) -> (Y_re, Y_im) of shape (B, n, S)."""
+    out_dtype = out_dtype or A_re.dtype
+    _check(A_re, A_im, X_re, X_im, 1, out_dtype, "sbgemm_th_complex",
+           rhs=True)
+    B, m, n = A_re.shape
+    S = X_re.shape[2]
+    if A_re.device.type == "cpu":
+        return sbgemm_th_complex_plain(A_re, A_im, X_re, X_im, conj,
+                                       out_dtype)
+    return _launch("sbgemm", "sbgemm_th_complex", (A_re, A_im, X_re, X_im),
+                   (B, n, S), out_dtype, (B, m, n, S), int(bool(conj)))
+
+
+def sbgemm_gram_complex(A_re, A_im, *, data: bool = False,
+                        out_dtype: Optional[torch.dtype] = None):
+    """Per-batch Gram blocks on split planes: G = A^H A (B, n, n), or with
+    ``data`` G = A A^H (B, m, m), read from A in its stored layout.  The
+    kernel computes the tiles on and above the diagonal and writes their
+    conjugates below it; neither it nor the plain version symmetrizes
+    the diagonal tiles (``ops.sbgemm_gram`` does)."""
+    out_dtype = out_dtype or A_re.dtype
+    if A_re.ndim != 3 or A_im.shape != A_re.shape:
+        raise ValueError(f"sbgemm_gram_complex: A planes must be two "
+                         f"(B, m, n) tensors, got {tuple(A_re.shape)} and "
+                         f"{tuple(A_im.shape)}")
+    _check_planes((A_re, A_im), out_dtype, "sbgemm_gram_complex")
+    B, m, n = A_re.shape
+    if A_re.device.type == "cpu":
+        return sbgemm_gram_complex_plain(A_re, A_im, data, out_dtype)
+    P = m if data else n
+    return _launch("sbgemm", "sbgemm_gram_complex", (A_re, A_im), (B, P, P),
+                   out_dtype, (B, m, n), int(bool(data)))

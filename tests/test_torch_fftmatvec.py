@@ -197,10 +197,7 @@ def test_single_column_blocks_match_matvec(op_d, data):
 
 
 @pytest.mark.parametrize("call", [
-    lambda op, m: op.matmat(torch.stack([m, m], dim=-1)),
-    lambda op, m: op.gram(),
     lambda op, m: op.autotune(1e-3),
-    lambda op, m: tpipe.gram_plan(op.precision),
     lambda op, m: tpipe.matvec_plan(
         PrecisionConfig.from_string("dssdd;tiles=hs|sh")),
     lambda op, m: tpipe.run_stages((tpipe.Stage("psum", "d"),), m,
