@@ -73,7 +73,7 @@ DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 REPEATS = 20
 SEED = 0
 S_BLOCK = 8          # the main path's block of right-hand sides
-S_WIDE = 32          # the Hessian-assembly chunk
+S_WIDE = 32          # a wider block, for the per-column trend
 SOLVER_ITERS = 30
 
 
@@ -351,7 +351,9 @@ def check_gram_kernel(dev, B, m, n, spaces, timed, results, time_fn):
                 continue
             P, K = (m, n) if data else (n, m)
             nbytes = 2 * dt.itemsize * (B * m * n + B * P * P)
-            flops = 8 * B * P * P * K
+            # G is Hermitian: the P (P + 1) / 2 entries on and above the
+            # diagonal are the work, 8 K real flops each
+            flops = 4 * B * P * (P + 1) * K
             b_ms, b_by = bound_ms(nbytes, flops, name(dt))
             lib = _library_gram(Ar, Ai, data)
             results["sbgemm_gram_complex"][f"{name(dt)} {space}"] = {
@@ -605,6 +607,18 @@ def drive_block_path(dev, N_t, N_d, N_m, timed, time_fn, report):
             print(f"{c}: matmat S={S_WIDE} {t['matmat_ms']:.3f} ms, rmatmat "
                   f"{t['rmatmat_ms']:.3f} ms", flush=True)
         block["times_S32"] = wide
+        # the same entry points with Phase 3 on the plain PyTorch
+        # contraction, for the end-to-end cost of the kernels
+        plain = {}
+        for c in ("ddddd", "dssdd"):
+            op_p = plain_path(ops[c])
+            for Sx, Mx, Dx in ((S, M, D), (S_WIDE, Mw, Dw)):
+                t = {"matmat_ms": time_fn(op_p.matmat, Mx),
+                     "rmatmat_ms": time_fn(op_p.rmatmat, Dx)}
+                plain[f"{c} S={Sx}"] = t
+                print(f"{c} plain path: matmat S={Sx} {t['matmat_ms']:.3f} "
+                      f"ms, rmatmat {t['rmatmat_ms']:.3f} ms", flush=True)
+        block["times_plain_path"] = plain
     return op_d
 
 
@@ -707,8 +721,12 @@ def drive_circulant(dev, op_d, timed, time_fn, report):
         out["setup_ms"] = time_fn(
             lambda _: GramOperator.from_matvec(op_d, space="data",
                                                mode="circulant"), None)
+        out["setup_plain_path_ms"] = time_fn(
+            lambda _: GramOperator.from_matvec(plain_path(op_d), space="data",
+                                               mode="circulant"), None)
         out["apply_ms"] = time_fn(circ.apply, v)
-        print(f"  G_hat setup {out['setup_ms']:.3f} ms, action "
+        print(f"  G_hat setup {out['setup_ms']:.3f} ms (plain path "
+              f"{out['setup_plain_path_ms']:.3f}), action "
               f"{out['apply_ms']:.3f} ms", flush=True)
 
 
@@ -778,8 +796,11 @@ def drive_solvers(dev, op_d, timed, time_fn, report):
         if timed:
             # whole solves: the median of 3 after one warm-up
             ms = time_fn(solve, op_d, repeats=3, warmup=1)
+            ms_p = time_fn(solve, plain_path(op_d), repeats=3, warmup=1)
             out[sname]["ms_per_iter"] = ms / n_it
-            print(f"  {sname}: {ms / n_it:.3f} ms an iteration", flush=True)
+            out[sname]["ms_per_iter_plain_path"] = ms_p / n_it
+            print(f"  {sname}: {ms / n_it:.3f} ms an iteration (plain path "
+                  f"{ms_p / n_it:.3f})", flush=True)
 
 
 def drive_example(dev, report):
@@ -806,6 +827,14 @@ def drive_example(dev, report):
     if bad:
         fail("inverse-problem example: " + "; ".join(bad))
     check_launched(counts, REPLACES)
+
+
+def plain_path(op):
+    """``op`` with every contraction on the plain PyTorch code (the
+    "torch" dispatch path); pad/unpad still launch their kernels."""
+    from repro_torch.backend import DispatchTable
+    return op.with_backend(op.opts.backend,
+                           dispatch=DispatchTable(force="torch"))
 
 
 def check_launches(counts, expected) -> None:

@@ -20,8 +20,7 @@ from .pipeline import (ExecOpts, Stage, matvec_plan, gram_plan,  # noqa: F401
 from .fftmatvec import FFTMatvec, phase_callables  # noqa: F401
 from .gram import GramOperator  # noqa: F401
 from .hessian import GaussianInverseProblem  # noqa: F401
-from .error_model import (relative_error_bound, dominant_phase,  # noqa: F401
-                          lattice_bounds, phase_factors)
+from .error_model import relative_error_bound  # noqa: F401
 from .toeplitz import (dense_from_block_column, dense_matvec,  # noqa: F401
                        dense_rmatvec, fourier_block_column,
                        random_block_column, random_unrepresentable,

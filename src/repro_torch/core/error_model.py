@@ -2,213 +2,65 @@
 pure math shared with the JAX package's twin (kept as a copy: the port
 imports nothing from it).
 
-Implements the paper's final bound, eq. (6):
+Implements the paper's final bound, eq. (6), on one device:
 
     ||dv5|| / ||v5|| <= kappa(F_hat) * [ c1 e1
                                          + (cF ed + c2 e2 + c4 e4) log2(N_t)
-                                         + c3 e3 n_m
-                                         + c5 e5 log2(p_c) ]
+                                         + c3 e3 N_m
+                                         + c5 e5 ]
 
-for the F matvec, with n_m = ceil(N_m / p_c); the F* bound replaces n_m by
-n_d = ceil(N_d / p_r) and p_c by p_r.  e_i is the unit roundoff of the
-precision used in phase i; c_i are O(1) algorithm constants; c1 = 0 when
-Phase 1 runs at (or above) the precision that represents the input exactly.
-
-Two deliberate extensions over the paper's formula: the reduce term uses
-1 + log2(p_c) rather than log2(p_c), because the Phase-5 unpad stores at
-the reduce precision even on a single device (see ``phase_factors``); and
-the two pieces of that term may run at *different* levels — the storage
-cast at the reduce level, the depth-log2(p) reduction tree at an optional
-``comm_level`` (the reduced-precision-communication knob, DESIGN.md §5).
-With ``comm_level=None`` both pieces use the reduce level and the bound
-is exactly the old one.
-
-Third extension (tile-centric mixed precision, DESIGN.md §8): a config
-carrying a :class:`repro.core.precision.TileMap` splits the gemv term per
-operand tile, ``c3 * n_local * sum_t w_t * eps(level_t)``, where the
-weights ``w_t`` (normalized block-norm fractions of ``F_hat``, summing to
-1 — uniform when not supplied) price how much of the contraction mass
-each tile carries.  A uniform map at level L reduces the term exactly to
-the phase-level ``c3 * eps(L') * n_local`` with ``L' = min(L, gemv)``.
+for the F matvec; the F* bound replaces N_m by N_d.  e_i is the unit
+roundoff of the precision used in phase i; the O(1) constants c_i are 1;
+c1 = 0 when Phase 1 runs at (or above) the precision that represents the
+input exactly (double).  The reduce term is 1 rather than the paper's
+log2(p_c) = 0: the Phase-5 unpad stores at the reduce precision even on
+a single device.  The mesh (p_r, p_c), reduced-precision communication
+and per-tile terms of the JAX twin come with the slices that port meshes
+and tile maps.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional, Sequence
 
 from .precision import PrecisionConfig, machine_eps
 
-
-def _normalized_weights(tile_weights, shape: tuple[int, int]):
-    """Flatten + normalize per-tile weights to sum 1 (uniform when None);
-    validates the grid shape against the tile map's."""
-    R, C = shape
-    if tile_weights is None:
-        return [1.0 / (R * C)] * (R * C)
-    rows = [list(r) for r in tile_weights]
-    if len(rows) != R or any(len(r) != C for r in rows):
-        raise ValueError(f"tile_weights shape {len(rows)}x"
-                         f"{len(rows[0]) if rows else 0} does not match the "
-                         f"tile map's {R}x{C}")
-    flat = [max(float(w), 0.0) for r in rows for w in r]
-    total = sum(flat)
-    if total <= 0.0:
-        return [1.0 / (R * C)] * (R * C)
-    return [w / total for w in flat]
+_INPUT_LEVEL = "d"   # the input vector is exactly representable in f64
 
 
-def phase_factors(N_t: int, N_d: int, N_m: int, p_r: int = 1, p_c: int = 1,
-                  *, adjoint: bool = False,
-                  variant: str | None = None,
-                  tile_shape: Optional[tuple[int, int]] = None,
-                  tile_weights: Optional[Sequence] = None) -> dict[str, float]:
+def phase_factors(N_t: int, N_d: int, N_m: int, *, adjoint: bool = False,
+                  variant: str | None = None) -> dict[str, float]:
     """Structural multiplier of each phase's unit roundoff in eq. (6).
-
-    The bound is ``kappa * (setup + sum_p c_p * e_p * factor_p)`` with the
-    pad term active only for inputs that are lossy at the pad level.
-    Exposed so :mod:`repro.tune` can calibrate the O(1) constants ``c_p``
-    from probe measurements: ``c_p ~= measured_err_p / (e_p * factor_p)``.
 
     ``variant`` selects the pipeline shape: the matvec/matmat family
     (default; ``adjoint`` flips to the F* factors) or ``"gram"`` — the
-    fused Gram pipeline, whose phases each run twice (eq. (6) applied to
-    the chained F then F* passes: the fft/ifft terms double, the gemv
-    term accumulates both contraction lengths, and the reduction happens
-    over both grid axes).
-
-    The phase-5 factor is split: ``"reduce"`` is the always-present
-    storage cast (``1.0`` — the Phase-5 unpad+cast stores at the reduce
-    level even on a single device, one rounding, measurably nonzero,
-    mirroring how the pad term covers the Phase-1 cast) and ``"comm"`` is
-    the depth-``log2(p)`` reduction tree, which may run at a different
-    (communication) precision — see :func:`relative_error_bound`'s
-    ``comm_level``.  Their sum at one level is the old ``1 + log2(p)``
-    factor.
-
-    ``tile_shape`` (an ``(R_tiles, C_tiles)`` grid) additionally splits
-    the gemv factor per operand tile under ``"gemv_tiles"``: a flat
-    row-major tuple ``w_t * factor_gemv`` with the normalized
-    ``tile_weights`` (uniform when None) — the per-tile term of the
-    tile-aware eq.-(6) extension.  The tuple always sums back to the
-    phase-level ``"gemv"`` factor.
-    """
+    fused Gram pipeline, whose phases each run twice (the fft/ifft terms
+    double and the gemv term accumulates both contraction lengths)."""
     log_nt = math.log2(max(N_t, 2))
-    n_m = math.ceil(N_m / max(p_c, 1))
-    n_d = math.ceil(N_d / max(p_r, 1))
     if variant in ("gram", "gram_data"):
-        p_red = max(p_r, 1) * max(p_c, 1)
-        f = {
-            "pad": 1.0,
-            "fft": 2.0 * log_nt,
-            "gemv": float(n_m + n_d),
-            "ifft": 2.0 * log_nt,
-            "reduce": 1.0,
-            "comm": math.log2(p_red) if p_red > 1 else 0.0,
-        }
-    else:
-        if variant is not None and variant not in ("matvec", "rmatvec",
-                                                   "matmat", "rmatmat"):
-            raise ValueError(f"unknown variant {variant!r}")
-        if variant is not None:
-            adjoint = variant in ("rmatvec", "rmatmat")
-        if adjoint:
-            n_local, p_red = n_d, max(p_r, 1)
-        else:
-            n_local, p_red = n_m, max(p_c, 1)
-        f = {
-            "pad": 1.0,
-            "fft": log_nt,
-            "gemv": float(n_local),
-            "ifft": log_nt,
-            "reduce": 1.0,
-            "comm": math.log2(p_red) if p_red > 1 else 0.0,
-        }
-    if tile_shape is not None:
-        w = _normalized_weights(tile_weights, tuple(tile_shape))
-        f["gemv_tiles"] = tuple(wt * f["gemv"] for wt in w)
-    return f
+        return {"pad": 1.0, "fft": 2.0 * log_nt, "gemv": float(N_m + N_d),
+                "ifft": 2.0 * log_nt, "reduce": 1.0}
+    if variant is not None and variant not in ("matvec", "rmatvec",
+                                               "matmat", "rmatmat"):
+        raise ValueError(f"unknown variant {variant!r}")
+    if variant is not None:
+        adjoint = variant in ("rmatvec", "rmatmat")
+    return {"pad": 1.0, "fft": log_nt, "gemv": float(N_d if adjoint else N_m),
+            "ifft": log_nt, "reduce": 1.0}
 
 
 def relative_error_bound(cfg: PrecisionConfig, N_t: int, N_d: int, N_m: int,
-                         p_r: int = 1, p_c: int = 1, *, adjoint: bool = False,
-                         kappa: float = 1.0, input_level: str = "d",
-                         constants: dict | None = None,
-                         variant: str | None = None,
-                         comm_level: str | None = None,
-                         tile_weights: Optional[Sequence] = None) -> float:
-    """Evaluate eq. (6).  ``input_level`` is the precision at which the
-    input vector is exactly representable (paper: double).  ``constants``
-    may override the O(1) factors c1..c5 and cF (default 1.0).
-    ``variant="gram"`` bounds the fused Gram pipeline: doubled structural
-    factors (see :func:`phase_factors`) and a squared condition number —
-    the chained F/F* passes each amplify by kappa(F_hat).
-    ``comm_level`` is the reduced-precision-communication knob: the
-    depth-``log2(p)`` reduction-tree term uses its unit roundoff instead
-    of the reduce phase's (None = reductions at the reduce level, the old
-    bound exactly).
-    For a config carrying a tile map the gemv term becomes the tile-aware
-    sum ``c3 * sum_t eps(eff_level_t) * w_t * factor_gemv`` with
-    ``tile_weights`` the (optional) per-tile block-norm fractions of
-    ``F_hat`` — uniform maps reduce the term exactly to the phase-level
-    one."""
-    c = {"c1": 1.0, "c2": 1.0, "c3": 1.0, "c4": 1.0, "c5": 1.0, "cF": 1.0}
-    if constants:
-        c.update(constants)
-
+                         *, adjoint: bool = False,
+                         variant: str | None = None) -> float:
+    """Evaluate eq. (6) with kappa = 1.  ``variant="gram"`` bounds the
+    fused Gram pipeline (doubled structural factors, see
+    :func:`phase_factors`)."""
     e = {p: machine_eps(getattr(cfg, p)) for p in
          ("pad", "fft", "gemv", "ifft", "reduce")}
-    e_comm = machine_eps(comm_level) if comm_level else e["reduce"]
-    e_setup = machine_eps(input_level)   # setup FFT of F runs at input level
-
+    e_setup = machine_eps(_INPUT_LEVEL)   # setup FFT of F runs at input level
     # c1 = 0 if the pad/broadcast phase is lossless for the input.
-    lossless = machine_eps(cfg.pad) <= machine_eps(input_level)
-    c1 = 0.0 if lossless else c["c1"]
-
-    tile_shape = cfg.tiles.shape if cfg.tiles is not None else None
-    f = phase_factors(N_t, N_d, N_m, p_r, p_c, adjoint=adjoint,
-                      variant=variant, tile_shape=tile_shape,
-                      tile_weights=tile_weights)
-    amp = kappa ** 2 if variant in ("gram", "gram_data") else kappa
-
-    if cfg.tiles is not None:
-        eff = cfg.gemv_tile_levels()
-        gemv_term = sum(machine_eps(lvl) * f_t
-                        for lvl, f_t in zip((l for row in eff for l in row),
-                                            f["gemv_tiles"]))
-    else:
-        gemv_term = e["gemv"] * f["gemv"]
-
-    return amp * (c1 * e["pad"] * f["pad"]
-                  + c["cF"] * e_setup * f["fft"]
-                  + c["c2"] * e["fft"] * f["fft"]
-                  + c["c4"] * e["ifft"] * f["ifft"]
-                  + c["c3"] * gemv_term
-                  + c["c5"] * (e["reduce"] * f["reduce"]
-                               + e_comm * f["comm"]))
-
-
-def lattice_bounds(configs: Iterable[PrecisionConfig], N_t: int, N_d: int,
-                   N_m: int, **kw) -> dict[str, float]:
-    """Evaluate eq. (6) over a config lattice: ``{cfg_string: bound}``.
-
-    Analytic only: no operator runs, so pruning configs by the model
-    (the autotuner's pruner) costs nothing next to measuring them."""
-    return {cfg.to_string(): relative_error_bound(cfg, N_t, N_d, N_m, **kw)
-            for cfg in configs}
-
-
-def dominant_phase(cfg: PrecisionConfig, N_t: int, N_d: int, N_m: int,
-                   p_r: int = 1, p_c: int = 1, *, adjoint: bool = False,
-                   variant: str | None = None,
-                   comm_level: str | None = None) -> str:
-    """Which phase contributes the largest term of eq. (6).  The paper:
-    'the dominant error term comes from the SBGEMV in Phase 3'.  The
-    reduction tree appears as its own ``"comm"`` term at ``comm_level``
-    (default: the reduce level)."""
-    f = phase_factors(N_t, N_d, N_m, p_r, p_c, adjoint=adjoint,
-                      variant=variant)
-    eps_of = lambda p: machine_eps(comm_level or cfg.reduce) if p == "comm" \
-        else machine_eps(getattr(cfg, p))
-    terms = {p: eps_of(p) * f[p] for p in f}
-    return max(terms, key=terms.get)
+    c1 = 0.0 if e["pad"] <= e_setup else 1.0
+    f = phase_factors(N_t, N_d, N_m, adjoint=adjoint, variant=variant)
+    return (c1 * e["pad"] * f["pad"] + (e_setup + e["fft"]) * f["fft"]
+            + e["ifft"] * f["ifft"] + e["gemv"] * f["gemv"]
+            + e["reduce"] * f["reduce"])

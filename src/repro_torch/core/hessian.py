@@ -47,9 +47,11 @@ class GaussianInverseProblem:
         return g
 
     # -- dense data-space Hessian (test/demo scale) --------------------------
-    def assemble_data_space_hessian(self, *, chunk: int = 32) -> torch.Tensor:
+    def assemble_data_space_hessian(self, *, chunk: int = 8) -> torch.Tensor:
         """H_d = F G_pr F^T + G_n assembled from S-wide identity blocks:
-        ceil(N_d*N_t / chunk) SBGEMM-backed fused-Gram pipelines."""
+        ceil(N_d*N_t / chunk) SBGEMM-backed fused-Gram pipelines.  The
+        default 8 columns is the width at which the SBGEMM kernels take
+        the least time a column on an H100 (PERF.md)."""
         op, Nd, Nt = self.op, self.op.N_d, self.op.N_t
         n = Nd * Nt
         chunk = max(1, min(chunk, n))
@@ -145,7 +147,7 @@ class GaussianInverseProblem:
         return m_map, res
 
     # -- optimal experimental design ingredient ------------------------------
-    def expected_information_gain(self, *, chunk: int = 32) -> torch.Tensor:
+    def expected_information_gain(self, *, chunk: int = 8) -> torch.Tensor:
         """KL(post || prior) for the linear-Gaussian problem (closed form,
         paper Remark 1): 0.5 * logdet(I + G_n^{-1} F G_pr F^T), through
         the chunked SBGEMM-backed Hessian assembly."""

@@ -15,8 +15,6 @@ Public API:
     error_floor                                  eq.-(6) residual floor
 """
 
-from typing import Optional
-
 from .precision import (SolverPrecision, DOUBLE, SINGLE,  # noqa: F401
                         TPU_MIXED, col_dot, col_norm, resolve_precision)
 from .result import SolveResult  # noqa: F401
@@ -25,17 +23,16 @@ from .lsqr import lsqr  # noqa: F401
 
 from repro_torch.core.error_model import relative_error_bound as _bound
 
+_SAFETY = 10.0   # headroom over the first-order bound
 
-def error_floor(op, *, p_r: Optional[int] = None, p_c: Optional[int] = None,
-                kappa: float = 1.0, safety: float = 10.0) -> float:
+
+def error_floor(op) -> float:
     """Achievable relative-residual floor for Krylov iterations driven by
-    a mixed-precision FFTMatvec: ``safety * kappa * max(bound_F,
-    bound_F*)`` of paper eq. (6) (``core.error_model``), since every
-    iteration applies F and F*.  Use ``max(tol, error_floor(op))`` as the
-    practical stopping target.  The operator is single-device, so the
-    grid defaults to (1, 1); ``p_r``/``p_c`` price a grid explicitly."""
+    a mixed-precision FFTMatvec: ``10 * max(bound_F, bound_F*)`` of paper
+    eq. (6) (``core.error_model``), since every iteration applies F and
+    F*.  Use ``max(tol, error_floor(op))`` as the practical stopping
+    target."""
     cfg = op.precision
-    p_r, p_c = p_r or 1, p_c or 1
-    bf = _bound(cfg, op.N_t, op.N_d, op.N_m, p_r=p_r, p_c=p_c)
-    ba = _bound(cfg, op.N_t, op.N_d, op.N_m, p_r=p_r, p_c=p_c, adjoint=True)
-    return safety * kappa * max(bf, ba)
+    bf = _bound(cfg, op.N_t, op.N_d, op.N_m)
+    ba = _bound(cfg, op.N_t, op.N_d, op.N_m, adjoint=True)
+    return _SAFETY * max(bf, ba)

@@ -148,22 +148,22 @@ def cg_normal_equations(op, d_obs, *, damp: float = 0.0, tol=1e-10,
                         maxiter: int = 500, M: Optional[Callable] = None,
                         col_maxiter=None,
                         precision: Union[SolverPrecision, str] =
-                        SolverPrecision(), gram=None) -> SolveResult:
+                        SolverPrecision()) -> SolveResult:
     """CGNR: min ||F m - d||^2 + damp ||m||^2 via (F* F + damp I) m = F* d,
     with F an :class:`FFTMatvec`-like operator exposing ``matmat`` /
     ``rmatmat`` ((R, N_t, S) stacked SOTI layout, 2-D inputs as S = 1).
 
     The F*F product runs through the fused parameter-space
     :class:`~repro_torch.core.gram.GramOperator` whenever ``op`` exposes
-    ``.gram()`` (pass ``gram`` to supply a prebuilt one); plain
-    callable-pair operators use the composed product.  ``tol`` /
-    ``col_maxiter`` may be per-column vectors as in :func:`pcg`."""
+    ``.gram()``; plain callable-pair operators use the composed
+    product.  ``tol`` / ``col_maxiter`` may be per-column vectors as in
+    :func:`pcg`."""
     precision = resolve_precision(precision, float(np.min(tol)))
     rec_dt = precision.recurrence_dtype()
 
-    if gram is None and hasattr(op, "gram"):
+    if hasattr(op, "gram"):
         gram = op.gram(space="parameter", mode="exact")
-    if gram is not None:
+
         def normal_op(v):
             return gram.apply(v) + damp * v
     else:

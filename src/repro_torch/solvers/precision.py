@@ -66,31 +66,27 @@ class SolverPrecision:
         return dataclasses.replace(self, **kw)
 
     @classmethod
-    def from_tolerance(cls, tol: float, *, ladder=("h", "s", "d"),
-                       apply_slack: float = 100.0, ortho_margin: float = 10.0,
-                       op=None) -> "SolverPrecision":
+    def from_tolerance(cls, tol: float, *, op=None) -> "SolverPrecision":
         """Per-leg precisions for a target relative residual ``tol``: each
-        leg gets the lowest ladder level whose unit roundoff meets its
-        sensitivity (orthogonalize ``eps <= tol / ortho_margin``,
-        recurrence ``eps <= tol``, apply ``eps <= tol * apply_slack``); no
-        qualifying level -> the ladder's highest.  tol=1e-4 -> "hss",
-        tol=1e-10 -> "ddd".  ``op`` (an FFTMatvec) floors the target at
-        the operator's own eq.-(6) error floor."""
+        leg gets the lowest level of h < s < d whose unit roundoff meets
+        its sensitivity (orthogonalize ``eps <= tol / 10``, recurrence
+        ``eps <= tol``, apply ``eps <= 100 tol``); no qualifying level ->
+        "d".  tol=1e-4 -> "hss", tol=1e-10 -> "ddd".  ``op`` (an
+        FFTMatvec) floors the target at the operator's own eq.-(6) error
+        floor."""
         if tol <= 0.0:
             raise ValueError(f"tolerance must be positive, got {tol}")
         if op is not None:
             from . import error_floor   # deferred: package-level helper
             tol = max(tol, error_floor(op))
-        ordered = sorted(ladder, key=_prec.level_index)
 
         def lowest(target: float) -> str:
-            for lvl in ordered:
+            for lvl in ("h", "s", "d"):
                 if _prec.machine_eps(lvl) <= target:
                     return lvl
-            return ordered[-1]
+            return "d"
 
-        return cls(apply=lowest(tol * apply_slack),
-                   orthogonalize=lowest(tol / ortho_margin),
+        return cls(apply=lowest(tol * 100.0), orthogonalize=lowest(tol / 10.0),
                    recurrence=lowest(tol))
 
 
