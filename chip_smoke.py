@@ -39,7 +39,26 @@ CUDA toolkit.  It:
    function (CUDA events, median of 20 after warm-up), the end-to-end
    matvec/rmatvec per config and the per-phase split for ddddd and dssdd,
    matmat/rmatmat per right-hand side against matvec, the solvers per
-   iteration, the Hessian action and the G_hat setup.
+   iteration, the Hessian action and the G_hat setup;
+5. tile-centric precision and the autotuner:
+   a. the five tiled kernels (SBGEMV N and T/H for S = 1, SBGEMM N and
+      T/H for S > 1, the Gram), f64 and f32 carriers, an aligned 2 x 2 and
+      a ragged 3 x 3 map, at ragged small shapes and at the paper shape
+      (S = 1, 8, 32; the Gram in data space there, in parameter space at
+      (1001, 100, 1000)): each bit for bit against its untiled kernel on
+      planes quantized up front, and against its plain version at the
+      carrier's tolerance; tiled and untiled kernel times side by side;
+   b. two ``tiles=`` configs through matvec, rmatvec, matmat/rmatmat
+      (S = 8), the exact Gram in both spaces and the tiled data-space G_hat,
+      against ``torch-ref``, with launch counts that show the tiled kernels
+      and no untiled gemv, each timed beside its uniform base;
+   c. ``autotune`` at the paper shape (CUDA-event timing): the (d, s)
+      ladder at 1e-7 beside the exhaustive 32-config sweep (the choice
+      within tolerance, fewer configs timed, its time within 5 % of the
+      sweep's optimum), the (s, h) ladder at 1e-2, ``tiles=(2, 2)`` on a
+      column with a cold model-axis tail (a tiled config timed within
+      tolerance, the tiled kernels launched), and a second call answered
+      from the TuningCache with nothing timed.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -75,6 +94,13 @@ SEED = 0
 S_BLOCK = 8          # the main path's block of right-hand sides
 S_WIDE = 32          # a wider block, for the per-column trend
 SOLVER_ITERS = 30
+# tile maps for the tiled kernels: an aligned 2 x 2 grid, and a 3 x 3 one
+# whose cells cut 1001 bins and 5000 columns raggedly
+TILE_MAPS = {"2x2": (("d", "s"), ("s", "h")),
+             "3x3": (("h", "s", "d"), ("s", "d", "h"), ("d", "h", "s"))}
+# tiles= configs on the main path: f64 carrier with f32 and bf16 cells, and
+# f32 carrier with bf16 cells
+TILED_CONFIGS = ("ddddd;tiles=ds|sh", "dssdd;tiles=hs|sh")
 
 
 def name(dt: torch.dtype) -> str:
@@ -89,6 +115,12 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     """Integer view of a float tensor, for bitwise comparison."""
     return t.contiguous().view({2: torch.int16, 4: torch.int32,
                                 8: torch.int64}[t.element_size()])
+
+
+def same_bits(got, want) -> bool:
+    """Whether every plane of ``got`` equals ``want``'s bit for bit (no
+    plane outlives the call)."""
+    return all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
 
 
 def max_abs(a, b) -> float:
@@ -363,6 +395,165 @@ def check_gram_kernel(dev, B, m, n, spaces, timed, results, time_fn):
                 "bytes": nbytes, "flops": flops,
                 "bound_ms": b_ms, "bound_by": b_by}
             del lib
+        del Ar, Ai
+
+
+def check_tiled_kernels(dev, B, m, n, S_list, modes, timed, results, time_fn):
+    """The tiled SBGEMV (S = 1) and SBGEMM (S > 1) kernels, f64 and f32
+    carriers, on each map of TILE_MAPS: bit for bit against the untiled
+    kernel on planes quantized up front, and against the plain version at
+    the carrier's tolerance.  Timed: tiled and untiled kernel (the untiled
+    one on the same, unquantized planes: the same bytes), the plain
+    version on the first map."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    A64 = [torch.randn((B, m, n), generator=gen, device=dev,
+                       dtype=torch.float64) for _ in range(2)]
+    for dt in (torch.float64, torch.float32):
+        Ar, Ai = (a.to(dt) for a in A64)
+        for S in S_list:
+            for mode in modes:
+                xlen, ylen = (n, m) if mode == "N" else (m, n)
+                shape = (B, xlen, S) if S > 1 else (B, xlen)
+                Xr, Xi = (torch.randn(shape, generator=gen, device=dev,
+                                      dtype=torch.float64).to(dt)
+                          for _ in range(2))
+                kind = "sbgemm" if S > 1 else "sbgemv"
+                kname = f"{kind}_{'n' if mode == 'N' else 'th'}_complex"
+                untiled, tiled = getattr(sk, kname), getattr(sk, kname + "_tiled")
+                plain = getattr(sk, kname + "_tiled_plain")
+                kw = {} if mode == "N" else {"conj": mode == "H"}
+                pkw = () if mode == "N" else (mode == "H",)
+                u_ms = None
+                for tname, levels in TILE_MAPS.items():
+                    Aq = kref.quantize_tile_cells(levels, Ar, Ai)
+                    got = tiled(Ar, Ai, Xr, Xi, levels, **kw)
+                    want_bits = untiled(*Aq, Xr, Xi, **kw)
+                    del Aq
+                    what = (f"{kname}_tiled mode {mode} {name(dt)} map {tname} "
+                            f"at {(B, m, n, S)}")
+                    if not same_bits(got, want_bits):
+                        fail(f"{what}: differs from the untiled kernel on "
+                             f"planes quantized up front")
+                    err = check_planes(what, got, plain(Ar, Ai, Xr, Xi, levels,
+                                                        *pkw, dt), dt)
+                    del got, want_bits
+                    print(f"{what}: bitwise equal to the untiled kernel on "
+                          f"quantized planes; max abs err vs plain {err:.3e}",
+                          flush=True)
+                    if not timed:
+                        continue
+                    if u_ms is None:
+                        u_ms = time_fn(lambda _: untiled(Ar, Ai, Xr, Xi, **kw),
+                                       None)
+                        p_ms = time_fn(lambda _: plain(Ar, Ai, Xr, Xi, levels,
+                                                       *pkw, dt), None)
+                    nbytes = 2 * dt.itemsize * (B * m * n + B * xlen * S
+                                                + B * ylen * S)
+                    b_ms, b_by = bound_ms(nbytes, 8 * B * m * n * S, name(dt))
+                    key = (f"{name(dt)} {tname}" if S == 1
+                           else f"{name(dt)} S={S} {tname}")
+                    results[kname + "_tiled"][key] = {
+                        "shape": [B, m, n, S], "mode": mode, "map": tname,
+                        "max_abs_err": err,
+                        "ms": time_fn(lambda _: tiled(Ar, Ai, Xr, Xi, levels,
+                                                      **kw), None),
+                        "untiled_ms": u_ms, "plain_ms": p_ms,
+                        "library_ms": None, "bytes": nbytes,
+                        "flops": 8 * B * m * n * S, "bound_ms": b_ms,
+                        "bound_by": b_by}
+                del Xr, Xi
+        del Ar, Ai
+
+
+def check_tile_rounding(dev):
+    """The tiled kernels round every kind of finite value as the plain
+    version does: random f32 and f64 bit patterns (subnormals, ties,
+    values that round to infinity or to zero) through
+    ``sbgemv_th_complex_tiled`` at m = 1 with x = 1, so y = A^T x is A as
+    the kernel rounded it, against ``ref.quantize_tile_cells``, value for
+    value (the sign of a zero aside: the kernel's sum 0 + (-0) is +0)."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    n = 1 << 22
+    for dt, idt in ((torch.float32, torch.int32), (torch.float64, torch.int64)):
+        info = torch.iinfo(idt)
+        raw = torch.randint(info.min, info.max, (1, 1, n), generator=gen,
+                            device=dev, dtype=torch.int64).to(idt)
+        A = raw.view(dt)
+        A = torch.where(torch.isfinite(A), A, torch.zeros_like(A))
+        one = torch.ones((1, 1), device=dev, dtype=dt)
+        for levels in ((("h",),), (("s",),)):
+            y, _ = sk.sbgemv_th_complex_tiled(A, torch.zeros_like(A), one,
+                                              torch.zeros_like(one), levels,
+                                              conj=False)
+            if not torch.equal(y, kref.quantize_tile_cells(levels, A)[:, 0]):
+                fail(f"tiled rounding of {name(dt)} bit patterns to level "
+                     f"{levels[0][0]!r} differs from the plain version")
+    print(f"tiled rounding of {n} random f32 and f64 bit patterns to h and s: "
+          f"equal to the plain version", flush=True)
+
+
+def check_tiled_gram(dev, B, m, n, spaces, timed, results, time_fn):
+    """The tiled Gram kernel, f64 and f32 carriers, each map of TILE_MAPS:
+    bit for bit against the untiled Gram kernel on planes quantized up
+    front, and against the plain version (quantize, then the plain Gram,
+    taken 128 bins at a time so the plain products fit beside the
+    kernel's output) at the carrier's tolerance."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    A64 = [torch.randn((B, m, n), generator=gen, device=dev,
+                       dtype=torch.float64) for _ in range(2)]
+    for dt in (torch.float64, torch.float32):
+        Ar, Ai = (a.to(dt) for a in A64)
+        for space in spaces:
+            data = space == "data"
+            u_ms = None
+            for tname, levels in TILE_MAPS.items():
+                Aq = kref.quantize_tile_cells(levels, Ar, Ai)
+                got = sk.sbgemm_gram_tiled(Ar, Ai, levels, data=data)
+                want = sk.sbgemm_gram_complex(*Aq, data=data)
+                what = (f"sbgemm_gram_tiled {space} {name(dt)} map {tname} at "
+                        f"{(B, m, n)}")
+                if not same_bits(got, want):
+                    fail(f"{what}: differs from the untiled kernel on "
+                         f"planes quantized up front")
+                del want
+                err = 0.0
+                for b0 in range(0, B, 128):
+                    sl = slice(b0, min(B, b0 + 128))
+                    err = max(err, check_planes(
+                        what, [g[sl] for g in got],
+                        sk.sbgemm_gram_complex_plain(Aq[0][sl], Aq[1][sl],
+                                                     data, dt), dt))
+                del got, Aq
+                print(f"{what}: bitwise equal to the untiled kernel on "
+                      f"quantized planes; max abs err vs plain {err:.3e}",
+                      flush=True)
+                if not timed:
+                    continue
+                free(dev)
+                if u_ms is None:
+                    u_ms = time_fn(lambda _: sk.sbgemm_gram_complex(
+                        Ar, Ai, data=data), None)
+                    p_ms = time_fn(lambda _: sk.sbgemm_gram_tiled_plain(
+                        Ar, Ai, levels, data, dt), None)
+                P, K = (m, n) if data else (n, m)
+                nbytes = 2 * dt.itemsize * (B * m * n + B * P * P)
+                flops = 4 * B * P * (P + 1) * K
+                b_ms, b_by = bound_ms(nbytes, flops, name(dt))
+                results["sbgemm_gram_tiled"][f"{name(dt)} {space} {tname}"] = {
+                    "shape": [B, m, n], "space": space, "map": tname,
+                    "max_abs_err": err,
+                    "ms": time_fn(lambda _: sk.sbgemm_gram_tiled(
+                        Ar, Ai, levels, data=data), None),
+                    "untiled_ms": u_ms, "plain_ms": p_ms, "library_ms": None,
+                    "bytes": nbytes, "flops": flops, "bound_ms": b_ms,
+                    "bound_by": b_by}
+                free(dev)
         del Ar, Ai
 
 
@@ -826,7 +1017,210 @@ def drive_example(dev, report):
     bad = example.check(out)
     if bad:
         fail("inverse-problem example: " + "; ".join(bad))
-    check_launched(counts, REPLACES)
+    check_launched(counts, [k for k in REPLACES if not k.endswith("_tiled")])
+
+
+def drive_tiled_configs(dev, N_t, N_d, N_m, timed, time_fn, report):
+    """TILED_CONFIGS through matvec, rmatvec, matmat / rmatmat (S_BLOCK),
+    the exact Gram in both spaces and the data-space G_hat through
+    ``ops.sbgemm_gram(tile_map=)``, each against ``torch-ref`` at the
+    lowest effective level's tolerance; the launches show the tiled
+    kernels and no untiled gemv.  Timed: each config beside its uniform
+    base (the same config without the map)."""
+    from repro_torch.core import (FFTMatvec, PrecisionConfig,
+                                  random_block_column, rel_l2)
+    from repro_torch.core.precision import DOUBLE
+    from repro_torch.kernels import _build, ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    F_col = random_block_column(gen, N_t, N_d, N_m)
+    op_d = FFTMatvec.from_block_column(F_col, precision=DOUBLE, device=dev)
+    del F_col
+    f64 = dict(generator=gen, device=dev, dtype=torch.float64)
+    m, d = torch.randn((N_m, N_t), **f64), torch.randn((N_d, N_t), **f64)
+    M = torch.randn((N_m, N_t, S_BLOCK), **f64)
+    D = torch.randn((N_d, N_t, S_BLOCK), **f64)
+    calls = {"matvec": (lambda o: o.matvec, m), "rmatvec": (lambda o: o.rmatvec, d),
+             "matmat": (lambda o: o.matmat, M),
+             "rmatmat": (lambda o: o.rmatmat, D),
+             "gram_parameter": (lambda o: o.gram(space="parameter").apply, M),
+             "gram_data": (lambda o: o.gram(space="data").apply, D)}
+    out = {}
+    report["tiled_configs"] = out
+    total = {}
+    for cfg_s in TILED_CONFIGS:
+        cfg = PrecisionConfig.from_string(cfg_s)
+        op = op_d.with_precision(cfg)
+        eff = cfg.gemv_tile_levels()
+        lowest = min(list(cfg.levels()) + [lvl for row in eff for lvl in row],
+                     key="hsd".index)
+        _build.reset_launch_counts()
+        got = {k: fn(op)(x) for k, (fn, x) in calls.items()}
+        G = ops.sbgemm_gram(op.F_hat_re, op.F_hat_im, space="data",
+                            tile_map=eff)
+        sync(dev)
+        counts = dict(_build.launch_counts)
+        # S = 1: one SBGEMV a direction; S = 8 and the two exact Grams:
+        # one SBGEMM a direction each; six pads and unpads plus the masks
+        expected = {"sbgemv_n_complex_tiled": 1, "sbgemv_th_complex_tiled": 1,
+                    "sbgemm_n_complex_tiled": 3, "sbgemm_th_complex_tiled": 3,
+                    "sbgemm_gram_tiled": 1, "sbgemv_n_complex": 0,
+                    "sbgemv_th_complex": 0, "sbgemm_n_complex": 0,
+                    "sbgemm_th_complex": 0, "sbgemm_gram_complex": 0,
+                    "pad_cast": 8, "unpad_cast": 8}
+        print(f"{cfg_s} launches {counts}", flush=True)
+        check_launches(counts, expected)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        ref_op = op.with_backend("torch-ref")
+        row = {"lowest": lowest, "launches": counts}
+        for k, (fn, x) in calls.items():
+            e = rel_l2(got[k], fn(ref_op)(x))
+            row[f"{k}_vs_ref"] = e
+            if not (e <= TOL[lowest] and torch.isfinite(got[k]).all()):
+                fail(f"{cfg_s} {k}: vs torch-ref {e:.3e} > {TOL[lowest]:g} "
+                     f"or not finite")
+        G_ref = ops.sbgemm_gram(op.F_hat_re, op.F_hat_im, space="data",
+                                tile_map=eff, backend="torch-ref")
+        e = max(rel(g, w) for g, w in zip(G, G_ref))
+        row["G_hat_data_vs_ref"] = e
+        if not e <= TOL[lowest]:
+            fail(f"{cfg_s} tiled data-space G_hat vs torch-ref {e:.3e}")
+        del got, G, G_ref, ref_op
+        print(f"{cfg_s}: vs torch-ref " + ", ".join(
+            f"{k} {row[f'{k}_vs_ref']:.3e}" for k in calls)
+            + f", G_hat {e:.3e} (<= {TOL[lowest]:g})", flush=True)
+        if timed:
+            base = op_d.with_precision(cfg.replace(tiles=None))
+            for k in ("matvec", "rmatvec", "matmat", "rmatmat"):
+                fn, x = calls[k]
+                row[f"{k}_ms"] = time_fn(fn(op), x)
+                row[f"{k}_uniform_ms"] = time_fn(fn(base), x)
+            print(f"  {cfg_s} vs {base.precision.to_string()} (ms): " + ", ".join(
+                f"{k} {row[f'{k}_ms']:.4f} / {row[f'{k}_uniform_ms']:.4f}"
+                for k in ("matvec", "rmatvec", "matmat", "rmatmat")), flush=True)
+            del base
+        out[cfg_s] = row
+        del op
+    out["launches_total"] = total
+
+
+def drive_autotune(dev, N_t, N_d, N_m, report):
+    """``autotune`` at the paper shape with CUDA-event timing: the (d, s)
+    ladder at 1e-7 beside the exhaustive 32-config sweep, the (s, h)
+    ladder at 1e-2, ``tiles=(2, 2)`` on a column whose model-axis tail
+    carries ~no energy, and a second call answered by the TuningCache."""
+    from repro_torch.core import (FFTMatvec, all_configs, measure_configs,
+                                  optimal_config, random_block_column)
+    from repro_torch.core.precision import DOUBLE, SINGLE
+    from repro_torch.kernels import _build
+    from repro_torch.tune import (TimingHarness, TuningCache, autotune,
+                                  default_input)
+
+    out = {}
+    report["autotune"] = out
+    # the whole run's peak so far, before the phase's own peak is taken
+    report["peak_memory_gb_before_autotune"] = \
+        torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    F_col = random_block_column(gen, N_t, N_d, N_m)
+    op_d = FFTMatvec.from_block_column(F_col, precision=DOUBLE, device=dev)
+    v = default_input(op_d, "matvec")
+    cache_path = ROOT / "chiprun_out" / "tune_cache.json"
+    cache_path.unlink(missing_ok=True)
+    cache = TuningCache(cache_path)
+
+    def tune(name, op, x, tol, ladder, **kw):
+        t0 = time.perf_counter()
+        res = autotune(op, tol=tol, v=x, ladder=ladder,
+                       harness=TimingHarness(repeats=REPEATS, warmup=3), **kw)
+        wall = time.perf_counter() - t0
+        r = {"tol": tol, "ladder": "".join(ladder), "choice": res.config.to_string(),
+             "rel_error": res.record.rel_error, "ms": res.record.time_s * 1e3,
+             "speedup_vs_top": res.record.speedup, "n_timed": res.n_timed,
+             "n_lattice": res.n_lattice, "from_cache": res.from_cache,
+             "wall_s": wall, "records": {rec.prec: [rec.rel_error, rec.time_s * 1e3]
+                                         for rec in res.records},
+             "front": [rec.prec for rec in res.front]}
+        out[name] = r
+        print(f"autotune {name}: {res.summary()}; {wall:.1f} s wall", flush=True)
+        if not res.record.rel_error <= tol:
+            fail(f"autotune {name}: selected error {res.record.rel_error:.3e} "
+                 f"> {tol:g}")
+        return res, r
+
+    # (d, s) at 1e-7, then the exhaustive sweep on the same input
+    res, r = tune("ds_1e-7", op_d, v, 1e-7, ("d", "s"), cache=cache)
+    if not (res.n_timed < res.n_lattice and not res.from_cache):
+        fail(f"autotune ds_1e-7 timed {res.n_timed} of {res.n_lattice}")
+    t0 = time.perf_counter()
+    recs = measure_configs(lambda c: op_d.with_precision(c), v,
+                           list(all_configs(("d", "s"))),
+                           harness=TimingHarness(repeats=REPEATS, warmup=3))
+    best = optimal_config(recs, 1e-7)
+    sweep = {rec.prec: rec for rec in recs}
+    r["exhaustive"] = {"choice": best.prec, "ms": best.time_s * 1e3,
+                       "wall_s": time.perf_counter() - t0,
+                       "records": {k: [x.rel_error, x.time_s * 1e3]
+                                   for k, x in sweep.items()}}
+    t_sel = sweep[res.config.to_string()].time_s
+    r["choice_vs_sweep_optimum"] = t_sel / best.time_s
+    print(f"  exhaustive sweep: {best.prec} {best.time_s * 1e3:.4f} ms, the "
+          f"tuner's choice {t_sel * 1e3:.4f} ms in the sweep "
+          f"({t_sel / best.time_s:.4f}x, <= 1.05); "
+          f"{r['exhaustive']['wall_s']:.1f} s wall", flush=True)
+    if not t_sel <= 1.05 * best.time_s:
+        fail(f"autotune's choice {res.config.to_string()} takes "
+             f"{t_sel / best.time_s:.3f}x the sweep's optimum {best.prec}")
+    ddddd_ms = sweep["ddddd"].time_s * 1e3
+    r["speedup_vs_ddddd"] = ddddd_ms / r["ms"]
+    print(f"  the choice {r['speedup_vs_ddddd']:.3f}x over ddddd", flush=True)
+    del recs, sweep, res
+
+    # the same call again, answered from the cache
+    again, r2 = tune("ds_1e-7_cached", op_d, v, 1e-7, ("d", "s"), cache=cache)
+    if not (again.from_cache and again.n_timed == 0
+            and again.config.to_string() == r["choice"]):
+        fail("the second autotune call was not answered by the cache")
+    del again
+
+    # (s, h) at 1e-2 on the f32 operator
+    op_s = op_d.with_precision(SINGLE)
+    res, r = tune("sh_1e-2", op_s, default_input(op_s, "matvec"), 1e-2,
+                  ("s", "h"))
+    r["speedup_vs_ddddd"] = ddddd_ms / r["ms"]
+    print(f"  {r['speedup_vs_ddddd']:.3f}x over ddddd ({ddddd_ms:.4f} ms in "
+          f"the sweep)", flush=True)
+    if not res.n_timed < res.n_lattice:
+        fail(f"autotune sh_1e-2 timed {res.n_timed} of {res.n_lattice}")
+    del res, op_s
+
+    # tiles=(2, 2) on a column whose model-axis tail carries ~no energy
+    cold = torch.where(torch.arange(N_m, device=dev) < (N_m + 1) // 2, 1.0, 1e-6)
+    op_c = FFTMatvec.from_block_column(F_col * cold, precision=DOUBLE,
+                                       device=dev)
+    del F_col
+    _build.reset_launch_counts()
+    res, r = tune("ds_1e-5_tiles", op_c, v, 1e-5, ("d", "s"), tiles=(2, 2))
+    sync(dev)
+    counts = dict(_build.launch_counts)
+    r["launches"] = counts
+    tiled = [rec for rec in res.records if rec.config.tiles is not None]
+    r["tiled_timed"] = [rec.prec for rec in tiled]
+    r["tiled_on_front"] = [rec.prec for rec in res.front
+                           if rec.config.tiles is not None]
+    print(f"  tiled configs timed {r['tiled_timed']} (on the front: "
+          f"{r['tiled_on_front']}), launches {counts}", flush=True)
+    if not any(rec.rel_error <= 1e-5 for rec in tiled):
+        fail("autotune(tiles=(2, 2)) timed no tiled config within tolerance")
+    check_launched(counts, ["sbgemv_n_complex_tiled"])
+    r["speedup_vs_ddddd"] = ddddd_ms / r["ms"]
+    print(f"  {r['speedup_vs_ddddd']:.3f}x over ddddd", flush=True)
+    del res, op_c, op_d
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"autotune phase peak device memory {out['peak_memory_gb']:.2f} GB",
+          flush=True)
 
 
 def plain_path(op):
@@ -872,6 +1266,22 @@ REPLACES = {
     "sbgemm_gram_complex": ("src/repro_torch/kernels/csrc/sbgemm.cu",
                             "src/repro/kernels/sbgemv.py:342",
                             "float64 data"),
+    # the tiled TPU kernels: S = 1 and S > 1 builds of the products
+    "sbgemv_n_complex_tiled": ("src/repro_torch/kernels/csrc/sbgemv.cu",
+                               "src/repro/kernels/sbgemv.py:521",
+                               "float64 2x2"),
+    "sbgemv_th_complex_tiled": ("src/repro_torch/kernels/csrc/sbgemv.cu",
+                                "src/repro/kernels/sbgemv.py:473",
+                                "float64 2x2"),
+    "sbgemm_n_complex_tiled": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                               "src/repro/kernels/sbgemv.py:521",
+                               f"float64 S={S_BLOCK} 2x2"),
+    "sbgemm_th_complex_tiled": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                                "src/repro/kernels/sbgemv.py:473",
+                                f"float64 S={S_BLOCK} 2x2"),
+    "sbgemm_gram_tiled": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                          "src/repro/kernels/sbgemv.py:559",
+                          "float64 data 2x2"),
 }
 
 
@@ -935,6 +1345,29 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     del op_d
     free(dev)
     drive_example(dev, report)
+    free(dev)
+    # slice 3: the tiled kernels, tiles= configs, autotune
+    check_tiled_kernels(dev, 3, 7, 130, (1, 5, 33), "NTH", False, results,
+                        time_fn)
+    check_tiled_kernels(dev, 2, 300, 50, (1, 9), "NTH", False, results,
+                        time_fn)
+    for shape in ((3, 7, 130), (2, 300, 50), (3, 70, 9)):
+        check_tiled_gram(dev, *shape, ("parameter", "data"), False, results,
+                         time_fn)
+    check_tile_rounding(dev)
+    check_tiled_kernels(dev, N_t + 1, N_d, N_m, (1, S_BLOCK, S_WIDE), "NH",
+                        timed, results, time_fn)
+    free(dev)
+    check_tiled_gram(dev, N_t + 1, N_d, N_m, ("data",), timed, results,
+                     time_fn)
+    # parameter-space G at (1001, 5000, 5000) does not fit: N_m cut to 1000
+    check_tiled_gram(dev, N_t + 1, N_d, min(N_m, 1000), ("parameter",), timed,
+                     results, time_fn)
+    free(dev)
+    drive_tiled_configs(dev, N_t, N_d, N_m, timed, time_fn, report)
+    free(dev)
+    if dev.type == "cuda":
+        drive_autotune(dev, N_t, N_d, N_m, report)
     return results, report
 
 
@@ -977,14 +1410,19 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = PAPER_SINGLE
     results, report = run(dev, cfg.N_t, cfg.N_d, cfg.N_m, True, time_fn)
-    report["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    report["peak_memory_gb"] = max(
+        report.get("peak_memory_gb_before_autotune", 0.0),
+        torch.cuda.max_memory_allocated(dev) / 1e9)
     print(f"peak device memory {report['peak_memory_gb']:.2f} GB", flush=True)
     # each kernel's launches on the main path that uses it
     launches = {**report["launches"],
                 **{k: report["block"]["launches"][k]
                    for k in ("sbgemm_n_complex", "sbgemm_th_complex")},
                 "sbgemm_gram_complex":
-                    report["circulant"]["launches"]["sbgemm_gram_complex"]}
+                    report["circulant"]["launches"]["sbgemm_gram_complex"],
+                **{k: v for k, v in
+                   report["tiled_configs"]["launches_total"].items()
+                   if k.endswith("_tiled")}}
     line = kernel_line(results, launches)
 
     out_dir = ROOT / "chiprun_out"

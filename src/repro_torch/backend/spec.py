@@ -38,7 +38,10 @@ class BackendSpec:
     ``device_kind`` is filled from the bound device (``""`` = unbound).
     ``kernels`` says the hand-written CUDA kernels run here; ``reference``
     forces the oracle lowerings (``kernels.ref``), bypassing both the
-    kernels and the plain contraction.
+    kernels and the plain contraction.  ``tile_precision`` says the
+    Phase-3 products take a tile map (``tile_map=``, tile-centric
+    precision); where it is False a tile map raises
+    :class:`UnsupportedOnBackend` and the autotuner skips tile refinement.
     """
 
     name: str
@@ -46,6 +49,7 @@ class BackendSpec:
     device_kind: str = ""
     kernels: bool = False
     reference: bool = False
+    tile_precision: bool = False
 
     def fingerprint(self) -> str:
         """Stable identity for cache keys: backend + hardware it bound to."""
@@ -56,13 +60,14 @@ class BackendSpec:
         return self.kernels and all(dt in KERNEL_DTYPES for dt in dtypes)
 
 
-H100 = BackendSpec(name="h100", platform="cuda", kernels=True)
+H100 = BackendSpec(name="h100", platform="cuda", kernels=True,
+                   tile_precision=True)
 
 # Auto-selected for CPU tensors: the kernels' plain versions (the plain
 # contraction for the gemv, the oracles for pad/unpad).
-CPU_TORCH = BackendSpec(name="cpu-torch", platform="cpu")
+CPU_TORCH = BackendSpec(name="cpu-torch", platform="cpu", tile_precision=True)
 
 # Forced reference backend on whatever device the data lives on.
-TORCH_REF = BackendSpec(name="torch-ref", reference=True)
+TORCH_REF = BackendSpec(name="torch-ref", reference=True, tile_precision=True)
 
 BUILTIN_SPECS = {s.name: s for s in (H100, CPU_TORCH, TORCH_REF)}

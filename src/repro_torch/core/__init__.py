@@ -6,7 +6,11 @@ Public API:
     GramOperator (FFTMatvec.gram)              fused Fourier-domain Gram
     GaussianInverseProblem                     MAP points, Hessians, EIG
     error_model.relative_error_bound           paper eq. (6)
+    measure_configs / pareto_front             the Fig.-3 Pareto analysis
+    time_callable / TimingHarness              CUDA-event timing
     toeplitz helpers                           dense oracles, setup, data
+
+The autotuner built on these lives in :mod:`repro_torch.tune`.
 """
 
 from .precision import (PrecisionConfig, TileMap, all_configs,  # noqa: F401
@@ -25,5 +29,6 @@ from .toeplitz import (dense_from_block_column, dense_matvec,  # noqa: F401
                        dense_rmatvec, fourier_block_column,
                        random_block_column, random_unrepresentable,
                        heat_equation_p2o)
-from .pareto import rel_l2  # noqa: F401
-from .timing import time_callable  # noqa: F401
+from .pareto import (ConfigRecord, format_table, measure_configs,  # noqa: F401
+                     optimal_config, pareto_front, rel_l2)
+from .timing import TimingHarness, time_callable  # noqa: F401

@@ -17,8 +17,12 @@ conjugate-transpose SBGEMV.  Blocks of S right-hand sides
 (:mod:`repro_torch.core.gram`).  Every variant compiles to a
 :mod:`repro_torch.core.pipeline` plan and runs through its executor.
 
-The operator is single-device; meshes and the autotuner raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+A config may carry a tile map (``"ddddd;tiles=ds|sh"``): the stored
+F_hat stays at the gemv level and Phase 3 rounds each tile through its
+cell's level (the tiled kernels).  :meth:`FFTMatvec.autotune` picks the
+fastest config within a tolerance (:mod:`repro_torch.tune`).  The
+operator is single-device; meshes raise ``NotImplementedError`` naming
+the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -89,9 +93,17 @@ class FFTMatvec:
             opts = dataclasses.replace(opts, dispatch=dispatch)
         return dataclasses.replace(self, opts=opts)
 
-    def autotune(self, tol: float, **kw):
-        raise NotImplementedError("autotune waits for ROADMAP.md queue 1 "
-                                  "item 10 (tune/)")
+    def autotune(self, tol: float, *, full_result: bool = False, **kw):
+        """Dynamic mixed-precision selection (paper §3.2 at run time): the
+        operator retuned to the fastest per-phase config whose measured
+        error stays within ``tol``, the lattice pruned by the calibrated
+        eq.-(6) model so only a small frontier is timed.
+        ``full_result=True`` returns the :class:`repro_torch.tune.
+        TuneResult` instead.  Keywords go to :func:`repro_torch.tune.
+        autotune` (``ladder``, ``variant``, ``tiles``, ``cache``, ...)."""
+        from repro_torch.tune import autotune as _autotune  # tune builds on core
+        res = _autotune(self, tol=tol, **kw)
+        return res if full_result else res.op
 
     def gram(self, space: str = "parameter", mode: str = "exact"):
         """The fused Fourier-domain Gram operator

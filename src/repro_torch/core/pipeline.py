@@ -13,9 +13,10 @@ Plans: :func:`matvec_plan` (forward/adjoint) and :func:`gram_plan` (the
 fused Fourier-domain Gram operator, exact or circulant), on one device.
 Multi-RHS blocks (R, N_t, S) are flattened to stacked rows (S*R, N_t) at
 entry and restored at exit, so S = 1 and S > 1 share every stage; Phase 3
-dispatches to SBGEMM for S > 1.  The mesh reductions (psum, gemv_psum) and
-tile maps raise ``NotImplementedError`` naming the ROADMAP.md item that
-brings them.
+dispatches to SBGEMM for S > 1.  A config's tile map rides on the gemv
+stages that contract F_hat (tile-centric precision).  The mesh reductions
+(psum, gemv_psum) raise ``NotImplementedError`` naming the ROADMAP.md item
+that brings them.
 
 Instrumentation: :func:`stage_counts` counts a plan's stages statically
 and :func:`record_stages` counts stages as the executor runs them.
@@ -42,8 +43,6 @@ STAGE_KINDS = ("pad", "fft", "reorder", "gemv", "ifft", "mask", "unpad",
 _LATER = {
     "mesh": "mesh reductions (psum, gemv_psum) wait for ROADMAP.md queue 1 "
             "item 13 (multi-GPU)",
-    "tiles": "tiles= configs wait for ROADMAP.md queue 1 item 11 "
-             "(tile-centric precision) and the tiled kernels of queue 2",
 }
 
 
@@ -95,6 +94,9 @@ class Stage:
     ``to_tosi``  reorder direction (SOTI -> TOSI or back).
     ``operand``  which operator planes feed a gemv stage ("F" for the
                  Fourier block column, "G" for precomputed Gram blocks).
+    ``tile_map`` gemv: per-tile *effective* storage levels (the config's
+                 map min'd against the stage level) that the product
+                 rounds the operand through, cell by cell.
     """
 
     kind: str
@@ -102,6 +104,7 @@ class Stage:
     adjoint: bool = False
     to_tosi: bool = True
     operand: str = "F"
+    tile_map: Optional[prec.TileMap] = None
 
     def __post_init__(self):
         if self.kind not in STAGE_KINDS:
@@ -173,7 +176,7 @@ def _gemv(stage, x, operands, N_t, S, opts):
     x_re, x_im = (p.to(dt) for p in x)
     fn = kops.sbgemv if S == 1 else kops.sbgemm
     return fn(A_re.to(dt), A_im.to(dt), x_re, x_im, mode, out_dtype=dt,
-              backend=opts.spec, dispatch=opts.table)
+              backend=opts.spec, dispatch=opts.table, tile_map=stage.tile_map)
 
 
 def _ifft(stage, x, operands, N_t, S, opts):
@@ -265,6 +268,15 @@ def run_plan(plan: Plan, x, operands: Mapping, *, N_t: int, opts):
 # Plan builders
 # ---------------------------------------------------------------------------
 
+def _gemv_tiles(cfg: PrecisionConfig, operand: str = "F"):
+    """The gemv stage's tile map: the config's, min'd against the gemv
+    level.  Only the F operand carries one: the map is derived from
+    F_hat's block norms and says nothing about precomputed G blocks."""
+    if cfg.tiles is None or operand != "F":
+        return None
+    return prec.TileMap(cfg.tiles.effective(cfg.gemv))
+
+
 def matvec_plan(cfg: PrecisionConfig, *, adjoint: bool = False,
                 operand: str = "F") -> Plan:
     """The 5-phase single-device matvec pipeline as a plan (paper §2.4).
@@ -274,13 +286,12 @@ def matvec_plan(cfg: PrecisionConfig, *, adjoint: bool = False,
     the gemv contracts (the circulant Gram plan is this same pipeline over
     the "G" blocks).
     """
-    if cfg.tiles is not None:
-        raise NotImplementedError(_LATER["tiles"])
     return (
         Stage("pad", cfg.pad),
         Stage("fft", cfg.fft),
         Stage("reorder", cfg.reorder_level("fft", "gemv"), to_tosi=True),
-        Stage("gemv", cfg.gemv, adjoint=adjoint, operand=operand),
+        Stage("gemv", cfg.gemv, adjoint=adjoint, operand=operand,
+              tile_map=_gemv_tiles(cfg, operand)),
         Stage("reorder", cfg.reorder_level("gemv", "ifft"), to_tosi=False),
         Stage("ifft", cfg.ifft),
         Stage("unpad", cfg.reduce),
@@ -312,8 +323,6 @@ def gram_plan(cfg: PrecisionConfig, *, space: str = "parameter",
         return matvec_plan(cfg, operand="G")
     if mode != "exact":
         raise ValueError(f"unknown gram mode {mode!r}")
-    if cfg.tiles is not None:
-        raise NotImplementedError(_LATER["tiles"])
     # parameter space runs F then F* (first gemv forward), data space F*
     # then F
     first_adjoint = space == "data"
@@ -321,13 +330,15 @@ def gram_plan(cfg: PrecisionConfig, *, space: str = "parameter",
         Stage("pad", cfg.pad),
         Stage("fft", cfg.fft),
         Stage("reorder", cfg.reorder_level("fft", "gemv"), to_tosi=True),
-        Stage("gemv", cfg.gemv, adjoint=first_adjoint),
+        Stage("gemv", cfg.gemv, adjoint=first_adjoint,
+              tile_map=_gemv_tiles(cfg)),
         Stage("reorder", cfg.reorder_level("gemv", "ifft"), to_tosi=False),
         Stage("ifft", cfg.ifft),
         Stage("mask", prec.min_level(cfg.ifft, cfg.fft)),
         Stage("fft", cfg.fft),
         Stage("reorder", cfg.reorder_level("fft", "gemv"), to_tosi=True),
-        Stage("gemv", cfg.gemv, adjoint=not first_adjoint),
+        Stage("gemv", cfg.gemv, adjoint=not first_adjoint,
+              tile_map=_gemv_tiles(cfg)),
         Stage("reorder", cfg.reorder_level("gemv", "ifft"), to_tosi=False),
         Stage("ifft", cfg.ifft),
         Stage("unpad", cfg.reduce),

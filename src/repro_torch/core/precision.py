@@ -74,9 +74,10 @@ class TileMap:
 
     ``levels`` is a small ``(R_tiles, C_tiles)`` grid of ladder levels over
     the frequency-bin axis and the long model axis of ``F_hat``.  The
-    effective level of a cell is ``min(cell, gemv)``.  The codec is carried
-    for parity with the JAX package; the tiled kernels that consume a map
-    are not ported yet (``matvec_plan`` refuses ``tiles=`` configs).
+    effective level of a cell is ``min(cell, gemv)``.  ``matvec_plan`` and
+    ``gram_plan`` put the effective map on the gemv stages that contract
+    F_hat, and the tiled kernels round each F_hat element through its
+    cell's level as they load it.
     """
 
     levels: tuple

@@ -29,12 +29,18 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 # C entries per source (csrc/<source>.cu): (pointers, int64 sizes, ints),
-# then the stream.
+# then the stream.  A tiled entry takes one more pointer, to a host array of
+# tile-map levels, and the grid's R and C among its ints.
 ENTRIES = {
     "pad_cast": {"pad_cast": (2, 4, 3), "unpad_cast": (2, 3, 3)},
-    "sbgemv": {"sbgemv_n_complex": (6, 3, 3), "sbgemv_th_complex": (6, 3, 4)},
+    "sbgemv": {"sbgemv_n_complex": (6, 3, 3), "sbgemv_th_complex": (6, 3, 4),
+               "sbgemv_n_complex_tiled": (7, 3, 5),
+               "sbgemv_th_complex_tiled": (7, 3, 6)},
     "sbgemm": {"sbgemm_n_complex": (6, 4, 3), "sbgemm_th_complex": (6, 4, 4),
-               "sbgemm_gram_complex": (4, 3, 4)},
+               "sbgemm_gram_complex": (4, 3, 4),
+               "sbgemm_n_complex_tiled": (7, 4, 5),
+               "sbgemm_th_complex_tiled": (7, 4, 6),
+               "sbgemm_gram_tiled": (5, 3, 6)},
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -50,6 +50,15 @@
 // Sums run in double for f64 planes and in float otherwise; outputs are
 // stored in their dtype straight from the accumulator.  Offsets are int64
 // and ragged edges are masked in the kernels, so no call pads A.
+//
+// Tiled builds (TILED = true) replace the TPU kernels
+// :sbgemm_n_complex_tiled, :sbgemm_th_complex_tiled and :sbgemm_gram_tiled:
+// each A element is rounded through its tile-map cell's level as it is
+// loaded (common.cuh: TileGrid), before any product (on the f64 path,
+// before the fragment enters the mma.sync), and nothing else changes, so
+// on planes quantized up front they give the untiled build's bits.  In the
+// Gram both factors of a product are rounded at their own cells.  They
+// move the untiled kernels' bytes: A stays stored at the carrier type.
 #include "common.cuh"
 
 namespace {
@@ -69,12 +78,12 @@ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
-template <typename T, typename O, int SC>
+template <typename T, typename O, int SC, bool TILED>
 __global__ void __launch_bounds__(kNWarps * 32)
 sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                 const T* __restrict__ Xr, const T* __restrict__ Xi,
                 O* __restrict__ Yr, O* __restrict__ Yi,
-                int64_t B, int64_t m, int64_t n, int64_t S) {
+                int64_t B, int64_t m, int64_t n, int64_t S, TileGrid tg) {
   using A = typename AccOf<T>::type;
   constexpr int R = kNRows;
   constexpr int KC = kNStage / SC;          // k-chunk staged a step
@@ -83,11 +92,13 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   // spreads the transposing stores over the banks
   __shared__ A sxr[SC][KC + 1];
   __shared__ A sxi[SC][KC + 1];
+  __shared__ unsigned char slv[TILED ? KC : 1];   // the chunk's column levels
   const int lane = threadIdx.x & 31;
   const int64_t row0 = ((int64_t)blockIdx.x * kNWarps + (threadIdx.x >> 5)) * R;
   for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
     const T* xr = Xr + b * n * S;
     const T* xi = Xi + b * n * S;
+    const uint32_t cells = TILED ? tile_row(tg, b) : 0u;
     for (int64_t s0 = 0; s0 < S; s0 += SC) {
       const int sc = (int)min64(SC, S - s0);
       A acc_r[R][SC], acc_i[R][SC];
@@ -108,6 +119,9 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
           sxr[s][kk] = vr;
           sxi[s][kk] = vi;
         }
+        if (TILED)
+          for (int e = threadIdx.x; e < KC; e += kNWarps * 32)
+            slv[e] = (unsigned char)tile_level(tg, cells, k0 + e);
         __syncthreads();
         if (row0 >= m) continue;               // whole warp: no rows here
         // a constant trip count, so the loads of four steps are in flight
@@ -115,6 +129,7 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
         for (int kk = lane; kk < KC; kk += 32) {
           const int64_t k = k0 + kk;
           A a_r[R], a_i[R];
+          const int lv = TILED ? slv[kk] : 2;
 #pragma unroll
           for (int u = 0; u < R; ++u) {
             a_r[u] = a_i[u] = 0;
@@ -122,6 +137,10 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
               const int64_t off = (b * m + row0 + u) * n + k;
               a_r[u] = widen<A>(Ar[off]);
               a_i[u] = widen<A>(Ai[off]);
+              if (TILED && rounds<A>(lv)) {
+                a_r[u] = quantize(a_r[u], lv);
+                a_i[u] = quantize(a_i[u], lv);
+              }
             }
           }
 #pragma unroll
@@ -163,12 +182,12 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   }
 }
 
-template <typename T, typename O, int SC>
+template <typename T, typename O, int SC, bool TILED>
 __global__ void __launch_bounds__(kThreads)
 sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                  const T* __restrict__ Xr, const T* __restrict__ Xi,
                  O* __restrict__ Yr, O* __restrict__ Yi,
-                 int64_t B, int64_t m, int64_t n, int64_t S, int conj) {
+                 int64_t B, int64_t m, int64_t n, int64_t S, int conj, TileGrid tg) {
   using A = typename AccOf<T>::type;
   constexpr int MC = kPanel / SC;           // m-chunk of a staged panel
   __shared__ A sxr[MC * SC];
@@ -180,6 +199,7 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
     const T* ai = Ai + b * m * n + j;
     const T* xr = Xr + b * m * S;
     const T* xi = Xi + b * m * S;
+    const int lv = TILED ? tile_level(tg, tile_row(tg, b), j) : 2;
     for (int64_t s0 = 0; s0 < S; s0 += SC) {
       const int sc = (int)min64(SC, S - s0);
       A acc_r[SC], acc_i[SC];
@@ -202,12 +222,17 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
           sxi[e] = vi;
         }
         __syncthreads();
-        if (j < n) {
+        auto sweep = [&](auto q) {
           // four rows' loads in flight a step
 #pragma unroll 4
           for (int k = 0; k < len; ++k) {
             const int64_t off = (i0 + k) * n;
-            const A a_r = widen<A>(ar[off]), a_i = sgn * widen<A>(ai[off]);
+            A a_r = widen<A>(ar[off]), a_i = widen<A>(ai[off]);
+            if constexpr (decltype(q)::value) {
+              a_r = quantize(a_r, lv);
+              a_i = quantize(a_i, lv);
+            }
+            a_i = sgn * a_i;
 #pragma unroll
             for (int s = 0; s < SC; ++s) {
               const A x_r = sxr[k * SC + s], x_i = sxi[k * SC + s];
@@ -215,6 +240,10 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
               acc_i[s] += a_r * x_i + a_i * x_r;
             }
           }
+        };
+        if (j < n) {
+          if (TILED && rounds<A>(lv)) sweep(std::true_type{});
+          else sweep(std::false_type{});
         }
       }
       if (j < n) {
@@ -232,11 +261,11 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   }
 }
 
-template <typename T, typename O>
+template <typename T, typename O, bool TILED>
 __global__ void __launch_bounds__(kGramThreads)
 sbgemm_gram_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                    O* __restrict__ Gr, O* __restrict__ Gi,
-                   int64_t B, int64_t m, int64_t n, int data) {
+                   int64_t B, int64_t m, int64_t n, int data, TileGrid tg) {
   using A = typename AccOf<T>::type;
   constexpr int TD = kTile / kMicro;        // threads along each tile axis
   static_assert(TD * TD == kGramThreads, "one thread per register tile");
@@ -264,6 +293,7 @@ sbgemm_gram_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   for (int64_t b = blockIdx.z; b < B; b += gridDim.z) {
     const T* ar = Ar + b * m * n;
     const T* ai = Ai + b * m * n;
+    const uint32_t cells = TILED ? tile_row(tg, b) : 0u;
     // the next chunk, loaded into registers while this one is used
     A nr[L], ni[L];
     auto fetch = [&](int64_t k0) {
@@ -274,8 +304,16 @@ sbgemm_gram_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
         const int64_t k = k0 + kk, p = (panel ? q0 : p0) + pp;
         nr[l] = ni[l] = 0;
         if (k < K && p < P) {
-          nr[l] = widen<A>(ar[k * sk + p * sp]);
-          ni[l] = sgn * widen<A>(ai[k * sk + p * sp]);
+          A vr = widen<A>(ar[k * sk + p * sp]), vi = widen<A>(ai[k * sk + p * sp]);
+          if (TILED) {                        // A's column: k (data) or p
+            const int lv = tile_level(tg, cells, data ? k : p);
+            if (rounds<A>(lv)) {
+              vr = quantize(vr, lv);
+              vi = quantize(vi, lv);
+            }
+          }
+          nr[l] = vr;
+          ni[l] = sgn * vi;
         }
       }
     };
@@ -375,11 +413,22 @@ unsigned batch_grid(int64_t B) { return (unsigned)(B < 65535 ? B : 65535); }
 // ---------------------------------------------------------------------------
 
 // Element (b, r, c) of an operand at b * sb + r * sr + c * sc; its
-// imaginary part is read times sgn (-1: the conjugate).
+// imaginary part is read times sgn (-1: the conjugate).  acol says which
+// index is A's column when the operand is (a view of) A, for the tiled
+// builds: 1 the first (r), 2 the second (c); 0 for X.
 struct Operand {
   int64_t sb, sr, sc;
   double sgn;
+  int acol;
 };
+
+// Round a loaded pair at level lv (2, the carrier's level: unchanged).
+__device__ __forceinline__ void tile_round(int lv, double& vr, double& vi) {
+  if (lv < 2) {
+    vr = quantize(vr, lv);
+    vi = quantize(vi, lv);
+  }
+}
 
 // d += a b for one m8n8k4 f64 tile pair.  Fragments (PTX ISA, mma.m8n8k4
 // .f64): lane l holds a = A[l / 4][l % 4], b = B[l % 4][l / 4] and
@@ -391,13 +440,13 @@ __device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
       : "d"(a), "d"(b));
 }
 
-template <typename O, int TM, int TN>
+template <typename O, int TM, int TN, bool TILED>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
                  const double* __restrict__ Br, const double* __restrict__ Bi,
                  O* __restrict__ Cr, O* __restrict__ Ci,
                  int64_t B, int64_t M, int64_t N, int64_t K, Operand a,
-                 Operand b, int64_t c_sb, int64_t c_sr, int herm) {
+                 Operand b, int64_t c_sb, int64_t c_sr, int herm, TileGrid tg) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int64_t RT = (M + 8 * TM - 1) / (8 * TM), CT = (N + 8 * TN - 1) / (8 * TN);
   // consecutive warps take consecutive row tiles of one column tile, so a
@@ -413,6 +462,21 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
     const double* ai = Ai + bb * a.sb;
     const double* br = Br + bb * b.sb;
     const double* bi = Bi + bb * b.sb;
+    // tiled: the levels of the fragment rows (opA) and columns (opB) that
+    // are A's column, fixed over k, 2 bits each; a k column's is looked up
+    // once a step
+    const uint32_t cells = TILED ? tile_row(tg, bb) : 0u;
+    uint32_t lv_a = 0, lv_b = 0;
+    if (TILED) {
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+        lv_a |= (uint32_t)(a.acol == 1 ? tile_level(tg, cells, r0 + u * 8 + g) : 2)
+                << (2 * u);
+#pragma unroll
+      for (int v = 0; v < TN; ++v)
+        lv_b |= (uint32_t)(b.acol == 2 ? tile_level(tg, cells, c0 + v * 8 + g) : 2)
+                << (2 * v);
+    }
     double cre[TM][TN][2], cim[TM][TN][2];
 #pragma unroll
     for (int u = 0; u < TM; ++u)
@@ -422,6 +486,8 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
 #pragma unroll 4
     for (int64_t k0 = 0; k0 < K; k0 += 4) {
       const int64_t k = k0 + t;
+      const int lv_k = TILED && (a.acol == 2 || b.acol == 1) && k < K
+                           ? tile_level(tg, cells, k) : 2;
       double fa_r[TM], fa_i[TM], fb_r[TN], fb_i[TN];
 #pragma unroll
       for (int u = 0; u < TM; ++u) {
@@ -429,7 +495,10 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
         fa_r[u] = fa_i[u] = 0;
         if (r < M && k < K) {
           fa_r[u] = ar[r * a.sr + k * a.sc];
-          fa_i[u] = a.sgn * ai[r * a.sr + k * a.sc];
+          fa_i[u] = ai[r * a.sr + k * a.sc];
+          if (TILED)
+            tile_round(a.acol == 2 ? lv_k : (int)(lv_a >> (2 * u)) & 3, fa_r[u], fa_i[u]);
+          fa_i[u] *= a.sgn;
         }
       }
 #pragma unroll
@@ -438,7 +507,10 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
         fb_r[v] = fb_i[v] = 0;
         if (c < N && k < K) {
           fb_r[v] = br[k * b.sr + c * b.sc];
-          fb_i[v] = b.sgn * bi[k * b.sr + c * b.sc];
+          fb_i[v] = bi[k * b.sr + c * b.sc];
+          if (TILED)
+            tile_round(b.acol == 1 ? lv_k : (int)(lv_b >> (2 * v)) & 3, fb_r[v], fb_i[v]);
+          fb_i[v] *= b.sgn;
         }
       }
 #pragma unroll
@@ -475,11 +547,11 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
 
 // Launch the f64 tensor-core product: warp tiles of 16 x 8 (N <= 8) or
 // 16 x 32 columns for the GEMMs, 32 x 32 for the Hermitian Gram.
-template <typename O>
+template <typename O, bool TILED>
 int launch_zgemm_f64(const void* Ar, const void* Ai, const void* Br, const void* Bi,
                      void* Cr, void* Ci, int64_t B, int64_t M, int64_t N, int64_t K,
                      Operand a, Operand b, int64_t c_sb, int64_t c_sr, int herm,
-                     cudaStream_t s) {
+                     const TileGrid& tg, cudaStream_t s) {
   auto go = [&](auto kernel, int tm, int tn) {
     const int64_t tiles = ((M + 8 * tm - 1) / (8 * tm)) * ((N + 8 * tn - 1) / (8 * tn));
     const int64_t bx = (tiles + kMmaWarps - 1) / kMmaWarps;
@@ -488,31 +560,29 @@ int launch_zgemm_f64(const void* Ar, const void* Ai, const void* Br, const void*
         static_cast<const double*>(Ar), static_cast<const double*>(Ai),
         static_cast<const double*>(Br), static_cast<const double*>(Bi),
         static_cast<O*>(Cr), static_cast<O*>(Ci), B, M, N, K, a, b, c_sb, c_sr,
-        herm);
+        herm, tg);
     return (int)cudaGetLastError();
   };
-  if (herm) return go(zgemm_f64_kernel<O, 4, 4>, 4, 4);
-  if (N <= 8) return go(zgemm_f64_kernel<O, 2, 1>, 2, 1);
-  return go(zgemm_f64_kernel<O, 2, 4>, 2, 4);
+  if (herm) return go(zgemm_f64_kernel<O, 4, 4, TILED>, 4, 4);
+  if (N <= 8) return go(zgemm_f64_kernel<O, 2, 1, TILED>, 2, 1);
+  return go(zgemm_f64_kernel<O, 2, 4, TILED>, 2, 4);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Y (B, m, S) = A (B, m, n) X (B, n, S), split planes.
-int sbgemm_n_complex(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
-                     void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
-                     int dt_in, int dt_out, int device, void* stream) {
+// Y (B, m, S) = A (B, m, n) X (B, n, S).
+template <bool TILED>
+int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
+             void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, const TileGrid& tg,
+             int dt_in, int dt_out, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B == 0 || m == 0 || S == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (dt_in == DT_F64) {                     // opA = A, opB = X
     DISPATCH_DTYPE(dt_out, O,
-      return launch_zgemm_f64<O>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, S, n,
-                                 Operand{m * n, n, 1, 1.0}, Operand{n * S, S, 1, 1.0},
-                                 m * S, S, 0, s);
+      return launch_zgemm_f64<O, TILED>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, S, n,
+                                        Operand{m * n, n, 1, 1.0, 2},
+                                        Operand{n * S, S, 1, 1.0, 0},
+                                        m * S, S, 0, tg, s);
     )
   }
   const int64_t rows = kNWarps * kNRows;     // output rows of a block
@@ -520,37 +590,39 @@ int sbgemm_n_complex(const void* Ar, const void* Ai, const void* Xr, const void*
   if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)bx, batch_grid(B));
   DISPATCH_NARROW(dt_in, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_N_PASS(S, SC,
-    sbgemm_n_kernel<T, O, SC><<<grid, kNWarps * 32, 0, s>>>(
+    sbgemm_n_kernel<T, O, SC, TILED><<<grid, kNWarps * 32, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(Xr), static_cast<const T*>(Xi),
-        static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S);
+        static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, tg);
   )))
   return (int)cudaGetLastError();
 }
 
 // Y (B, n, S) = A^T X, or A^H X when conj != 0; X is (B, m, S).
-int sbgemm_th_complex(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
-                      void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
-                      int conj, int dt_in, int dt_out, int device, void* stream) {
+template <bool TILED>
+int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
+              void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, int conj,
+              const TileGrid& tg, int dt_in, int dt_out, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B == 0 || n == 0 || S == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (dt_in == DT_F64) {                     // opA = A^T (conj: A^H), opB = X
     DISPATCH_DTYPE(dt_out, O,
-      return launch_zgemm_f64<O>(Ar, Ai, Xr, Xi, Yr, Yi, B, n, S, m,
-                                 Operand{m * n, 1, n, conj ? -1.0 : 1.0},
-                                 Operand{m * S, S, 1, 1.0}, n * S, S, 0, s);
+      return launch_zgemm_f64<O, TILED>(Ar, Ai, Xr, Xi, Yr, Yi, B, n, S, m,
+                                        Operand{m * n, 1, n, conj ? -1.0 : 1.0, 1},
+                                        Operand{m * S, S, 1, 1.0, 0}, n * S, S, 0,
+                                        tg, s);
     )
   }
   const int64_t bx = (n + kThreads - 1) / kThreads;
   if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)bx, batch_grid(B));
   DISPATCH_NARROW(dt_in, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
-    sbgemm_th_kernel<T, O, SC><<<grid, kThreads, 0, s>>>(
+    sbgemm_th_kernel<T, O, SC, TILED><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(Xr), static_cast<const T*>(Xi),
-        static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj);
+        static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj, tg);
   )))
   return (int)cudaGetLastError();
 }
@@ -558,9 +630,10 @@ int sbgemm_th_complex(const void* Ar, const void* Ai, const void* Xr, const void
 // G = A^H A, (B, n, n), or with data != 0 G = A A^H, (B, m, m).  The tiles
 // below the diagonal are the conjugates of those above; the diagonal tiles
 // are not symmetrized (the wrapper does that).
-int sbgemm_gram_complex(const void* Ar, const void* Ai, void* Gr, void* Gi,
-                        int64_t B, int64_t m, int64_t n, int data,
-                        int dt_in, int dt_out, int device, void* stream) {
+template <bool TILED>
+int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
+                int64_t m, int64_t n, int data, const TileGrid& tg, int dt_in,
+                int dt_out, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int64_t P = data ? m : n;
@@ -569,22 +642,84 @@ int sbgemm_gram_complex(const void* Ar, const void* Ai, void* Gr, void* Gi,
   if (dt_in == DT_F64) {
     // parameter: opA[p][i] = conj(A[i, p]), opB[i][q] = A[i, q];
     // data: opA[p][j] = A[p, j], opB[j][q] = conj(A[q, j])
-    const Operand a = data ? Operand{m * n, n, 1, 1.0} : Operand{m * n, 1, n, -1.0};
-    const Operand b = data ? Operand{m * n, 1, n, -1.0} : Operand{m * n, n, 1, 1.0};
+    const Operand a = data ? Operand{m * n, n, 1, 1.0, 2}
+                           : Operand{m * n, 1, n, -1.0, 1};
+    const Operand b = data ? Operand{m * n, 1, n, -1.0, 1}
+                           : Operand{m * n, n, 1, 1.0, 2};
     DISPATCH_DTYPE(dt_out, O,
-      return launch_zgemm_f64<O>(Ar, Ai, Ar, Ai, Gr, Gi, B, P, P, data ? n : m,
-                                 a, b, P * P, P, 1, s);
+      return launch_zgemm_f64<O, TILED>(Ar, Ai, Ar, Ai, Gr, Gi, B, P, P,
+                                        data ? n : m, a, b, P * P, P, 1, tg, s);
     )
   }
   const int64_t tiles = (P + kTile - 1) / kTile;
   if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)tiles, (unsigned)tiles, batch_grid(B));
   DISPATCH_NARROW(dt_in, T, DISPATCH_DTYPE(dt_out, O,
-    sbgemm_gram_kernel<T, O><<<grid, kGramThreads, 0, s>>>(
+    sbgemm_gram_kernel<T, O, TILED><<<grid, kGramThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
-        static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, data);
+        static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, data, tg);
   ))
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int sbgemm_n_complex(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
+                     void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
+                     int dt_in, int dt_out, int device, void* stream) {
+  return launch_n<false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, TileGrid{}, dt_in,
+                         dt_out, device, stream);
+}
+
+int sbgemm_th_complex(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
+                      void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
+                      int conj, int dt_in, int dt_out, int device, void* stream) {
+  return launch_th<false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj, TileGrid{},
+                          dt_in, dt_out, device, stream);
+}
+
+int sbgemm_gram_complex(const void* Ar, const void* Ai, void* Gr, void* Gi,
+                        int64_t B, int64_t m, int64_t n, int data,
+                        int dt_in, int dt_out, int device, void* stream) {
+  return launch_gram<false>(Ar, Ai, Gr, Gi, B, m, n, data, TileGrid{}, dt_in, dt_out,
+                            device, stream);
+}
+
+// The tiled builds: A rounded per tile-map cell; levels is a host array of
+// R x C ladder indices, row-major.
+int sbgemm_n_complex_tiled(const void* Ar, const void* Ai, const void* Xr,
+                           const void* Xi, void* Yr, void* Yi, const int* levels,
+                           int64_t B, int64_t m, int64_t n, int64_t S, int R, int C,
+                           int dt_in, int dt_out, int device, void* stream) {
+  TileGrid tg;
+  const int err = make_tile_grid(levels, R, C, B, n, &tg);
+  if (err) return err;
+  return launch_n<true>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, tg, dt_in, dt_out,
+                        device, stream);
+}
+
+int sbgemm_th_complex_tiled(const void* Ar, const void* Ai, const void* Xr,
+                            const void* Xi, void* Yr, void* Yi, const int* levels,
+                            int64_t B, int64_t m, int64_t n, int64_t S, int conj,
+                            int R, int C, int dt_in, int dt_out, int device,
+                            void* stream) {
+  TileGrid tg;
+  const int err = make_tile_grid(levels, R, C, B, n, &tg);
+  if (err) return err;
+  return launch_th<true>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj, tg, dt_in, dt_out,
+                         device, stream);
+}
+
+int sbgemm_gram_tiled(const void* Ar, const void* Ai, void* Gr, void* Gi,
+                      const int* levels, int64_t B, int64_t m, int64_t n, int data,
+                      int R, int C, int dt_in, int dt_out, int device, void* stream) {
+  TileGrid tg;
+  const int err = make_tile_grid(levels, R, C, B, n, &tg);
+  if (err) return err;
+  return launch_gram<true>(Ar, Ai, Gr, Gi, B, m, n, data, tg, dt_in, dt_out, device,
+                           stream);
 }
 
 }  // extern "C"

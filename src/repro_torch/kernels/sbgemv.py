@@ -16,16 +16,27 @@ Each wrapper launches its kernel for CUDA tensors and runs the plain
 version beside it for CPU tensors.  Sums accumulate in f64 for f64 planes
 and in f32 otherwise; the output is stored at ``out_dtype`` (default: the
 plane dtype) straight from the accumulator.
+
+The ``*_tiled`` wrappers are tile-centric precision: ``levels`` is an
+(R, C) grid of ladder levels ("h"/"s"/"d", at most 8 x 8) over A's batch
+and column axes, and each A element is rounded through its cell's level
+(``ref.quantize_tile_cells``) before the contraction.  The kernels round
+it as they load it, so no quantized copy of A is made on the card; the
+plain versions quantize a copy, cell by cell.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from . import _build
-from .ref import cast, complex_contract, gram_contract
+from .ref import (LADDER_INDEX, cast, complex_contract, gram_contract,
+                  quantize_tile_cells, tile_levels)
+
+MAX_TILES = 8          # csrc/common.cuh:kMaxTiles
 
 
 def _check_planes(planes, out_dtype, what: str) -> None:
@@ -74,17 +85,34 @@ def sbgemv_th_complex_plain(A_re, A_im, x_re, x_im, conj, out_dtype):
     return cast(y_re, out_dtype), cast(y_im, out_dtype)
 
 
+def _level_grid(levels):
+    """A tile map's grid as (R, C, a C int array of ladder indices)."""
+    grid = tile_levels(levels)
+    R, C = len(grid), len(grid[0])
+    if R > MAX_TILES or C > MAX_TILES:
+        raise ValueError(f"the tiled kernels take at most {MAX_TILES} x "
+                         f"{MAX_TILES} cells, got {R} x {C}")
+    flat = [LADDER_INDEX[lvl] for row in grid for lvl in row]
+    return R, C, (ctypes.c_int * len(flat))(*flat)
+
+
 def _launch(source: str, entry: str, inputs, out_shape, out_dtype, sizes,
-            *ints):
+            *ints, levels=None):
     """Launch C entry ``entry`` of ``csrc/<source>.cu`` on ``inputs`` (A
-    planes first) into two new ``out_shape`` planes; counts the launch."""
+    planes first) into two new ``out_shape`` planes; counts the launch.
+    ``levels``, a tile map's grid, goes as a host array after the outputs
+    and its R and C after ``ints``."""
     A = inputs[0]
     outs = [torch.empty(out_shape, dtype=out_dtype, device=A.device)
             for _ in range(2)]
+    ptrs = [t.data_ptr() for t in (*inputs, *outs)]
+    if levels is not None:
+        R, C, grid = _level_grid(levels)   # read by the entry before it returns
+        ptrs.append(ctypes.addressof(grid))
+        ints = (*ints, R, C)
     fn = getattr(_build.library(source), entry)
-    err = fn(*(t.data_ptr() for t in (*inputs, *outs)), *sizes, *ints,
-             _build.DTYPE_CODES[A.dtype], _build.DTYPE_CODES[out_dtype],
-             A.device.index, _build.stream_of(A))
+    err = fn(*ptrs, *sizes, *ints, _build.DTYPE_CODES[A.dtype],
+             _build.DTYPE_CODES[out_dtype], A.device.index, _build.stream_of(A))
     _build.check(err, entry)
     _build.launch_counts[entry] += 1
     return tuple(outs)
@@ -117,6 +145,47 @@ def sbgemv_th_complex(A_re, A_im, x_re, x_im, *, conj: bool,
                    (B, n), out_dtype, A_re.shape, int(bool(conj)))
 
 
+def sbgemv_n_complex_tiled_plain(A_re, A_im, x_re, x_im, levels, out_dtype):
+    """Plain version of ``sbgemv_n_complex_tiled``."""
+    Ar, Ai = quantize_tile_cells(levels, A_re, A_im)
+    return sbgemv_n_complex_plain(Ar, Ai, x_re, x_im, out_dtype)
+
+
+def sbgemv_th_complex_tiled_plain(A_re, A_im, x_re, x_im, levels, conj,
+                                  out_dtype):
+    """Plain version of ``sbgemv_th_complex_tiled``."""
+    Ar, Ai = quantize_tile_cells(levels, A_re, A_im)
+    return sbgemv_th_complex_plain(Ar, Ai, x_re, x_im, conj, out_dtype)
+
+
+def sbgemv_n_complex_tiled(A_re, A_im, x_re, x_im, levels,
+                           out_dtype: Optional[torch.dtype] = None):
+    """``sbgemv_n_complex`` with A rounded per tile-map cell (``levels``)."""
+    out_dtype = out_dtype or A_re.dtype
+    _check(A_re, A_im, x_re, x_im, 2, out_dtype, "sbgemv_n_complex_tiled")
+    B, m, n = A_re.shape
+    if A_re.device.type == "cpu":
+        return sbgemv_n_complex_tiled_plain(A_re, A_im, x_re, x_im, levels,
+                                            out_dtype)
+    return _launch("sbgemv", "sbgemv_n_complex_tiled",
+                   (A_re, A_im, x_re, x_im), (B, m), out_dtype, A_re.shape,
+                   levels=levels)
+
+
+def sbgemv_th_complex_tiled(A_re, A_im, x_re, x_im, levels, *, conj: bool,
+                            out_dtype: Optional[torch.dtype] = None):
+    """``sbgemv_th_complex`` with A rounded per tile-map cell (``levels``)."""
+    out_dtype = out_dtype or A_re.dtype
+    _check(A_re, A_im, x_re, x_im, 1, out_dtype, "sbgemv_th_complex_tiled")
+    B, m, n = A_re.shape
+    if A_re.device.type == "cpu":
+        return sbgemv_th_complex_tiled_plain(A_re, A_im, x_re, x_im, levels,
+                                             conj, out_dtype)
+    return _launch("sbgemv", "sbgemv_th_complex_tiled",
+                   (A_re, A_im, x_re, x_im), (B, n), out_dtype, A_re.shape,
+                   int(bool(conj)), levels=levels)
+
+
 # ---------------------------------------------------------------------------
 # Multi-RHS (SBGEMM) and per-bin Gram blocks: csrc/sbgemm.cu
 # ---------------------------------------------------------------------------
@@ -129,6 +198,13 @@ def sbgemm_n_complex_plain(A_re, A_im, X_re, X_im, out_dtype):
 def sbgemm_th_complex_plain(A_re, A_im, X_re, X_im, conj, out_dtype):
     """Plain version of ``sbgemm_th_complex``."""
     return sbgemv_th_complex_plain(A_re, A_im, X_re, X_im, conj, out_dtype)
+
+
+def _check_gram(A_re, A_im, out_dtype, what: str) -> None:
+    if A_re.ndim != 3 or A_im.shape != A_re.shape:
+        raise ValueError(f"{what}: A planes must be two (B, m, n) tensors, "
+                         f"got {tuple(A_re.shape)} and {tuple(A_im.shape)}")
+    _check_planes((A_re, A_im), out_dtype, what)
 
 
 def sbgemm_gram_complex_plain(A_re, A_im, data, out_dtype):
@@ -175,14 +251,76 @@ def sbgemm_gram_complex(A_re, A_im, *, data: bool = False,
     conjugates below it; neither it nor the plain version symmetrizes
     the diagonal tiles (``ops.sbgemm_gram`` does)."""
     out_dtype = out_dtype or A_re.dtype
-    if A_re.ndim != 3 or A_im.shape != A_re.shape:
-        raise ValueError(f"sbgemm_gram_complex: A planes must be two "
-                         f"(B, m, n) tensors, got {tuple(A_re.shape)} and "
-                         f"{tuple(A_im.shape)}")
-    _check_planes((A_re, A_im), out_dtype, "sbgemm_gram_complex")
+    _check_gram(A_re, A_im, out_dtype, "sbgemm_gram_complex")
     B, m, n = A_re.shape
     if A_re.device.type == "cpu":
         return sbgemm_gram_complex_plain(A_re, A_im, data, out_dtype)
     P = m if data else n
     return _launch("sbgemm", "sbgemm_gram_complex", (A_re, A_im), (B, P, P),
                    out_dtype, (B, m, n), int(bool(data)))
+
+
+def sbgemm_n_complex_tiled_plain(A_re, A_im, X_re, X_im, levels, out_dtype):
+    """Plain version of ``sbgemm_n_complex_tiled``."""
+    return sbgemv_n_complex_tiled_plain(A_re, A_im, X_re, X_im, levels,
+                                        out_dtype)
+
+
+def sbgemm_th_complex_tiled_plain(A_re, A_im, X_re, X_im, levels, conj,
+                                  out_dtype):
+    """Plain version of ``sbgemm_th_complex_tiled``."""
+    return sbgemv_th_complex_tiled_plain(A_re, A_im, X_re, X_im, levels, conj,
+                                         out_dtype)
+
+
+def sbgemm_gram_tiled_plain(A_re, A_im, levels, data, out_dtype):
+    """Plain version of ``sbgemm_gram_tiled``."""
+    Ar, Ai = quantize_tile_cells(levels, A_re, A_im)
+    return sbgemm_gram_complex_plain(Ar, Ai, data, out_dtype)
+
+
+def sbgemm_n_complex_tiled(A_re, A_im, X_re, X_im, levels,
+                           out_dtype: Optional[torch.dtype] = None):
+    """``sbgemm_n_complex`` with A rounded per tile-map cell (``levels``)."""
+    out_dtype = out_dtype or A_re.dtype
+    _check(A_re, A_im, X_re, X_im, 2, out_dtype, "sbgemm_n_complex_tiled",
+           rhs=True)
+    B, m, n = A_re.shape
+    S = X_re.shape[2]
+    if A_re.device.type == "cpu":
+        return sbgemm_n_complex_tiled_plain(A_re, A_im, X_re, X_im, levels,
+                                            out_dtype)
+    return _launch("sbgemm", "sbgemm_n_complex_tiled",
+                   (A_re, A_im, X_re, X_im), (B, m, S), out_dtype,
+                   (B, m, n, S), levels=levels)
+
+
+def sbgemm_th_complex_tiled(A_re, A_im, X_re, X_im, levels, *, conj: bool,
+                            out_dtype: Optional[torch.dtype] = None):
+    """``sbgemm_th_complex`` with A rounded per tile-map cell (``levels``)."""
+    out_dtype = out_dtype or A_re.dtype
+    _check(A_re, A_im, X_re, X_im, 1, out_dtype, "sbgemm_th_complex_tiled",
+           rhs=True)
+    B, m, n = A_re.shape
+    S = X_re.shape[2]
+    if A_re.device.type == "cpu":
+        return sbgemm_th_complex_tiled_plain(A_re, A_im, X_re, X_im, levels,
+                                             conj, out_dtype)
+    return _launch("sbgemm", "sbgemm_th_complex_tiled",
+                   (A_re, A_im, X_re, X_im), (B, n, S), out_dtype,
+                   (B, m, n, S), int(bool(conj)), levels=levels)
+
+
+def sbgemm_gram_tiled(A_re, A_im, levels, *, data: bool = False,
+                      out_dtype: Optional[torch.dtype] = None):
+    """``sbgemm_gram_complex`` with A rounded per tile-map cell (``levels``,
+    over A's (B, n) grid in both spaces): each factor of a product is
+    rounded at its own cell."""
+    out_dtype = out_dtype or A_re.dtype
+    _check_gram(A_re, A_im, out_dtype, "sbgemm_gram_tiled")
+    B, m, n = A_re.shape
+    if A_re.device.type == "cpu":
+        return sbgemm_gram_tiled_plain(A_re, A_im, levels, data, out_dtype)
+    P = m if data else n
+    return _launch("sbgemm", "sbgemm_gram_tiled", (A_re, A_im), (B, P, P),
+                   out_dtype, (B, m, n), int(bool(data)), levels=levels)

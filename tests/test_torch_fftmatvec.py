@@ -197,9 +197,8 @@ def test_single_column_blocks_match_matvec(op_d, data):
 
 
 @pytest.mark.parametrize("call", [
-    lambda op, m: op.autotune(1e-3),
-    lambda op, m: tpipe.matvec_plan(
-        PrecisionConfig.from_string("dssdd;tiles=hs|sh")),
+    lambda op, m: op.autotune(1e-3, lint=True),
+    lambda op, m: op.autotune(1e-3, p_r=2),
     lambda op, m: tpipe.run_stages((tpipe.Stage("psum", "d"),), m,
                                    {"F": (op.F_hat_re, op.F_hat_im)},
                                    N_t=op.N_t, opts=op.opts),

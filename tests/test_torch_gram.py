@@ -305,8 +305,11 @@ def test_gram_validation(ops_pair):
         op.gram(mode="bogus")
     with pytest.raises(ValueError, match="space"):
         gram_plan(op.precision, space="bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        gram_plan(PrecisionConfig.from_string("dssdd;tiles=hs|sh"))
+    with pytest.raises(ValueError, match="mode"):
+        gram_plan(op.precision, mode="bogus")
+    tiled = gram_plan(PrecisionConfig.from_string("dssdd;tiles=hd|sh"))
+    assert [s.tile_map.to_string() for s in tiled if s.kind == "gemv"] == \
+        ["hs|sh", "hs|sh"]
 
 
 def test_gram_on_cpu_launches_no_kernel(ops_pair, data):

@@ -69,7 +69,9 @@ def test_every_ported_kernel_row_has_a_cuda_source():
     ported = [r for r in rows if r["status"].startswith("ported")]
     assert {r["TPU kernel"].split("`")[1] for r in ported} >= {
         "pad_cast", "unpad_cast", "sbgemv_n_complex", "sbgemv_th_complex",
-        "sbgemm_n_complex", "sbgemm_th_complex", "sbgemm_gram_complex"}
+        "sbgemm_n_complex", "sbgemm_th_complex", "sbgemm_gram_complex",
+        "sbgemm_n_complex_tiled", "sbgemm_th_complex_tiled",
+        "sbgemm_gram_tiled"}
     for r in ported:
         src = r["port source"].strip("`")
         assert src.endswith(".cu") and (ROOT / src).is_file(), r

@@ -249,11 +249,12 @@ def test_launch_counters_stay_zero_on_cpu():
 
 def test_sbgemm_source_declares_its_entries():
     """Every C entry the wrappers call is declared in the build table with
-    the argument counts its source defines."""
+    the argument counts its source defines (a tiled entry's level array is
+    its one ``const int*``)."""
     src = (_build.CSRC / "sbgemm.cu").read_text()
     for entry, (n_ptrs, n_sizes, n_ints) in _build.ENTRIES["sbgemm"].items():
         head = src[src.index(f"int {entry}("):]
         sig = head[:head.index(")")]
-        assert sig.count("void*") == n_ptrs + 1          # + the stream
+        assert sig.count("void*") + sig.count("int*") == n_ptrs + 1  # + stream
         assert sig.count("int64_t") == n_sizes
         assert sig.count("int ") - 1 == n_ints            # - the return
