@@ -58,7 +58,21 @@ CUDA toolkit.  It:
       sweep's optimum), the (s, h) ladder at 1e-2, ``tiles=(2, 2)`` on a
       column with a cold model-axis tail (a tiled config timed within
       tolerance, the tiled kernels launched), and a second call answered
-      from the TuningCache with nothing timed.
+      from the TuningCache with nothing timed;
+6. the real-A products:
+   a. the six real kernels (SBGEMV N and T; SBGEMM N and T and their
+      tiled builds), f64, f32 and bf16 planes, at ragged small shapes and
+      at the paper shape (S = 1, 8, 32): each against its plain version at
+      its level's tolerance, each tiled build bit for bit against its
+      untiled build on planes quantized up front (the 2 x 2 and the ragged
+      3 x 3 map); at the paper shape each timed beside its bound, its
+      plain version and ``torch.bmm``;
+   b. ``ops.sbgemv_real`` / ``ops.sbgemm_real`` on the card launch their
+      kernel, and with ``tile_map=`` their tiled build, at a short-wide
+      and a tall shape, matching the plain path;
+   c. the twin of the paper's Fig. 1 sweep (``repro_torch.examples.
+      fig1_sbgemv``, batch 100): the hand kernels against the stock
+      passes and the library call, with launch counts.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -1017,7 +1031,8 @@ def drive_example(dev, report):
     bad = example.check(out)
     if bad:
         fail("inverse-problem example: " + "; ".join(bad))
-    check_launched(counts, [k for k in REPLACES if not k.endswith("_tiled")])
+    check_launched(counts, [k for k in REPLACES
+                            if not k.endswith("_tiled") and "_real" not in k])
 
 
 def drive_tiled_configs(dev, N_t, N_d, N_m, timed, time_fn, report):
@@ -1223,6 +1238,159 @@ def drive_autotune(dev, N_t, N_d, N_m, report):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 6. The real-A products
+# ---------------------------------------------------------------------------
+
+def _real_names(mode: str, S: int):
+    """The untiled kernel a real product of ``S`` columns runs (S = 1:
+    the SBGEMV) and its tiled SBGEMM build."""
+    d = "n" if mode == "N" else "th"
+    return (f"sbgemv_{d}_real" if S == 1 else f"sbgemm_{d}_real",
+            f"sbgemm_{d}_real_tiled")
+
+
+def check_real_kernels(dev, B, m, n, S_list, timed, results, time_fn):
+    """The six real kernels, f64, f32 and bf16 planes: each against its
+    plain version at its level's tolerance; each tiled build (S = 1 as one
+    column of the SBGEMM) bit for bit against the untiled SBGEMM on planes
+    quantized up front, on each map of TILE_MAPS, and against its plain
+    version.  Timed: kernel, plain version and one ``torch.bmm`` on the
+    same planes (the transposed view for T); the tiled builds beside the
+    untiled SBGEMM on the same, unquantized planes (f64 and f32 carriers;
+    no single PyTorch call quantizes per cell, so no library time)."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    A64 = torch.randn((B, m, n), generator=gen, device=dev, dtype=torch.float64)
+    for dt in DTYPES:
+        A = A64.to(dt)
+        for S in S_list:
+            for mode in "NT":
+                xlen, ylen = (n, m) if mode == "N" else (m, n)
+                X = torch.randn((B, xlen) if S == 1 else (B, xlen, S),
+                                generator=gen, device=dev,
+                                dtype=torch.float64).to(dt)
+                Xc = X[..., None] if S == 1 else X        # the SBGEMM's X
+                kname, tname_k = _real_names(mode, S)
+                kern, plain = getattr(sk, kname), getattr(sk, kname + "_plain")
+                gemm = getattr(sk, tname_k.removesuffix("_tiled"))
+                tiled = getattr(sk, tname_k)
+                tplain = getattr(sk, tname_k + "_plain")
+                what = f"{kname} mode {mode} {name(dt)} at {(B, m, n, S)}"
+                err = check_planes(what, [kern(A, X)], [plain(A, X, dt)], dt)
+                print(f"{what}: max abs err vs plain {err:.3e}", flush=True)
+                t_errs = {}
+                for tname, levels in TILE_MAPS.items():
+                    got = tiled(A, Xc, levels)
+                    want = gemm(kref.quantize_tile_cells(levels, A), Xc)
+                    twhat = (f"{tname_k} mode {mode} {name(dt)} map {tname} "
+                             f"at {(B, m, n, S)}")
+                    if not same_bits([got], [want]):
+                        fail(f"{twhat}: differs from the untiled kernel on "
+                             f"planes quantized up front")
+                    del want
+                    t_errs[tname] = check_planes(
+                        twhat, [got], [tplain(A, Xc, levels, dt)], dt)
+                    del got
+                print(f"{tname_k} mode {mode} {name(dt)} at {(B, m, n, S)}: "
+                      f"bitwise equal to {tname_k.removesuffix('_tiled')} on "
+                      f"quantized planes for maps {list(TILE_MAPS)}; max abs "
+                      f"err vs plain {max(t_errs.values()):.3e}", flush=True)
+                if not timed:
+                    continue
+                nbytes = dt.itemsize * (B * m * n + B * xlen * S
+                                        + B * ylen * S)
+                flops = 2 * B * m * n * S
+                b_ms, b_by = bound_ms(nbytes, flops, name(dt))
+                Am = A if mode == "N" else A.mT
+                results[kname][name(dt) if S == 1 else f"{name(dt)} S={S}"] = {
+                    "shape": [B, m, n, S], "mode": mode, "max_abs_err": err,
+                    "ms": time_fn(lambda _: kern(A, X), None),
+                    "plain_ms": time_fn(lambda _: plain(A, X, dt), None),
+                    "library_ms": time_fn(lambda _: torch.bmm(Am, Xc), None),
+                    "bytes": nbytes, "flops": flops, "bound_ms": b_ms,
+                    "bound_by": b_by}
+                if dt == torch.bfloat16:
+                    continue
+                u_ms = time_fn(lambda _: gemm(A, Xc), None)
+                for tname, levels in TILE_MAPS.items():
+                    results[tname_k][f"{name(dt)} S={S} {tname}"] = {
+                        "shape": [B, m, n, S], "mode": mode, "map": tname,
+                        "max_abs_err": t_errs[tname],
+                        "ms": time_fn(lambda _: tiled(A, Xc, levels), None),
+                        "untiled_ms": u_ms,
+                        "plain_ms": time_fn(lambda _: tplain(A, Xc, levels,
+                                                             dt), None),
+                        "library_ms": None,     # no one call quantizes
+                        "bytes": nbytes, "flops": flops, "bound_ms": b_ms,
+                        "bound_by": b_by}
+                del X, Xc
+        del A
+    del A64
+
+
+def check_real_dispatch_on_card(dev):
+    """``ops.sbgemv_real`` / ``ops.sbgemm_real`` on the card launch their
+    kernel at a short-wide and a tall shape, every mode and dtype, and with
+    ``tile_map=`` the tiled build (``sbgemv_real`` as its one column);
+    each output matches the plain path.  Returns the phase's launches,
+    the counters set to 0 just before."""
+    from repro_torch.backend import DispatchTable
+    from repro_torch.kernels import _build, ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    plain = DispatchTable(force="torch")
+    _build.reset_launch_counts()
+    for B, m, n, S in ((3, 3, 77, 5), (2, 300, 50, 33)):
+        for dt in DTYPES:
+            A = torch.randn((B, m, n), generator=gen, device=dev).to(dt)
+            for mode in "NT":
+                xlen = n if mode == "N" else m
+                x = torch.randn((B, xlen), generator=gen, device=dev).to(dt)
+                X = torch.randn((B, xlen, S), generator=gen, device=dev).to(dt)
+                for fn, arg, S_, tile_map in (
+                        (ops.sbgemv_real, x, 1, None),
+                        (ops.sbgemm_real, X, S, None),
+                        (ops.sbgemv_real, x, 1, TILE_MAPS["3x3"]),
+                        (ops.sbgemm_real, X, S, TILE_MAPS["2x2"])):
+                    kname = _real_names(mode, S_)[tile_map is not None]
+                    what = (f"ops.{fn.__name__} mode {mode} {name(dt)} at "
+                            f"{(B, m, n, S_)}{' tiled' if tile_map else ''}")
+                    before = _build.launch_counts[kname]
+                    got = fn(A, arg, mode, tile_map=tile_map)
+                    if _build.launch_counts[kname] != before + 1:
+                        fail(f"{what} did not launch {kname}")
+                    check_planes(what, [got], [fn(A, arg, mode,
+                                                  tile_map=tile_map,
+                                                  dispatch=plain)], dt)
+    sync(dev)
+    counts = dict(_build.launch_counts)
+    print(f"ops.sbgemv_real / ops.sbgemm_real on the card launched their "
+          f"kernels (tiled with tile_map=) at (3, 3, 77) and (2, 300, 50) "
+          f"for every mode and dtype: {counts}", flush=True)
+    return counts
+
+
+def drive_fig1(dev, report):
+    """The twin of the paper's Fig. 1 sweep at batch 100, counted: the hand
+    kernels within their level's tolerance of their plain versions."""
+    from repro_torch.examples import fig1_sbgemv as fig1
+    from repro_torch.kernels import _build
+    _build.reset_launch_counts()
+    rows = fig1.run(dev)
+    sync(dev)
+    counts = dict(_build.launch_counts)
+    report["fig1"] = {"rows": rows, "launches": counts}
+    print(f"fig1 sweep launches {counts}", flush=True)
+    check_launched(counts, ["sbgemv_th_complex", "sbgemv_th_real"])
+    for r in rows:
+        tol = TOL["d" if r["dtype"].endswith("64") else "s"]
+        if not r["rel_err"] <= tol:
+            fail(f"fig1 {r['dtype']} {r['m']}:{r['n']}: kernel vs plain rel "
+                 f"{r['rel_err']:.3e} > {tol:g}")
+    return counts
+
+
 def plain_path(op):
     """``op`` with every contraction on the plain PyTorch code (the
     "torch" dispatch path); pad/unpad still launch their kernels."""
@@ -1282,6 +1450,23 @@ REPLACES = {
     "sbgemm_gram_tiled": ("src/repro_torch/kernels/csrc/sbgemm.cu",
                           "src/repro/kernels/sbgemv.py:559",
                           "float64 data 2x2"),
+    # the real-A products
+    "sbgemv_th_real": ("src/repro_torch/kernels/csrc/sbgemv.cu",
+                       "src/repro/kernels/sbgemv.py:152", "float64"),
+    "sbgemv_n_real": ("src/repro_torch/kernels/csrc/sbgemv.cu",
+                      "src/repro/kernels/sbgemv.py:182", "float64"),
+    "sbgemm_th_real": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                       "src/repro/kernels/sbgemv.py:373",
+                       f"float64 S={S_BLOCK}"),
+    "sbgemm_n_real": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                      "src/repro/kernels/sbgemv.py:404",
+                      f"float64 S={S_BLOCK}"),
+    "sbgemm_th_real_tiled": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                             "src/repro/kernels/sbgemv.py:590",
+                             f"float64 S={S_BLOCK} 2x2"),
+    "sbgemm_n_real_tiled": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                            "src/repro/kernels/sbgemv.py:624",
+                            f"float64 S={S_BLOCK} 2x2"),
 }
 
 
@@ -1368,6 +1553,17 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     free(dev)
     if dev.type == "cuda":
         drive_autotune(dev, N_t, N_d, N_m, report)
+    free(dev)
+    # slice 4: the real-A products and the Fig. 1 sweep
+    check_real_kernels(dev, 3, 7, 130, (1, 5, 33), False, results, time_fn)
+    check_real_kernels(dev, 2, 300, 50, (1, 9), False, results, time_fn)
+    if dev.type == "cuda":
+        report["real_dispatch_launches"] = check_real_dispatch_on_card(dev)
+    check_real_kernels(dev, N_t + 1, N_d, N_m, (1, S_BLOCK, S_WIDE), timed,
+                       results, time_fn)
+    free(dev)
+    if dev.type == "cuda":
+        drive_fig1(dev, report)
     return results, report
 
 
@@ -1375,6 +1571,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import PAPER_SINGLE
     from repro_torch.core import time_callable
@@ -1414,6 +1611,9 @@ def main() -> int:
         report.get("peak_memory_gb_before_autotune", 0.0),
         torch.cuda.max_memory_allocated(dev) / 1e9)
     print(f"peak device memory {report['peak_memory_gb']:.2f} GB", flush=True)
+    report["seconds"] = time.perf_counter() - t_start
+    print(f"chip_smoke: every check passed in {report['seconds']:.1f} s "
+          f"(build {build_s:.1f} s)", flush=True)
     # each kernel's launches on the main path that uses it
     launches = {**report["launches"],
                 **{k: report["block"]["launches"][k]
@@ -1422,7 +1622,11 @@ def main() -> int:
                     report["circulant"]["launches"]["sbgemm_gram_complex"],
                 **{k: v for k, v in
                    report["tiled_configs"]["launches_total"].items()
-                   if k.endswith("_tiled")}}
+                   if k.endswith("_tiled")},
+                # the real kernels: the dispatch phase and the Fig. 1 sweep
+                **{k: report["real_dispatch_launches"].get(k, 0)
+                   + report["fig1"]["launches"].get(k, 0)
+                   for k in REPLACES if "_real" in k}}
     line = kernel_line(results, launches)
 
     out_dir = ROOT / "chiprun_out"

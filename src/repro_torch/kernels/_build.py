@@ -3,7 +3,7 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  Libraries land in ``build/repro_torch_kernels/`` at the
-root of the checkout, named by a hash of the source and the flags, so a
+root of the checkout, named by a hash of the sources and the flags, so a
 stale build is never loaded.  A missing ``nvcc`` or a failed build
 raises: there is no fallback.
 
@@ -35,12 +35,16 @@ ENTRIES = {
     "pad_cast": {"pad_cast": (2, 4, 3), "unpad_cast": (2, 3, 3)},
     "sbgemv": {"sbgemv_n_complex": (6, 3, 3), "sbgemv_th_complex": (6, 3, 4),
                "sbgemv_n_complex_tiled": (7, 3, 5),
-               "sbgemv_th_complex_tiled": (7, 3, 6)},
+               "sbgemv_th_complex_tiled": (7, 3, 6),
+               "sbgemv_n_real": (3, 3, 3), "sbgemv_th_real": (3, 3, 3)},
     "sbgemm": {"sbgemm_n_complex": (6, 4, 3), "sbgemm_th_complex": (6, 4, 4),
                "sbgemm_gram_complex": (4, 3, 4),
                "sbgemm_n_complex_tiled": (7, 4, 5),
                "sbgemm_th_complex_tiled": (7, 4, 6),
                "sbgemm_gram_tiled": (5, 3, 6)},
+    "sbgemm_real": {"sbgemm_n_real": (3, 4, 3), "sbgemm_th_real": (3, 4, 3),
+                    "sbgemm_n_real_tiled": (4, 4, 5),
+                    "sbgemm_th_real_tiled": (4, 4, 5)},
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,8 +77,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
+    # every source: one may include another (sbgemm_real.cu, sbgemm.cu)
     h = hashlib.sha256()
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"

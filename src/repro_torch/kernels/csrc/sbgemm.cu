@@ -43,7 +43,7 @@
 //     order, its rows and columns 16 apart so the panel reads are
 //     conflict-free.
 //
-// Columns come in passes of SC = 8 or 16 for N and SC = 1, 8 or 32 for T/H
+// Columns come in passes of SC = 1, 8 or 16 for N and SC = 1, 8 or 32 for T/H
 // (the smallest that holds S, at most 16 or 32; wider blocks loop over
 // passes inside the kernel and read A once per pass).  Columns past S are
 // zero in the staged panel and never stored.
@@ -59,6 +59,16 @@
 // on planes quantized up front they give the untiled build's bits.  In the
 // Gram both factors of a product are rounded at their own cells.  They
 // move the untiled kernels' bytes: A stays stored at the carrier type.
+//
+// Real builds (REAL = true) replace the TPU kernels :sbgemm_n_real,
+// :sbgemm_th_real, :sbgemm_n_real_tiled and :sbgemm_th_real_tiled: the
+// same kernels with the imaginary planes compiled away (one A, X and Y
+// plane; on the f64 path one DMMA a tile pair instead of four).  With one
+// plane an A element carries 2 S flops: bytes-bound at every S here.  The
+// tiled real builds take the TILED flag unchanged.  Their C entries are
+// built from this file as a second library (sbgemm_real.cu defines
+// SBGEMM_REAL_ENTRIES), so the complex and the real instantiations compile
+// in parallel.
 #include "common.cuh"
 
 namespace {
@@ -78,7 +88,7 @@ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
-template <typename T, typename O, int SC, bool TILED>
+template <typename T, typename O, int SC, bool TILED, bool REAL>
 __global__ void __launch_bounds__(kNWarps * 32)
 sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                 const T* __restrict__ Xr, const T* __restrict__ Xi,
@@ -97,7 +107,7 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   const int64_t row0 = ((int64_t)blockIdx.x * kNWarps + (threadIdx.x >> 5)) * R;
   for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
     const T* xr = Xr + b * n * S;
-    const T* xi = Xi + b * n * S;
+    const T* xi = Xi + (REAL ? 0 : b * n * S);  // REAL: Xi is null
     const uint32_t cells = TILED ? tile_row(tg, b) : 0u;
     for (int64_t s0 = 0; s0 < S; s0 += SC) {
       const int sc = (int)min64(SC, S - s0);
@@ -114,10 +124,10 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
           A vr = 0, vi = 0;
           if (k < n && s < sc) {
             vr = widen<A>(xr[k * S + s0 + s]);
-            vi = widen<A>(xi[k * S + s0 + s]);
+            if constexpr (!REAL) vi = widen<A>(xi[k * S + s0 + s]);
           }
           sxr[s][kk] = vr;
-          sxi[s][kk] = vi;
+          if constexpr (!REAL) sxi[s][kk] = vi;
         }
         if (TILED)
           for (int e = threadIdx.x; e < KC; e += kNWarps * 32)
@@ -136,7 +146,7 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
             if (row0 + u < m && k < n) {
               const int64_t off = (b * m + row0 + u) * n + k;
               a_r[u] = widen<A>(Ar[off]);
-              a_i[u] = widen<A>(Ai[off]);
+              if constexpr (!REAL) a_i[u] = widen<A>(Ai[off]);
               if (TILED && rounds<A>(lv)) {
                 a_r[u] = quantize(a_r[u], lv);
                 a_i[u] = quantize(a_i[u], lv);
@@ -145,11 +155,17 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
           }
 #pragma unroll
           for (int s = 0; s < SC; ++s) {
-            const A x_r = sxr[s][kk], x_i = sxi[s][kk];
+            const A x_r = sxr[s][kk];
+            if constexpr (REAL) {
 #pragma unroll
-            for (int u = 0; u < R; ++u) {
-              acc_r[u][s] += a_r[u] * x_r - a_i[u] * x_i;
-              acc_i[u][s] += a_r[u] * x_i + a_i[u] * x_r;
+              for (int u = 0; u < R; ++u) acc_r[u][s] += a_r[u] * x_r;
+            } else {
+              const A x_i = sxi[s][kk];
+#pragma unroll
+              for (int u = 0; u < R; ++u) {
+                acc_r[u][s] += a_r[u] * x_r - a_i[u] * x_i;
+                acc_i[u][s] += a_r[u] * x_i + a_i[u] * x_r;
+              }
             }
           }
         }
@@ -164,7 +180,8 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1) {
             acc_r[u][s] += __shfl_xor_sync(0xffffffffu, acc_r[u][s], off);
-            acc_i[u][s] += __shfl_xor_sync(0xffffffffu, acc_i[u][s], off);
+            if constexpr (!REAL)
+              acc_i[u][s] += __shfl_xor_sync(0xffffffffu, acc_i[u][s], off);
           }
 #pragma unroll
       for (int u = 0; u < R; ++u) {
@@ -174,7 +191,7 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
         for (int s = 0; s < SC; ++s) {
           if (s == lane && s < sc) {          // lane s stores column s
             Yr[out + s] = Store<O>::from(acc_r[u][s]);
-            Yi[out + s] = Store<O>::from(acc_i[u][s]);
+            if constexpr (!REAL) Yi[out + s] = Store<O>::from(acc_i[u][s]);
           }
         }
       }
@@ -182,7 +199,7 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   }
 }
 
-template <typename T, typename O, int SC, bool TILED>
+template <typename T, typename O, int SC, bool TILED, bool REAL>
 __global__ void __launch_bounds__(kThreads)
 sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                  const T* __restrict__ Xr, const T* __restrict__ Xi,
@@ -196,9 +213,9 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   const A sgn = conj ? A(-1) : A(1);        // conj(A): negate Im(A)
   for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
     const T* ar = Ar + b * m * n + j;
-    const T* ai = Ai + b * m * n + j;
+    const T* ai = Ai + (REAL ? 0 : b * m * n + j);   // REAL: Ai, Xi are null
     const T* xr = Xr + b * m * S;
-    const T* xi = Xi + b * m * S;
+    const T* xi = Xi + (REAL ? 0 : b * m * S);
     const int lv = TILED ? tile_level(tg, tile_row(tg, b), j) : 2;
     for (int64_t s0 = 0; s0 < S; s0 += SC) {
       const int sc = (int)min64(SC, S - s0);
@@ -216,18 +233,19 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
           if (ii < len && s < sc) {
             const int64_t off = (i0 + ii) * S + s0 + s;
             vr = widen<A>(xr[off]);
-            vi = widen<A>(xi[off]);
+            if constexpr (!REAL) vi = widen<A>(xi[off]);
           }
           sxr[e] = vr;
-          sxi[e] = vi;
+          if constexpr (!REAL) sxi[e] = vi;
         }
         __syncthreads();
         auto sweep = [&](auto q) {
-          // four rows' loads in flight a step
-#pragma unroll 4
+          // four rows' loads in flight a step (eight with one plane)
+#pragma unroll (REAL ? 8 : 4)
           for (int k = 0; k < len; ++k) {
             const int64_t off = (i0 + k) * n;
-            A a_r = widen<A>(ar[off]), a_i = widen<A>(ai[off]);
+            A a_r = widen<A>(ar[off]), a_i = 0;
+            if constexpr (!REAL) a_i = widen<A>(ai[off]);
             if constexpr (decltype(q)::value) {
               a_r = quantize(a_r, lv);
               a_i = quantize(a_i, lv);
@@ -235,9 +253,14 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
             a_i = sgn * a_i;
 #pragma unroll
             for (int s = 0; s < SC; ++s) {
-              const A x_r = sxr[k * SC + s], x_i = sxi[k * SC + s];
-              acc_r[s] += a_r * x_r - a_i * x_i;
-              acc_i[s] += a_r * x_i + a_i * x_r;
+              const A x_r = sxr[k * SC + s];
+              if constexpr (REAL) {
+                acc_r[s] += a_r * x_r;
+              } else {
+                const A x_i = sxi[k * SC + s];
+                acc_r[s] += a_r * x_r - a_i * x_i;
+                acc_i[s] += a_r * x_i + a_i * x_r;
+              }
             }
           }
         };
@@ -248,12 +271,12 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
       }
       if (j < n) {
         O* yr = Yr + (b * n + j) * S + s0;
-        O* yi = Yi + (b * n + j) * S + s0;
+        O* yi = Yi + (REAL ? 0 : (b * n + j) * S + s0);
 #pragma unroll
         for (int s = 0; s < SC; ++s) {
           if (s < sc) {
             yr[s] = Store<O>::from(acc_r[s]);
-            yi[s] = Store<O>::from(acc_i[s]);
+            if constexpr (!REAL) yi[s] = Store<O>::from(acc_i[s]);
           }
         }
       }
@@ -390,9 +413,10 @@ sbgemm_gram_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   else if ((S) <= 8) { constexpr int SC = 8; __VA_ARGS__ } \
   else { constexpr int SC = 32; __VA_ARGS__ }
 
-// The same for the N kernel: passes of 8 or 16 columns.
+// The same for the N kernel: passes of 1, 8 or 16 columns.
 #define DISPATCH_N_PASS(S, SC, ...)                        \
-  if ((S) <= 8) { constexpr int SC = 8; __VA_ARGS__ }      \
+  if ((S) <= 1) { constexpr int SC = 1; __VA_ARGS__ }      \
+  else if ((S) <= 8) { constexpr int SC = 8; __VA_ARGS__ } \
   else { constexpr int SC = 16; __VA_ARGS__ }
 
 unsigned batch_grid(int64_t B) { return (unsigned)(B < 65535 ? B : 65535); }
@@ -440,7 +464,7 @@ __device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
       : "d"(a), "d"(b));
 }
 
-template <typename O, int TM, int TN, bool TILED>
+template <typename O, int TM, int TN, bool TILED, bool REAL>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
                  const double* __restrict__ Br, const double* __restrict__ Bi,
@@ -459,9 +483,9 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
   const int64_t r0 = rt * 8 * TM, c0 = ct * 8 * TN;
   for (int64_t bb = blockIdx.y; bb < B; bb += gridDim.y) {
     const double* ar = Ar + bb * a.sb;
-    const double* ai = Ai + bb * a.sb;
+    const double* ai = Ai + (REAL ? 0 : bb * a.sb);   // REAL: Ai, Bi are null
     const double* br = Br + bb * b.sb;
-    const double* bi = Bi + bb * b.sb;
+    const double* bi = Bi + (REAL ? 0 : bb * b.sb);
     // tiled: the levels of the fragment rows (opA) and columns (opB) that
     // are A's column, fixed over k, 2 bits each; a k column's is looked up
     // once a step
@@ -495,7 +519,7 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
         fa_r[u] = fa_i[u] = 0;
         if (r < M && k < K) {
           fa_r[u] = ar[r * a.sr + k * a.sc];
-          fa_i[u] = ai[r * a.sr + k * a.sc];
+          if constexpr (!REAL) fa_i[u] = ai[r * a.sr + k * a.sc];
           if (TILED)
             tile_round(a.acol == 2 ? lv_k : (int)(lv_a >> (2 * u)) & 3, fa_r[u], fa_i[u]);
           fa_i[u] *= a.sgn;
@@ -507,7 +531,7 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
         fb_r[v] = fb_i[v] = 0;
         if (c < N && k < K) {
           fb_r[v] = br[k * b.sr + c * b.sc];
-          fb_i[v] = bi[k * b.sr + c * b.sc];
+          if constexpr (!REAL) fb_i[v] = bi[k * b.sr + c * b.sc];
           if (TILED)
             tile_round(b.acol == 1 ? lv_k : (int)(lv_b >> (2 * v)) & 3, fb_r[v], fb_i[v]);
           fb_i[v] *= b.sgn;
@@ -518,9 +542,11 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
 #pragma unroll
         for (int v = 0; v < TN; ++v) {
           dmma(cre[u][v], fa_r[u], fb_r[v]);
-          dmma(cre[u][v], -fa_i[u], fb_i[v]);
-          dmma(cim[u][v], fa_r[u], fb_i[v]);
-          dmma(cim[u][v], fa_i[u], fb_r[v]);
+          if constexpr (!REAL) {
+            dmma(cre[u][v], -fa_i[u], fb_i[v]);
+            dmma(cim[u][v], fa_r[u], fb_i[v]);
+            dmma(cim[u][v], fa_i[u], fb_r[v]);
+          }
         }
     }
     const bool mirror = herm && rt != ct;
@@ -535,10 +561,12 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
           const int64_t c = c0 + v * 8 + 2 * t + h;
           if (c >= N) continue;
           Cr[bb * c_sb + r * c_sr + c] = Store<O>::from(cre[u][v][h]);
-          Ci[bb * c_sb + r * c_sr + c] = Store<O>::from(cim[u][v][h]);
+          if constexpr (!REAL)
+            Ci[bb * c_sb + r * c_sr + c] = Store<O>::from(cim[u][v][h]);
           if (mirror) {                        // C[c, r] = conj(C[r, c])
             Cr[bb * c_sb + c * c_sr + r] = Store<O>::from(cre[u][v][h]);
-            Ci[bb * c_sb + c * c_sr + r] = Store<O>::from(-cim[u][v][h]);
+            if constexpr (!REAL)
+              Ci[bb * c_sb + c * c_sr + r] = Store<O>::from(-cim[u][v][h]);
           }
         }
     }
@@ -547,7 +575,7 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
 
 // Launch the f64 tensor-core product: warp tiles of 16 x 8 (N <= 8) or
 // 16 x 32 columns for the GEMMs, 32 x 32 for the Hermitian Gram.
-template <typename O, bool TILED>
+template <typename O, bool TILED, bool REAL>
 int launch_zgemm_f64(const void* Ar, const void* Ai, const void* Br, const void* Bi,
                      void* Cr, void* Ci, int64_t B, int64_t M, int64_t N, int64_t K,
                      Operand a, Operand b, int64_t c_sb, int64_t c_sr, int herm,
@@ -563,13 +591,14 @@ int launch_zgemm_f64(const void* Ar, const void* Ai, const void* Br, const void*
         herm, tg);
     return (int)cudaGetLastError();
   };
-  if (herm) return go(zgemm_f64_kernel<O, 4, 4, TILED>, 4, 4);
-  if (N <= 8) return go(zgemm_f64_kernel<O, 2, 1, TILED>, 2, 1);
-  return go(zgemm_f64_kernel<O, 2, 4, TILED>, 2, 4);
+  if constexpr (!REAL)        // the real products are never Hermitian
+    if (herm) return go(zgemm_f64_kernel<O, 4, 4, TILED, REAL>, 4, 4);
+  if (N <= 8) return go(zgemm_f64_kernel<O, 2, 1, TILED, REAL>, 2, 1);
+  return go(zgemm_f64_kernel<O, 2, 4, TILED, REAL>, 2, 4);
 }
 
-// Y (B, m, S) = A (B, m, n) X (B, n, S).
-template <bool TILED>
+// Y (B, m, S) = A (B, m, n) X (B, n, S); REAL: the planes Ar, Xr, Yr only.
+template <bool TILED, bool REAL>
 int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
              void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, const TileGrid& tg,
              int dt_in, int dt_out, int device, void* stream) {
@@ -579,10 +608,10 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
   auto s = static_cast<cudaStream_t>(stream);
   if (dt_in == DT_F64) {                     // opA = A, opB = X
     DISPATCH_DTYPE(dt_out, O,
-      return launch_zgemm_f64<O, TILED>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, S, n,
-                                        Operand{m * n, n, 1, 1.0, 2},
-                                        Operand{n * S, S, 1, 1.0, 0},
-                                        m * S, S, 0, tg, s);
+      return launch_zgemm_f64<O, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, S, n,
+                                              Operand{m * n, n, 1, 1.0, 2},
+                                              Operand{n * S, S, 1, 1.0, 0},
+                                              m * S, S, 0, tg, s);
     )
   }
   const int64_t rows = kNWarps * kNRows;     // output rows of a block
@@ -590,7 +619,7 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
   if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)bx, batch_grid(B));
   DISPATCH_NARROW(dt_in, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_N_PASS(S, SC,
-    sbgemm_n_kernel<T, O, SC, TILED><<<grid, kNWarps * 32, 0, s>>>(
+    sbgemm_n_kernel<T, O, SC, TILED, REAL><<<grid, kNWarps * 32, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(Xr), static_cast<const T*>(Xi),
         static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, tg);
@@ -599,7 +628,7 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
 }
 
 // Y (B, n, S) = A^T X, or A^H X when conj != 0; X is (B, m, S).
-template <bool TILED>
+template <bool TILED, bool REAL>
 int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
               void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, int conj,
               const TileGrid& tg, int dt_in, int dt_out, int device, void* stream) {
@@ -609,17 +638,17 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
   auto s = static_cast<cudaStream_t>(stream);
   if (dt_in == DT_F64) {                     // opA = A^T (conj: A^H), opB = X
     DISPATCH_DTYPE(dt_out, O,
-      return launch_zgemm_f64<O, TILED>(Ar, Ai, Xr, Xi, Yr, Yi, B, n, S, m,
-                                        Operand{m * n, 1, n, conj ? -1.0 : 1.0, 1},
-                                        Operand{m * S, S, 1, 1.0, 0}, n * S, S, 0,
-                                        tg, s);
+      return launch_zgemm_f64<O, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, n, S, m,
+                                              Operand{m * n, 1, n, conj ? -1.0 : 1.0, 1},
+                                              Operand{m * S, S, 1, 1.0, 0}, n * S, S, 0,
+                                              tg, s);
     )
   }
   const int64_t bx = (n + kThreads - 1) / kThreads;
   if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)bx, batch_grid(B));
   DISPATCH_NARROW(dt_in, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
-    sbgemm_th_kernel<T, O, SC, TILED><<<grid, kThreads, 0, s>>>(
+    sbgemm_th_kernel<T, O, SC, TILED, REAL><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(Xr), static_cast<const T*>(Xi),
         static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj, tg);
@@ -647,8 +676,8 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
     const Operand b = data ? Operand{m * n, 1, n, -1.0, 1}
                            : Operand{m * n, n, 1, 1.0, 2};
     DISPATCH_DTYPE(dt_out, O,
-      return launch_zgemm_f64<O, TILED>(Ar, Ai, Ar, Ai, Gr, Gi, B, P, P,
-                                        data ? n : m, a, b, P * P, P, 1, tg, s);
+      return launch_zgemm_f64<O, TILED, false>(Ar, Ai, Ar, Ai, Gr, Gi, B, P, P,
+                                               data ? n : m, a, b, P * P, P, 1, tg, s);
     )
   }
   const int64_t tiles = (P + kTile - 1) / kTile;
@@ -666,18 +695,20 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
 
 extern "C" {
 
+#ifndef SBGEMM_REAL_ENTRIES
+
 int sbgemm_n_complex(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
                      void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
                      int dt_in, int dt_out, int device, void* stream) {
-  return launch_n<false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, TileGrid{}, dt_in,
-                         dt_out, device, stream);
+  return launch_n<false, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, TileGrid{}, dt_in,
+                                dt_out, device, stream);
 }
 
 int sbgemm_th_complex(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
                       void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
                       int conj, int dt_in, int dt_out, int device, void* stream) {
-  return launch_th<false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj, TileGrid{},
-                          dt_in, dt_out, device, stream);
+  return launch_th<false, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj, TileGrid{},
+                                 dt_in, dt_out, device, stream);
 }
 
 int sbgemm_gram_complex(const void* Ar, const void* Ai, void* Gr, void* Gi,
@@ -696,8 +727,8 @@ int sbgemm_n_complex_tiled(const void* Ar, const void* Ai, const void* Xr,
   TileGrid tg;
   const int err = make_tile_grid(levels, R, C, B, n, &tg);
   if (err) return err;
-  return launch_n<true>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, tg, dt_in, dt_out,
-                        device, stream);
+  return launch_n<true, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, tg, dt_in, dt_out,
+                               device, stream);
 }
 
 int sbgemm_th_complex_tiled(const void* Ar, const void* Ai, const void* Xr,
@@ -708,8 +739,8 @@ int sbgemm_th_complex_tiled(const void* Ar, const void* Ai, const void* Xr,
   TileGrid tg;
   const int err = make_tile_grid(levels, R, C, B, n, &tg);
   if (err) return err;
-  return launch_th<true>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj, tg, dt_in, dt_out,
-                         device, stream);
+  return launch_th<true, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj, tg, dt_in,
+                                dt_out, device, stream);
 }
 
 int sbgemm_gram_tiled(const void* Ar, const void* Ai, void* Gr, void* Gi,
@@ -721,5 +752,43 @@ int sbgemm_gram_tiled(const void* Ar, const void* Ai, void* Gr, void* Gi,
   return launch_gram<true>(Ar, Ai, Gr, Gi, B, m, n, data, tg, dt_in, dt_out, device,
                            stream);
 }
+
+#else  // sbgemm_real.cu: the real products, one plane each of A, X and Y
+
+int sbgemm_n_real(const void* A, const void* X, void* Y, int64_t B, int64_t m,
+                  int64_t n, int64_t S, int dt_in, int dt_out, int device,
+                  void* stream) {
+  return launch_n<false, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S,
+                               TileGrid{}, dt_in, dt_out, device, stream);
+}
+
+int sbgemm_th_real(const void* A, const void* X, void* Y, int64_t B, int64_t m,
+                   int64_t n, int64_t S, int dt_in, int dt_out, int device,
+                   void* stream) {
+  return launch_th<false, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S, 0,
+                                TileGrid{}, dt_in, dt_out, device, stream);
+}
+
+int sbgemm_n_real_tiled(const void* A, const void* X, void* Y, const int* levels,
+                        int64_t B, int64_t m, int64_t n, int64_t S, int R, int C,
+                        int dt_in, int dt_out, int device, void* stream) {
+  TileGrid tg;
+  const int err = make_tile_grid(levels, R, C, B, n, &tg);
+  if (err) return err;
+  return launch_n<true, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S, tg, dt_in,
+                              dt_out, device, stream);
+}
+
+int sbgemm_th_real_tiled(const void* A, const void* X, void* Y, const int* levels,
+                         int64_t B, int64_t m, int64_t n, int64_t S, int R, int C,
+                         int dt_in, int dt_out, int device, void* stream) {
+  TileGrid tg;
+  const int err = make_tile_grid(levels, R, C, B, n, &tg);
+  if (err) return err;
+  return launch_th<true, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S, 0, tg,
+                               dt_in, dt_out, device, stream);
+}
+
+#endif  // SBGEMM_REAL_ENTRIES
 
 }  // extern "C"

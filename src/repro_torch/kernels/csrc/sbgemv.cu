@@ -38,6 +38,14 @@
 // the rounding in cells at the carrier's level; N lanes stride the columns
 // and look it up per element.  The bytes are the untiled kernel's: A
 // stays stored at the carrier type.
+//
+// Real builds (REAL = true; sbgemv_n_real and sbgemv_th_real, which
+// replace the TPU kernels :sbgemv_n_real and :sbgemv_th_real) are the same
+// kernels with the imaginary planes compiled away: one A plane, y = A x or
+// A^T x.  Each A element then carries half the bytes and half the
+// arithmetic, so they unroll twice as far to keep as many bytes in flight.
+// Bound: bytes (2 flops per A element: 0.25 flop per byte at f64).  The
+// real T kernel is the real short-wide case of the paper's Fig. 1.
 #include "common.cuh"
 
 namespace {
@@ -45,7 +53,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <typename T, typename O, bool TILED>
+template <typename T, typename O, bool TILED, bool REAL>
 __global__ void __launch_bounds__(kThreads)
 sbgemv_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                 const T* __restrict__ xr, const T* __restrict__ xi,
@@ -58,39 +66,43 @@ sbgemv_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
        row += (int64_t)gridDim.x * kWarps) {
     const int64_t b = row / m;
     const T* ar = Ar + row * n;
-    const T* ai = Ai + row * n;
+    const T* ai = Ai + (REAL ? 0 : row * n);    // REAL: Ai is null
     const T* vr = xr + b * n;
-    const T* vi = xi + b * n;
+    const T* vi = xi + (REAL ? 0 : b * n);
     const uint32_t cells = TILED ? tile_row(tg, b) : 0u;
     A rr = 0, ii = 0, ri = 0, ir = 0;
-#pragma unroll 4
+#pragma unroll (REAL ? 8 : 4)
     for (int64_t j = lane; j < n; j += 32) {
-      A a_r = widen<A>(ar[j]), a_i = widen<A>(ai[j]);
+      A a_r = widen<A>(ar[j]), a_i = 0;
+      if constexpr (!REAL) a_i = widen<A>(ai[j]);
       if (TILED) {
         const int lv = tile_level(tg, cells, j);
         a_r = quantize(a_r, lv);
         a_i = quantize(a_i, lv);
       }
-      const A v_r = widen<A>(vr[j]), v_i = widen<A>(vi[j]);
+      const A v_r = widen<A>(vr[j]);
       rr += a_r * v_r;
-      ii += a_i * v_i;
-      ri += a_i * v_r;
-      ir += a_r * v_i;
+      if constexpr (!REAL) {
+        const A v_i = widen<A>(vi[j]);
+        ii += a_i * v_i;
+        ri += a_i * v_r;
+        ir += a_r * v_i;
+      }
     }
-    A re = rr - ii, im = ir + ri;
+    A re = REAL ? rr : rr - ii, im = ir + ri;
     // the whole warp shares `row`, so every lane reaches the shuffles
     for (int off = 16; off > 0; off >>= 1) {
       re += __shfl_down_sync(0xffffffffu, re, off);
-      im += __shfl_down_sync(0xffffffffu, im, off);
+      if constexpr (!REAL) im += __shfl_down_sync(0xffffffffu, im, off);
     }
     if (lane == 0) {
       yr[row] = Store<O>::from(re);
-      yi[row] = Store<O>::from(im);
+      if constexpr (!REAL) yi[row] = Store<O>::from(im);
     }
   }
 }
 
-template <typename T, typename O, bool TILED>
+template <typename T, typename O, bool TILED, bool REAL>
 __global__ void __launch_bounds__(kThreads)
 sbgemv_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                  const T* __restrict__ xr, const T* __restrict__ xi,
@@ -102,7 +114,7 @@ sbgemv_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   const int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
     const T* ar = Ar + b * m * n + j;
-    const T* ai = Ai + b * m * n + j;
+    const T* ai = Ai + (REAL ? 0 : b * m * n + j);
     const int lv = TILED ? tile_level(tg, tile_row(tg, b), j) : 2;
     A rr = 0, ii = 0, ri = 0, ir = 0;
     for (int64_t i0 = 0; i0 < m; i0 += kThreads) {
@@ -110,22 +122,25 @@ sbgemv_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
       __syncthreads();  // the previous chunk (or batch) is consumed
       if (threadIdx.x < len) {
         sxr[threadIdx.x] = widen<A>(xr[b * m + i0 + threadIdx.x]);
-        sxi[threadIdx.x] = widen<A>(xi[b * m + i0 + threadIdx.x]);
+        if constexpr (!REAL) sxi[threadIdx.x] = widen<A>(xi[b * m + i0 + threadIdx.x]);
       }
       __syncthreads();
       auto sweep = [&](auto q) {
-#pragma unroll 4
+#pragma unroll (REAL ? 8 : 4)
         for (int k = 0; k < len; ++k) {
           const int64_t off = (i0 + k) * n;
-          A a_r = widen<A>(ar[off]), a_i = widen<A>(ai[off]);
+          A a_r = widen<A>(ar[off]), a_i = 0;
+          if constexpr (!REAL) a_i = widen<A>(ai[off]);
           if constexpr (decltype(q)::value) {
             a_r = quantize(a_r, lv);
             a_i = quantize(a_i, lv);
           }
           rr += a_r * sxr[k];
-          ii += a_i * sxi[k];
-          ri += a_i * sxr[k];
-          ir += a_r * sxi[k];
+          if constexpr (!REAL) {
+            ii += a_i * sxi[k];
+            ri += a_i * sxr[k];
+            ir += a_r * sxi[k];
+          }
         }
       };
       if (j < n) {
@@ -134,15 +149,19 @@ sbgemv_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
       }
     }
     if (j < n) {
-      const A re = conj ? rr + ii : rr - ii;   // conj: Re(conj(A) x)
-      const A im = conj ? ir - ri : ir + ri;
-      yr[b * n + j] = Store<O>::from(re);
-      yi[b * n + j] = Store<O>::from(im);
+      if constexpr (REAL) {
+        yr[b * n + j] = Store<O>::from(rr);
+      } else {
+        const A re = conj ? rr + ii : rr - ii;   // conj: Re(conj(A) x)
+        const A im = conj ? ir - ri : ir + ri;
+        yr[b * n + j] = Store<O>::from(re);
+        yi[b * n + j] = Store<O>::from(im);
+      }
     }
   }
 }
 
-template <bool TILED>
+template <bool TILED, bool REAL>
 int launch_n(const void* Ar, const void* Ai, const void* xr, const void* xi,
              void* yr, void* yi, int64_t B, int64_t m, int64_t n, const TileGrid& tg,
              int dt_in, int dt_out, int device, void* stream) {
@@ -153,7 +172,7 @@ int launch_n(const void* Ar, const void* Ai, const void* xr, const void* xi,
   blocks = blocks < (1 << 20) ? blocks : (1 << 20);  // rows grid-stride past this
   auto s = static_cast<cudaStream_t>(stream);
   DISPATCH_DTYPE(dt_in, T, DISPATCH_DTYPE(dt_out, O,
-    sbgemv_n_kernel<T, O, TILED><<<(unsigned)blocks, kThreads, 0, s>>>(
+    sbgemv_n_kernel<T, O, TILED, REAL><<<(unsigned)blocks, kThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(xr), static_cast<const T*>(xi),
         static_cast<O*>(yr), static_cast<O*>(yi), B, m, n, tg);
@@ -161,7 +180,7 @@ int launch_n(const void* Ar, const void* Ai, const void* xr, const void* xi,
   return (int)cudaGetLastError();
 }
 
-template <bool TILED>
+template <bool TILED, bool REAL>
 int launch_th(const void* Ar, const void* Ai, const void* xr, const void* xi,
               void* yr, void* yi, int64_t B, int64_t m, int64_t n, int conj,
               const TileGrid& tg, int dt_in, int dt_out, int device, void* stream) {
@@ -173,7 +192,7 @@ int launch_th(const void* Ar, const void* Ai, const void* xr, const void* xi,
   const dim3 grid((unsigned)bx, (unsigned)(B < 65535 ? B : 65535));
   auto s = static_cast<cudaStream_t>(stream);
   DISPATCH_DTYPE(dt_in, T, DISPATCH_DTYPE(dt_out, O,
-    sbgemv_th_kernel<T, O, TILED><<<grid, kThreads, 0, s>>>(
+    sbgemv_th_kernel<T, O, TILED, REAL><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(xr), static_cast<const T*>(xi),
         static_cast<O*>(yr), static_cast<O*>(yi), B, m, n, conj, tg);
@@ -189,16 +208,16 @@ extern "C" {
 int sbgemv_n_complex(const void* Ar, const void* Ai, const void* xr, const void* xi,
                      void* yr, void* yi, int64_t B, int64_t m, int64_t n,
                      int dt_in, int dt_out, int device, void* stream) {
-  return launch_n<false>(Ar, Ai, xr, xi, yr, yi, B, m, n, TileGrid{}, dt_in, dt_out,
-                         device, stream);
+  return launch_n<false, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, TileGrid{}, dt_in,
+                                dt_out, device, stream);
 }
 
 // y (B, n) = A^T x, or A^H x when conj != 0; x is (B, m).
 int sbgemv_th_complex(const void* Ar, const void* Ai, const void* xr, const void* xi,
                       void* yr, void* yi, int64_t B, int64_t m, int64_t n, int conj,
                       int dt_in, int dt_out, int device, void* stream) {
-  return launch_th<false>(Ar, Ai, xr, xi, yr, yi, B, m, n, conj, TileGrid{}, dt_in,
-                          dt_out, device, stream);
+  return launch_th<false, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, conj, TileGrid{},
+                                 dt_in, dt_out, device, stream);
 }
 
 // sbgemv_n_complex with A rounded per tile-map cell: levels is a host array
@@ -210,8 +229,8 @@ int sbgemv_n_complex_tiled(const void* Ar, const void* Ai, const void* xr,
   TileGrid tg;
   const int err = make_tile_grid(levels, R, C, B, n, &tg);
   if (err) return err;
-  return launch_n<true>(Ar, Ai, xr, xi, yr, yi, B, m, n, tg, dt_in, dt_out, device,
-                        stream);
+  return launch_n<true, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, tg, dt_in, dt_out,
+                               device, stream);
 }
 
 // sbgemv_th_complex with A rounded per tile-map cell (levels as above).
@@ -222,8 +241,22 @@ int sbgemv_th_complex_tiled(const void* Ar, const void* Ai, const void* xr,
   TileGrid tg;
   const int err = make_tile_grid(levels, R, C, B, n, &tg);
   if (err) return err;
-  return launch_th<true>(Ar, Ai, xr, xi, yr, yi, B, m, n, conj, tg, dt_in, dt_out,
-                         device, stream);
+  return launch_th<true, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, conj, tg, dt_in,
+                                dt_out, device, stream);
+}
+
+// y (B, m) = A (B, m, n) x (B, n), one real plane.
+int sbgemv_n_real(const void* A, const void* x, void* y, int64_t B, int64_t m,
+                  int64_t n, int dt_in, int dt_out, int device, void* stream) {
+  return launch_n<false, true>(A, nullptr, x, nullptr, y, nullptr, B, m, n, TileGrid{},
+                               dt_in, dt_out, device, stream);
+}
+
+// y (B, n) = A^T x, one real plane; x is (B, m).
+int sbgemv_th_real(const void* A, const void* x, void* y, int64_t B, int64_t m,
+                   int64_t n, int dt_in, int dt_out, int device, void* stream) {
+  return launch_th<false, true>(A, nullptr, x, nullptr, y, nullptr, B, m, n, 0,
+                                TileGrid{}, dt_in, dt_out, device, stream);
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ live on) and a :class:`repro_torch.backend.DispatchTable`, and routes
 between three lowerings:
 
     "kernel"  the hand-written CUDA kernels (``sbgemv.py``, ``pad_cast.py``),
-    "torch"   the plain contraction (``ref.complex_contract``),
+    "torch"   the plain contraction (``ref.complex_contract``,
+              ``ref.real_contract`` for the real products),
     "ref"     the oracles (``ref.py``): the forced ``torch-ref`` backend.
 
 On a backend with the kernels every op takes its kernel unless the caller
@@ -35,14 +36,16 @@ from . import ref as _ref
 from . import sbgemv as _sbgemv
 
 
-def resolve_backend_dispatch(backend=None, dispatch=None, device="cpu"):
-    """Resolve ``(BackendSpec, DispatchTable)`` for tensors on ``device``.
+def resolve_backend_dispatch(backend=None, dispatch=None, device=None):
+    """Resolve ``(BackendSpec, DispatchTable)`` for tensors on ``device``
+    (None: the card, as every entry point of the port).
 
     ``backend`` is a spec, a registered name, or None (the probe for
     ``device``, ``REPRO_TORCH_BACKEND`` override applies); ``dispatch``
     defaults to the backend's table.
     """
-    spec = resolve_backend(backend, device)
+    from repro_torch.core.toeplitz import default_device   # core imports ops
+    spec = resolve_backend(backend, default_device(device))
     if dispatch is None:
         dispatch = default_table(spec)
     return spec, dispatch
@@ -129,6 +132,66 @@ def sbgemm(A_re, A_im, X_re, X_im, mode: str = "N", *, out_dtype=None,
                      (_sbgemv.sbgemm_n_complex, _sbgemv.sbgemm_th_complex,
                       _sbgemv.sbgemm_n_complex_tiled,
                       _sbgemv.sbgemm_th_complex_tiled), tile_map)
+
+
+def _contract_real(A, x, mode, out_dtype, backend, dispatch, kernels,
+                   tile_map):
+    """The dispatch of :func:`_contract` for one real plane (modes N and
+    T): the oracle on "ref", ``ref.real_contract`` on "torch", else
+    ``kernels`` (the N and the T wrapper, untiled and tiled) on the
+    card."""
+    if mode not in ("N", "T"):
+        raise ValueError(f"bad mode {mode!r}")
+    out_dtype = out_dtype or A.dtype
+    spec, table = resolve_backend_dispatch(backend, dispatch, A.device)
+    _check_tile_support(spec, tile_map)
+    path = table.gemv_path(A.dtype, spec)
+    if path == "ref":
+        y = (_ref.sbgemm_real_ref(A, x, mode) if tile_map is None
+             else _ref.sbgemm_tiled_real_ref(A, x, tile_map, mode))
+        return _ref.cast(y, out_dtype)
+    if path == "torch":
+        if tile_map is not None:
+            A = _ref.quantize_tile_cells(tile_map, A)
+        return _ref.cast(_ref.real_contract(A, x, mode), out_dtype)
+    _require_card(A, spec)
+    n_kernel, t_kernel, n_tiled, t_tiled = kernels
+    if tile_map is not None:
+        tiled = n_tiled if mode == "N" else t_tiled
+        return tiled(A, x, _ref.tile_levels(tile_map), out_dtype=out_dtype)
+    return (n_kernel if mode == "N" else t_kernel)(A, x, out_dtype=out_dtype)
+
+
+def sbgemv_real(A, x, mode: str = "N", *, out_dtype=None, backend=None,
+                dispatch=None, tile_map=None):
+    """Strided-batched real GEMV with the dispatch of :func:`sbgemv`.
+
+    A (B, m, n); mode "N": x (B, n) -> y (B, m); "T": x (B, m) -> y (B, n).
+    Returns y in ``out_dtype`` (default: A's dtype).  With ``tile_map`` it
+    is :func:`sbgemm_real` on the one column ``x[..., None]``.
+    """
+    if tile_map is not None:
+        return sbgemm_real(A, x[..., None], mode, out_dtype=out_dtype,
+                           backend=backend, dispatch=dispatch,
+                           tile_map=tile_map)[..., 0]
+    return _contract_real(A, x, mode, out_dtype, backend, dispatch,
+                          (_sbgemv.sbgemv_n_real, _sbgemv.sbgemv_th_real,
+                           None, None), None)
+
+
+def sbgemm_real(A, X, mode: str = "N", *, out_dtype=None, backend=None,
+                dispatch=None, tile_map=None):
+    """Strided-batched real GEMM (multi-RHS GEMV) with the dispatch of
+    :func:`sbgemv`.
+
+    A (B, m, n); mode "N": X (B, n, S) -> Y (B, m, S); "T": X (B, m, S) ->
+    Y (B, n, S).  Returns Y in ``out_dtype`` (default: A's dtype).
+    ``tile_map`` rounds A per cell first (the tiled real SBGEMM kernels).
+    """
+    return _contract_real(A, X, mode, out_dtype, backend, dispatch,
+                          (_sbgemv.sbgemm_n_real, _sbgemv.sbgemm_th_real,
+                           _sbgemv.sbgemm_n_real_tiled,
+                           _sbgemv.sbgemm_th_real_tiled), tile_map)
 
 
 def sbgemm_gram(A_re, A_im, *, space: str = "parameter", out_dtype=None,

@@ -49,6 +49,22 @@ def complex_contract(A_re, A_im, x_re, x_im, mode: str):
     return rr - ii, ir + ri
 
 
+def real_contract(A, x, mode: str):
+    """Real GEMV, or GEMM when x carries a trailing RHS axis, at the
+    accumulator dtype, with no output cast: modes "N" (y = A x) and "T"
+    (y = A^T x).  A (B, m, n); x (B, n) or (B, n, S) for "N", (B, m) or
+    (B, m, S) for "T"."""
+    acc = acc_dtype(A.dtype)
+    rhs = "s" if x.ndim == 3 else ""
+    if mode == "N":
+        eq = f"bmn,bn{rhs}->bm{rhs}"
+    elif mode == "T":
+        eq = f"bmn,bm{rhs}->bn{rhs}"
+    else:
+        raise ValueError(f"bad mode {mode!r}")
+    return torch.einsum(eq, A.to(acc), x.to(acc))
+
+
 def gram_contract(A_re, A_im, space: str):
     """Per-batch Gram blocks at the accumulator dtype, with no output cast
     and no symmetrization: ``space="parameter"`` G = A^H A (B, n, n),
@@ -94,14 +110,14 @@ def sbgemm_gram_ref(A_re, A_im, space: str = "parameter"):
 def sbgemv_real_ref(A, x, mode: str = "N"):
     """Strided-batched real GEMV.  A: (B, m, n); mode "N": x (B, n) ->
     y (B, m); mode "T": x (B, m) -> y (B, n).  Returns the input dtype."""
-    acc = acc_dtype(A.dtype)
-    if mode == "N":
-        y = torch.einsum("bmn,bn->bm", A.to(acc), x.to(acc))
-    elif mode == "T":
-        y = torch.einsum("bmn,bm->bn", A.to(acc), x.to(acc))
-    else:
-        raise ValueError(f"bad mode {mode!r}")
-    return y.to(A.dtype)
+    return real_contract(A, x, mode).to(A.dtype)
+
+
+def sbgemm_real_ref(A, X, mode: str = "N"):
+    """Strided-batched real GEMM (multi-RHS GEMV): the modes of
+    :func:`sbgemv_real_ref` with the RHS axis last, X (B, n, S) for "N"
+    and (B, m, S) for "T".  Returns the input dtype."""
+    return sbgemv_real_ref(A, X, mode)
 
 
 # -- tile-centric mixed precision ------------------------------------------
@@ -193,6 +209,12 @@ def sbgemm_tiled_ref(A_re, A_im, X_re, X_im, tile_map, mode: str = "N"):
     per cell, contract exactly like :func:`sbgemm_complex_ref`."""
     Ar, Ai = quantize_tile_cells(tile_map, A_re, A_im)
     return sbgemm_complex_ref(Ar, Ai, X_re, X_im, mode)
+
+
+def sbgemm_tiled_real_ref(A, X, tile_map, mode: str = "N"):
+    """Tile-quantized real GEMM (or GEMV) oracle: quantize A per cell,
+    contract exactly like :func:`sbgemm_real_ref`."""
+    return sbgemm_real_ref(quantize_tile_cells(tile_map, A), X, mode)
 
 
 def sbgemm_gram_tiled_ref(A_re, A_im, tile_map, space: str = "parameter"):

@@ -23,6 +23,12 @@ and column axes, and each A element is rounded through its cell's level
 (``ref.quantize_tile_cells``) before the contraction.  The kernels round
 it as they load it, so no quantized copy of A is made on the card; the
 plain versions quantize a copy, cell by cell.
+
+The ``*_real`` wrappers are the same products on one real plane each of
+A, x and y (modes N and T), built from the complex kernels' sources with
+the imaginary planes compiled away (the SBGEMMs' entries as a library of
+their own, ``csrc/sbgemm_real.cu``); their tiled builds exist for S > 1
+only (``ops.sbgemv_real(tile_map=)`` runs the SBGEMM with S = 1).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import torch
 
 from . import _build
 from .ref import (LADDER_INDEX, cast, complex_contract, gram_contract,
-                  quantize_tile_cells, tile_levels)
+                  quantize_tile_cells, real_contract, tile_levels)
 
 MAX_TILES = 8          # csrc/common.cuh:kMaxTiles
 
@@ -53,23 +59,26 @@ def _check_planes(planes, out_dtype, what: str) -> None:
         raise ValueError(f"{what} needs contiguous planes")
 
 
-def _check(A_re, A_im, x_re, x_im, x_axis: int, out_dtype, what: str,
+def _check(As, xs, x_axis: int, out_dtype, what: str,
            rhs: bool = False) -> None:
-    """Shapes of a GEMV (x (B, len)) or, with ``rhs``, a GEMM (X (B, len,
-    S)), ``len`` being A's axis ``x_axis``; then dtypes, device, layout."""
-    if A_re.ndim != 3:
+    """Shapes of the A planes ``As`` (one real plane or re and im) and the
+    x planes ``xs`` of a GEMV (x (B, len)) or, with ``rhs``, a GEMM (X (B,
+    len, S)), ``len`` being A's axis ``x_axis``; then dtypes, device,
+    layout."""
+    A0 = As[0]
+    if A0.ndim != 3:
         raise ValueError(f"{what}: A planes must be (B, m, n), got "
-                         f"{tuple(A_re.shape)}")
-    if A_im.shape != A_re.shape:
+                         f"{tuple(A0.shape)}")
+    if any(A.shape != A0.shape for A in As):
         raise ValueError(f"{what}: A planes differ in shape")
-    want = (A_re.shape[0], A_re.shape[x_axis])
+    want = (A0.shape[0], A0.shape[x_axis])
     if rhs:
-        want += (x_re.shape[-1] if x_re.ndim == 3 else -1,)
-    for x in (x_re, x_im):
+        want += (xs[0].shape[-1] if xs[0].ndim == 3 else -1,)
+    for x in xs:
         if tuple(x.shape) != want:
             raise ValueError(f"{what}: x planes must be {want}, got "
                              f"{tuple(x.shape)}")
-    _check_planes((A_re, A_im, x_re, x_im), out_dtype, what)
+    _check_planes((*As, *xs), out_dtype, what)
 
 
 def sbgemv_n_complex_plain(A_re, A_im, x_re, x_im, out_dtype):
@@ -97,14 +106,14 @@ def _level_grid(levels):
 
 
 def _launch(source: str, entry: str, inputs, out_shape, out_dtype, sizes,
-            *ints, levels=None):
+            *ints, levels=None, n_out: int = 2):
     """Launch C entry ``entry`` of ``csrc/<source>.cu`` on ``inputs`` (A
-    planes first) into two new ``out_shape`` planes; counts the launch.
-    ``levels``, a tile map's grid, goes as a host array after the outputs
-    and its R and C after ``ints``."""
+    planes first) into ``n_out`` new ``out_shape`` planes; counts the
+    launch.  ``levels``, a tile map's grid, goes as a host array after the
+    outputs and its R and C after ``ints``."""
     A = inputs[0]
     outs = [torch.empty(out_shape, dtype=out_dtype, device=A.device)
-            for _ in range(2)]
+            for _ in range(n_out)]
     ptrs = [t.data_ptr() for t in (*inputs, *outs)]
     if levels is not None:
         R, C, grid = _level_grid(levels)   # read by the entry before it returns
@@ -123,7 +132,7 @@ def sbgemv_n_complex(A_re, A_im, x_re, x_im,
     """y = A x per batch on split planes: A (B, m, n), x (B, n) ->
     (y_re, y_im) of shape (B, m)."""
     out_dtype = out_dtype or A_re.dtype
-    _check(A_re, A_im, x_re, x_im, 2, out_dtype, "sbgemv_n_complex")
+    _check((A_re, A_im), (x_re, x_im), 2, out_dtype, "sbgemv_n_complex")
     B, m, n = A_re.shape
     if A_re.device.type == "cpu":
         return sbgemv_n_complex_plain(A_re, A_im, x_re, x_im, out_dtype)
@@ -136,7 +145,7 @@ def sbgemv_th_complex(A_re, A_im, x_re, x_im, *, conj: bool,
     """y = A^T x, or A^H x with ``conj``, per batch on split planes:
     A (B, m, n), x (B, m) -> (y_re, y_im) of shape (B, n)."""
     out_dtype = out_dtype or A_re.dtype
-    _check(A_re, A_im, x_re, x_im, 1, out_dtype, "sbgemv_th_complex")
+    _check((A_re, A_im), (x_re, x_im), 1, out_dtype, "sbgemv_th_complex")
     B, m, n = A_re.shape
     if A_re.device.type == "cpu":
         return sbgemv_th_complex_plain(A_re, A_im, x_re, x_im, conj,
@@ -162,7 +171,7 @@ def sbgemv_n_complex_tiled(A_re, A_im, x_re, x_im, levels,
                            out_dtype: Optional[torch.dtype] = None):
     """``sbgemv_n_complex`` with A rounded per tile-map cell (``levels``)."""
     out_dtype = out_dtype or A_re.dtype
-    _check(A_re, A_im, x_re, x_im, 2, out_dtype, "sbgemv_n_complex_tiled")
+    _check((A_re, A_im), (x_re, x_im), 2, out_dtype, "sbgemv_n_complex_tiled")
     B, m, n = A_re.shape
     if A_re.device.type == "cpu":
         return sbgemv_n_complex_tiled_plain(A_re, A_im, x_re, x_im, levels,
@@ -176,7 +185,7 @@ def sbgemv_th_complex_tiled(A_re, A_im, x_re, x_im, levels, *, conj: bool,
                             out_dtype: Optional[torch.dtype] = None):
     """``sbgemv_th_complex`` with A rounded per tile-map cell (``levels``)."""
     out_dtype = out_dtype or A_re.dtype
-    _check(A_re, A_im, x_re, x_im, 1, out_dtype, "sbgemv_th_complex_tiled")
+    _check((A_re, A_im), (x_re, x_im), 1, out_dtype, "sbgemv_th_complex_tiled")
     B, m, n = A_re.shape
     if A_re.device.type == "cpu":
         return sbgemv_th_complex_tiled_plain(A_re, A_im, x_re, x_im, levels,
@@ -218,7 +227,8 @@ def sbgemm_n_complex(A_re, A_im, X_re, X_im,
     """Y = A X per batch on split planes: A (B, m, n), X (B, n, S) ->
     (Y_re, Y_im) of shape (B, m, S)."""
     out_dtype = out_dtype or A_re.dtype
-    _check(A_re, A_im, X_re, X_im, 2, out_dtype, "sbgemm_n_complex", rhs=True)
+    _check((A_re, A_im), (X_re, X_im),
+           2, out_dtype, "sbgemm_n_complex", rhs=True)
     B, m, n = A_re.shape
     S = X_re.shape[2]
     if A_re.device.type == "cpu":
@@ -232,7 +242,7 @@ def sbgemm_th_complex(A_re, A_im, X_re, X_im, *, conj: bool,
     """Y = A^T X, or A^H X with ``conj``, per batch on split planes:
     A (B, m, n), X (B, m, S) -> (Y_re, Y_im) of shape (B, n, S)."""
     out_dtype = out_dtype or A_re.dtype
-    _check(A_re, A_im, X_re, X_im, 1, out_dtype, "sbgemm_th_complex",
+    _check((A_re, A_im), (X_re, X_im), 1, out_dtype, "sbgemm_th_complex",
            rhs=True)
     B, m, n = A_re.shape
     S = X_re.shape[2]
@@ -283,7 +293,7 @@ def sbgemm_n_complex_tiled(A_re, A_im, X_re, X_im, levels,
                            out_dtype: Optional[torch.dtype] = None):
     """``sbgemm_n_complex`` with A rounded per tile-map cell (``levels``)."""
     out_dtype = out_dtype or A_re.dtype
-    _check(A_re, A_im, X_re, X_im, 2, out_dtype, "sbgemm_n_complex_tiled",
+    _check((A_re, A_im), (X_re, X_im), 2, out_dtype, "sbgemm_n_complex_tiled",
            rhs=True)
     B, m, n = A_re.shape
     S = X_re.shape[2]
@@ -299,7 +309,7 @@ def sbgemm_th_complex_tiled(A_re, A_im, X_re, X_im, levels, *, conj: bool,
                             out_dtype: Optional[torch.dtype] = None):
     """``sbgemm_th_complex`` with A rounded per tile-map cell (``levels``)."""
     out_dtype = out_dtype or A_re.dtype
-    _check(A_re, A_im, X_re, X_im, 1, out_dtype, "sbgemm_th_complex_tiled",
+    _check((A_re, A_im), (X_re, X_im), 1, out_dtype, "sbgemm_th_complex_tiled",
            rhs=True)
     B, m, n = A_re.shape
     S = X_re.shape[2]
@@ -324,3 +334,104 @@ def sbgemm_gram_tiled(A_re, A_im, levels, *, data: bool = False,
     P = m if data else n
     return _launch("sbgemm", "sbgemm_gram_tiled", (A_re, A_im), (B, P, P),
                    out_dtype, (B, m, n), int(bool(data)), levels=levels)
+
+
+# ---------------------------------------------------------------------------
+# Real A: one plane each of A, x and y
+# ---------------------------------------------------------------------------
+
+def sbgemv_n_real_plain(A, x, out_dtype):
+    """Plain version of ``sbgemv_n_real`` (and, with x (B, n, S), of
+    ``sbgemm_n_real``)."""
+    return cast(real_contract(A, x, "N"), out_dtype)
+
+
+def sbgemv_th_real_plain(A, x, out_dtype):
+    """Plain version of ``sbgemv_th_real`` (and, with x (B, m, S), of
+    ``sbgemm_th_real``)."""
+    return cast(real_contract(A, x, "T"), out_dtype)
+
+
+sbgemm_n_real_plain = sbgemv_n_real_plain
+sbgemm_th_real_plain = sbgemv_th_real_plain
+
+
+def sbgemm_n_real_tiled_plain(A, X, levels, out_dtype):
+    """Plain version of ``sbgemm_n_real_tiled``."""
+    return sbgemv_n_real_plain(quantize_tile_cells(levels, A), X, out_dtype)
+
+
+def sbgemm_th_real_tiled_plain(A, X, levels, out_dtype):
+    """Plain version of ``sbgemm_th_real_tiled``."""
+    return sbgemv_th_real_plain(quantize_tile_cells(levels, A), X, out_dtype)
+
+
+def sbgemv_n_real(A, x, out_dtype: Optional[torch.dtype] = None):
+    """y = A x per batch, real: A (B, m, n), x (B, n) -> y (B, m)."""
+    out_dtype = out_dtype or A.dtype
+    _check((A,), (x,), 2, out_dtype, "sbgemv_n_real")
+    B, m, n = A.shape
+    if A.device.type == "cpu":
+        return sbgemv_n_real_plain(A, x, out_dtype)
+    return _launch("sbgemv", "sbgemv_n_real", (A, x), (B, m), out_dtype,
+                   A.shape, n_out=1)[0]
+
+
+def sbgemv_th_real(A, x, out_dtype: Optional[torch.dtype] = None):
+    """y = A^T x per batch, real: A (B, m, n), x (B, m) -> y (B, n)."""
+    out_dtype = out_dtype or A.dtype
+    _check((A,), (x,), 1, out_dtype, "sbgemv_th_real")
+    B, m, n = A.shape
+    if A.device.type == "cpu":
+        return sbgemv_th_real_plain(A, x, out_dtype)
+    return _launch("sbgemv", "sbgemv_th_real", (A, x), (B, n), out_dtype,
+                   A.shape, n_out=1)[0]
+
+
+def sbgemm_n_real(A, X, out_dtype: Optional[torch.dtype] = None):
+    """Y = A X per batch, real: A (B, m, n), X (B, n, S) -> Y (B, m, S)."""
+    out_dtype = out_dtype or A.dtype
+    _check((A,), (X,), 2, out_dtype, "sbgemm_n_real", rhs=True)
+    B, m, n = A.shape
+    S = X.shape[2]
+    if A.device.type == "cpu":
+        return sbgemm_n_real_plain(A, X, out_dtype)
+    return _launch("sbgemm_real", "sbgemm_n_real", (A, X), (B, m, S),
+                   out_dtype, (B, m, n, S), n_out=1)[0]
+
+
+def sbgemm_th_real(A, X, out_dtype: Optional[torch.dtype] = None):
+    """Y = A^T X per batch, real: A (B, m, n), X (B, m, S) -> Y (B, n, S)."""
+    out_dtype = out_dtype or A.dtype
+    _check((A,), (X,), 1, out_dtype, "sbgemm_th_real", rhs=True)
+    B, m, n = A.shape
+    S = X.shape[2]
+    if A.device.type == "cpu":
+        return sbgemm_th_real_plain(A, X, out_dtype)
+    return _launch("sbgemm_real", "sbgemm_th_real", (A, X), (B, n, S),
+                   out_dtype, (B, m, n, S), n_out=1)[0]
+
+
+def sbgemm_n_real_tiled(A, X, levels, out_dtype: Optional[torch.dtype] = None):
+    """``sbgemm_n_real`` with A rounded per tile-map cell (``levels``)."""
+    out_dtype = out_dtype or A.dtype
+    _check((A,), (X,), 2, out_dtype, "sbgemm_n_real_tiled", rhs=True)
+    B, m, n = A.shape
+    S = X.shape[2]
+    if A.device.type == "cpu":
+        return sbgemm_n_real_tiled_plain(A, X, levels, out_dtype)
+    return _launch("sbgemm_real", "sbgemm_n_real_tiled", (A, X), (B, m, S),
+                   out_dtype, (B, m, n, S), levels=levels, n_out=1)[0]
+
+
+def sbgemm_th_real_tiled(A, X, levels,
+                         out_dtype: Optional[torch.dtype] = None):
+    """``sbgemm_th_real`` with A rounded per tile-map cell (``levels``)."""
+    out_dtype = out_dtype or A.dtype
+    _check((A,), (X,), 1, out_dtype, "sbgemm_th_real_tiled", rhs=True)
+    B, m, n = A.shape
+    S = X.shape[2]
+    if A.device.type == "cpu":
+        return sbgemm_th_real_tiled_plain(A, X, levels, out_dtype)
+    return _launch("sbgemm_real", "sbgemm_th_real_tiled", (A, X), (B, n, S),
+                   out_dtype, (B, m, n, S), levels=levels, n_out=1)[0]

@@ -71,7 +71,9 @@ def test_every_ported_kernel_row_has_a_cuda_source():
         "pad_cast", "unpad_cast", "sbgemv_n_complex", "sbgemv_th_complex",
         "sbgemm_n_complex", "sbgemm_th_complex", "sbgemm_gram_complex",
         "sbgemm_n_complex_tiled", "sbgemm_th_complex_tiled",
-        "sbgemm_gram_tiled"}
+        "sbgemm_gram_tiled", "sbgemv_n_real", "sbgemv_th_real",
+        "sbgemm_n_real", "sbgemm_th_real", "sbgemm_n_real_tiled",
+        "sbgemm_th_real_tiled"}
     for r in ported:
         src = r["port source"].strip("`")
         assert src.endswith(".cu") and (ROOT / src).is_file(), r
