@@ -94,11 +94,11 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit: the
-# fastest rate the card has for each input type.  f64: the FP64 tensor
-# cores (67 TFLOP/s; the FP64 vector units give 34).  f32: the FP32 vector
-# units ("s" is IEEE f32; TF32 would round the inputs).  bf16: the tensor
-# cores with f32 accumulation.
-HBM_BYTES_PER_S = 3.35e12
+# fastest rate the card has for each input type (its memory rate is the
+# backend's H100_HBM_BYTES_PER_S).  f64: the FP64 tensor cores (67
+# TFLOP/s; the FP64 vector units give 34).  f32: the FP32 vector units
+# ("s" is IEEE f32; TF32 would round the inputs).  bf16: the tensor cores
+# with f32 accumulation.
 PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
 TOL = {"d": 1e-12, "s": 1e-5, "h": 2e-2}
 LEVEL_OF = {torch.float64: "d", torch.float32: "s", torch.bfloat16: "h"}
@@ -169,7 +169,8 @@ def sync(dev) -> None:
 
 
 def bound_ms(bytes_moved: float, flops: float, flop_dtype: str):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    from repro_torch.backend import H100_HBM_BYTES_PER_S
+    t_bytes = bytes_moved / H100_HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[flop_dtype] if flops else 0.0
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                       else "operations")
@@ -1372,22 +1373,29 @@ def check_real_dispatch_on_card(dev):
 
 
 def drive_fig1(dev, report):
-    """The twin of the paper's Fig. 1 sweep at batch 100, counted: the hand
-    kernels within their level's tolerance of their plain versions."""
+    """The twin of the paper's Fig. 1 sweep at batch 100: each case's one
+    checked call launches exactly its kernel once (``run_case`` counts the
+    launches of that call alone, not its warm-up and timed calls), within
+    its level's tolerance of its plain version.  Returns the phase's
+    launches: the sum over those checked calls."""
     from repro_torch.examples import fig1_sbgemv as fig1
-    from repro_torch.kernels import _build
-    _build.reset_launch_counts()
     rows = fig1.run(dev)
     sync(dev)
-    counts = dict(_build.launch_counts)
-    report["fig1"] = {"rows": rows, "launches": counts}
-    print(f"fig1 sweep launches {counts}", flush=True)
-    check_launched(counts, ["sbgemv_th_complex", "sbgemv_th_real"])
+    counts = {}
     for r in rows:
+        case = f"fig1 {r['dtype']} {r['m']}:{r['n']}"
+        kname = "sbgemv_th_real" if r["dtype"][0] == "r" else \
+            "sbgemv_th_complex"
+        if r["launches"] != {kname: 1}:
+            fail(f"{case}: its checked call launched {r['launches']}, "
+                 f"expected {{{kname!r}: 1}}")
+        counts[kname] = counts.get(kname, 0) + 1
         tol = TOL["d" if r["dtype"].endswith("64") else "s"]
         if not r["rel_err"] <= tol:
-            fail(f"fig1 {r['dtype']} {r['m']}:{r['n']}: kernel vs plain rel "
-                 f"{r['rel_err']:.3e} > {tol:g}")
+            fail(f"{case}: kernel vs plain rel {r['rel_err']:.3e} > {tol:g}")
+    report["fig1"] = {"rows": rows, "launches": counts}
+    print(f"fig1 sweep: each case's checked call launched its kernel once; "
+          f"launches {counts}", flush=True)
     return counts
 
 
@@ -1470,20 +1478,26 @@ REPLACES = {
 }
 
 
-def kernel_line(results, launches):
+def kernel_line(results, launches, other_phases):
     """The per-kernel JSON: top-level numbers at f64 (the paper's ddddd
     planes) at the main path's shape, every dtype and shape under
-    ``by_dtype``."""
+    ``by_dtype``.  ``launches`` is the count from the kernel's own path; a
+    kernel that a phase of ``other_phases`` launched too has that phase's
+    count under ``other_phase_launches``, never added in."""
     out = []
     for k, (src, rep, key) in REPLACES.items():
         top = results[k][key]
-        out.append({"name": k, "route": "cuda", "source": src,
-                    "replaces": rep, "launches": launches.get(k, 0),
-                    "max_abs_err": top["max_abs_err"],
-                    "ms": top["ms"], "plain_ms": top["plain_ms"],
-                    "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-                    "library_ms": top["library_ms"], "at": key,
-                    "by_dtype": results[k]})
+        entry = {"name": k, "route": "cuda", "source": src,
+                 "replaces": rep, "launches": launches.get(k, 0),
+                 "max_abs_err": top["max_abs_err"],
+                 "ms": top["ms"], "plain_ms": top["plain_ms"],
+                 "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                 "library_ms": top["library_ms"], "at": key,
+                 "by_dtype": results[k]}
+        other = {p: c[k] for p, c in other_phases.items() if c.get(k)}
+        if other:
+            entry["other_phase_launches"] = other
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -1573,6 +1587,7 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.backend import H100_HBM_BYTES_PER_S
     from repro_torch.configs import PAPER_SINGLE
     from repro_torch.core import time_callable
     from repro_torch.kernels import _build
@@ -1623,18 +1638,18 @@ def main() -> int:
                 **{k: v for k, v in
                    report["tiled_configs"]["launches_total"].items()
                    if k.endswith("_tiled")},
-                # the real kernels: the dispatch phase and the Fig. 1 sweep
+                # the real kernels: the ops dispatch phase, which drives
+                # all six; the Fig. 1 sweep's own counts are kept apart
                 **{k: report["real_dispatch_launches"].get(k, 0)
-                   + report["fig1"]["launches"].get(k, 0)
                    for k in REPLACES if "_real" in k}}
-    line = kernel_line(results, launches)
+    line = kernel_line(results, launches, {"fig1": report["fig1"]["launches"]})
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_s": build_s,
-         "hbm_bytes_per_s": HBM_BYTES_PER_S, "peak_flops": PEAK_FLOPS,
+         "hbm_bytes_per_s": H100_HBM_BYTES_PER_S, "peak_flops": PEAK_FLOPS,
          "repeats": REPEATS, "kernels": line["kernels"], **report},
         indent=1))
     print(json.dumps(line))

@@ -5,6 +5,8 @@ device": ``h100`` for a CUDA device (bound to its name), ``cpu-torch``
 for the CPU.  The ``REPRO_TORCH_BACKEND`` environment variable overrides
 the probe by spec name (the JAX package reads ``REPRO_BACKEND``; the two
 are separate because tests import both packages into one process).
+``default_device(device)`` is the device an entry point runs on when the
+caller names none: the card.
 """
 
 from __future__ import annotations
@@ -66,3 +68,15 @@ def resolve_backend(backend: Union[BackendSpec, str, None],
             f"unknown backend {backend!r}; known: {known_backends()}"
         ) from None
     return _bind_device(spec, device)
+
+
+def default_device(device=None) -> torch.device:
+    """``device``, or the card when None.  Entry points run on the card
+    unless the caller asks for the CPU; without a card they raise rather
+    than carry on there."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           "CPU")
+    return torch.device("cuda")

@@ -62,6 +62,9 @@ class BackendSpec:
 
 H100 = BackendSpec(name="h100", platform="cuda", kernels=True,
                    tile_precision=True)
+# The card's peak memory rate (NVIDIA H100 SXM data sheet): the bytes side
+# of every bound and share of HBM peak the port reports.
+H100_HBM_BYTES_PER_S = 3.35e12
 
 # Auto-selected for CPU tensors: the kernels' plain versions (the plain
 # contraction for the gemv, the oracles for pad/unpad).

@@ -23,17 +23,7 @@ import math
 import numpy as np
 import torch
 
-
-def default_device(device=None) -> torch.device:
-    """``device``, or the card when None.  Entry points run on the card
-    unless the caller asks for the CPU; without a card they raise rather
-    than carry on there."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
-                           "CPU")
-    return torch.device("cuda")
+from repro_torch.backend import default_device
 
 
 def dense_from_block_column(F_col: torch.Tensor) -> torch.Tensor:

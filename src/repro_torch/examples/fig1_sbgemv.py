@@ -28,13 +28,14 @@ those are CPU times, and no share of HBM peak is given for them.
 from __future__ import annotations
 
 import argparse
+import collections
 import time
 
 import torch
 
+from repro_torch.backend import H100_HBM_BYTES_PER_S, default_device
 from repro_torch.core.timing import time_callable
-from repro_torch.core.toeplitz import default_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import sbgemv as sk
 
 # (m, n, dtype name): the reference's cases (paper: skews 1:64 .. 1:16,
@@ -46,7 +47,6 @@ CASES = [
 ]
 SMOKE_CASES = [(16, 512, "c32"), (16, 512, "r32")]
 BATCH = 100                   # the paper's batch
-HBM_BYTES_PER_S = 3.35e12     # NVIDIA H100 SXM data sheet
 
 
 def split_pass(Ar, Ai, xr, xi):
@@ -68,36 +68,40 @@ def host_time_ms(fn, arg, repeats: int = 3) -> float:
     return (time.perf_counter() - t0) / repeats * 1e3
 
 
-def run_case(dev, m: int, n: int, dname: str, batch: int, time_ms,
-             seed: int = 0) -> dict:
+def run_case(dev, m: int, n: int, dname: str, time_ms, seed: int = 0) -> dict:
     """One case: the paths' times, GB/s and (on the card) share of HBM
-    peak, and the kernel's max abs error against its plain version."""
+    peak, the kernel's max abs error against its plain version, and the
+    launches of its one checked call (``launches``; none on the CPU, where
+    ``ops`` runs the plain version)."""
     dt = torch.float64 if dname.endswith("64") else torch.float32
     gen = torch.Generator(device=dev).manual_seed(seed)
     mk = lambda *shape: torch.randn(shape, generator=gen, device=dev,
                                     dtype=dt)
     s = dt.itemsize
     if dname.startswith("r"):
-        A, x = mk(batch, m, n), mk(batch, m)
-        nbytes = s * batch * (m * n + m + n)
-        kernel = lambda _: ops.sbgemv_real(A, x, "T")
-        got, want = [kernel(None)], [sk.sbgemv_th_real_plain(A, x, dt)]
+        A, x = mk(BATCH, m, n), mk(BATCH, m)
+        nbytes = s * BATCH * (m * n + m + n)
+        kernel = lambda _: [ops.sbgemv_real(A, x, "T")]
+        want = [sk.sbgemv_th_real_plain(A, x, dt)]
         At, xc = A.mT, x[..., None]
         paths = {"kernel": kernel,
                  "stock": lambda _: torch.bmm(At, xc)}
     else:
-        Ar, Ai, xr, xi = mk(batch, m, n), mk(batch, m, n), mk(batch, m), \
-            mk(batch, m)
-        nbytes = 2 * s * batch * (m * n + m + n)
+        Ar, Ai, xr, xi = mk(BATCH, m, n), mk(BATCH, m, n), mk(BATCH, m), \
+            mk(BATCH, m)
+        nbytes = 2 * s * BATCH * (m * n + m + n)
         kernel = lambda _: ops.sbgemv(Ar, Ai, xr, xi, "H")
-        got = kernel(None)
         want = sk.sbgemv_th_complex_plain(Ar, Ai, xr, xi, True, dt)
         Ac, xc = torch.complex(Ar, Ai).mH, torch.complex(xr, xi)[..., None]
         paths = {"kernel": kernel,
                  "stock": lambda _: split_pass(Ar, Ai, xr, xi),
                  "library": lambda _: torch.bmm(Ac, xc)}
+    before = collections.Counter(_build.launch_counts)
+    got = kernel(None)
+    launches = dict(_build.launch_counts - before)
     diff = [(g - w) for g, w in zip(got, want)]
-    row = {"m": m, "n": n, "dtype": dname, "batch": batch, "bytes": nbytes,
+    row = {"m": m, "n": n, "dtype": dname, "batch": BATCH, "bytes": nbytes,
+           "launches": launches,
            "max_abs_err": max(d.abs().max().item() for d in diff),
            "rel_err": (sum(d.norm() ** 2 for d in diff)
                        / sum(w.norm() ** 2 for w in want)).sqrt().item()}
@@ -107,7 +111,8 @@ def run_case(dev, m: int, n: int, dname: str, batch: int, time_ms,
         row[f"{name}_ms"] = ms
         row[f"{name}_gbps"] = nbytes / ms / 1e6
         if dev.type == "cuda":
-            row[f"{name}_hbm_share"] = nbytes / ms / 1e-3 / HBM_BYTES_PER_S
+            row[f"{name}_hbm_share"] = (nbytes / ms / 1e-3
+                                         / H100_HBM_BYTES_PER_S)
     return row
 
 
@@ -123,18 +128,17 @@ def format_row(r: dict) -> str:
                      + (f" ({100 * share:.1f} % of HBM)" if share is not None
                         else ""))
     cells.append(f"kernel vs plain: max abs {r['max_abs_err']:.2e}, rel "
-                 f"{r['rel_err']:.2e}")
+                 f"{r['rel_err']:.2e}; launches {r['launches']}")
     return " | ".join(cells)
 
 
-def run(device=None, smoke: bool = False, batch: int = BATCH,
-        verbose: bool = True) -> list:
+def run(device=None, smoke: bool = False, verbose: bool = True) -> list:
     """The sweep on ``device`` (None: the card); returns one dict a case."""
     dev = default_device(device)
     time_ms = host_time_ms if dev.type == "cpu" else time_callable
     rows = []
     for i, (m, n, dname) in enumerate(SMOKE_CASES if smoke else CASES):
-        rows.append(run_case(dev, m, n, dname, batch, time_ms, seed=i))
+        rows.append(run_case(dev, m, n, dname, time_ms, seed=i))
         if verbose:
             print("fig1 " + format_row(rows[-1]), flush=True)
     return rows
@@ -146,9 +150,8 @@ def main(argv=None) -> int:
                     help="torch device (default: the card)")
     ap.add_argument("--smoke", action="store_true",
                     help="the reference's two small smoke cases")
-    ap.add_argument("--batch", type=int, default=BATCH)
     args = ap.parse_args(argv)
-    rows = run(args.device, args.smoke, args.batch)
+    rows = run(args.device, args.smoke)
     if rows and "kernel_hbm_share" not in rows[0]:
         print("(times: host clock on the CPU, not device times)")
     return 0

@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -76,11 +77,25 @@ def _nvcc() -> str:
                        "source at first use and need the CUDA toolkit")
 
 
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the csrc files it includes, transitively
+    (``#include "..."``; sbgemm_real.cu includes sbgemm.cu)."""
+    todo, seen = [f"{name}.cu"], []
+    while todo:
+        f = todo.pop()
+        if f not in seen:
+            seen.append(f)
+            todo += re.findall(r'^#include "([^"]+)"',
+                               (CSRC / f).read_text(), re.M)
+    return sorted(seen)
+
+
 def _target(name: str) -> pathlib.Path:
-    # every source: one may include another (sbgemm_real.cu, sbgemm.cu)
+    # the library's own sources only: an edit elsewhere rebuilds nothing here
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):
-        h.update(src.read_bytes())
+    for f in _sources(name):
+        h.update(f.encode())
+        h.update((CSRC / f).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -28,8 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.backend import (UnsupportedOnBackend, default_table,
-                                 resolve_backend)
+from repro_torch.backend import (UnsupportedOnBackend, default_device,
+                                 default_table, resolve_backend)
 
 from . import pad_cast as _pad_cast
 from . import ref as _ref
@@ -44,7 +44,6 @@ def resolve_backend_dispatch(backend=None, dispatch=None, device=None):
     ``device``, ``REPRO_TORCH_BACKEND`` override applies); ``dispatch``
     defaults to the backend's table.
     """
-    from repro_torch.core.toeplitz import default_device   # core imports ops
     spec = resolve_backend(backend, default_device(device))
     if dispatch is None:
         dispatch = default_table(spec)

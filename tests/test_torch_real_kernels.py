@@ -307,6 +307,25 @@ def test_real_entries_are_declared_as_their_sources_define(source):
         assert sig.count("int ") - 1 == n_ints            # - the return
 
 
+@pytest.mark.parametrize("source, want", [
+    ("pad_cast", ["common.cuh", "pad_cast.cu"]),
+    ("sbgemv", ["common.cuh", "sbgemv.cu"]),
+    ("sbgemm", ["common.cuh", "sbgemm.cu"]),
+    ("sbgemm_real", ["common.cuh", "sbgemm.cu", "sbgemm_real.cu"]),
+])
+def test_each_library_hashes_only_its_own_sources(source, want):
+    """A library's build name covers its source and what it includes, so
+    an edit to another kernel's source rebuilds nothing else."""
+    assert _build._sources(source) == want
+
+
+def test_default_device_lives_in_the_backend():
+    from repro_torch.backend import default_device
+    from repro_torch.core import toeplitz
+    assert toeplitz.default_device is default_device
+    assert default_device("cpu") == torch.device("cpu")
+
+
 def test_resolve_backend_dispatch_defaults_to_the_card(monkeypatch):
     spec, table = ops.resolve_backend_dispatch(device="cpu")
     assert spec.name == "cpu-torch" and spec.platform == "cpu"
@@ -333,12 +352,15 @@ def test_fig1_cases_extend_the_reference():
 
 
 def test_fig1_smoke_on_the_cpu(capsys):
-    assert fig1.main(["--device", "cpu", "--smoke", "--batch", "8"]) == 0
+    assert fig1.main(["--device", "cpu", "--smoke"]) == 0
     out = capsys.readouterr().out
     assert "host clock" in out and "HBM" not in out
-    rows = fig1.run("cpu", smoke=True, batch=8, verbose=False)
+    rows = fig1.run("cpu", smoke=True, verbose=False)
     assert [(r["m"], r["n"], r["dtype"]) for r in rows] == fig1.SMOKE_CASES
     for r in rows:
+        assert r["batch"] == fig1.BATCH
+        # CPU tensors take the plain version: no kernel launched
+        assert r["launches"] == {}
         paths = ("kernel", "stock") + (("library",) if r["dtype"][0] == "c"
                                        else ())
         for p in paths:
