@@ -72,7 +72,21 @@ CUDA toolkit.  It:
       and a tall shape, matching the plain path;
    c. the twin of the paper's Fig. 1 sweep (``repro_torch.examples.
       fig1_sbgemv``, batch 100): the hand kernels against the stock
-      passes and the library call, with launch counts.
+      passes and the library call, with launch counts;
+7. the LM serving path:
+   a. the flash-attention kernel against its plain version, bf16 and
+      f32 (max abs <= 3e-2 / 2e-5), at ragged shapes, at the serve
+      phase's longer prefill batch and at a 2048-token prefill, the last
+      two timed beside the bound, the plain version and one
+      ``scaled_dot_product_attention`` call;
+   b. qwen1.5-0.5b at full width with ``attn_impl="flash"`` through
+      ``ServeEngine.serve``: 8 seeded requests in two batches of 4, 32
+      new tokens each; exactly 24 flash launches a prefill batch and none
+      in decode; prefill ms, decode ms a step, tokens/s, the kernel's
+      share of prefill, a profiled decode step's device time, peak memory,
+      and the same traffic on the chunked path; prefill and teacher-forced
+      decode logits against the chunked path within 1e-1 of max |logit|
+      at the default policy and 1e-4 at ``FULL_F32``.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -1033,7 +1047,8 @@ def drive_example(dev, report):
     if bad:
         fail("inverse-problem example: " + "; ".join(bad))
     check_launched(counts, [k for k in REPLACES
-                            if not k.endswith("_tiled") and "_real" not in k])
+                            if not k.endswith("_tiled") and "_real" not in k
+                            and k != "flash_attention_bh"])
 
 
 def drive_tiled_configs(dev, N_t, N_d, N_m, timed, time_fn, report):
@@ -1399,6 +1414,335 @@ def drive_fig1(dev, report):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 7. Slice 5: the flash-attention kernel and the LM serving path
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen1p5_0p5b"
+SERVE_NEW = 32                    # new tokens a request
+FLASH_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
+# max |logit difference| / max |logit|, flash path against chunked
+LOGIT_TOL = {"default": 1e-1, "full_f32": 1e-4}
+# (BH, Sq, Skv, Dh, causal): ragged lengths, Dh 12/16/64/128, cross lengths
+FLASH_RAGGED = ((3, 77, 77, 64, True), (2, 40, 100, 16, False),
+                (3, 50, 50, 12, True), (2, 130, 130, 128, True))
+FLASH_LONG = 2048                 # a long prefill, (64, 2048, 2048, 64)
+
+
+def serve_plan(full: bool):
+    """The serve phase's config and traffic: qwen1.5-0.5b at full width
+    with ``attn_impl="flash"``, 8 greedy requests made from SEED, four with
+    prompts of 449-512 tokens and four of 897-1024, so the 128-token
+    buckets give two batches of 4; max_seq 2048, SERVE_NEW new tokens each.
+    ``full=False`` (the CPU rehearsal): the smoke config, prompts of 9-16
+    and 17-32 tokens in buckets of 16, max_seq 64, 4 new tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.runtime import Request
+    cfg = (get_config if full else get_smoke_config)(SERVE_ARCH)
+    cfg = cfg.replace(attn_impl="flash")
+    (lo, hi), bucket, max_seq, new = (
+        (((449, 512), (897, 1024)), 128, 2048, SERVE_NEW) if full else
+        (((9, 16), (17, 32)), 16, 64, 4))
+    rng = np.random.default_rng(SEED)
+    lens = [int(n) for n in (*rng.integers(lo[0], lo[1] + 1, 4),
+                             *rng.integers(hi[0], hi[1] + 1, 4))]
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(n),
+                                               dtype=np.int32),
+                    max_new_tokens=new) for i, n in enumerate(lens)]
+    batch_lens = [max(lens[:4]), max(lens[4:])]
+    return cfg, reqs, bucket, max_seq, batch_lens
+
+
+def _attn_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """Key-query pairs a call computes (causal: key <= query)."""
+    if not causal:
+        return Sq * Skv
+    n = min(Sq, Skv)
+    return n * (n + 1) // 2 + (Sq - n) * Skv
+
+
+def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
+    """The flash kernel against its plain version on the card, bf16 and f32
+    at each (BH, Sq, Skv, Dh, causal) of ``shapes``: the dtype and shape,
+    and the largest absolute difference within FLASH_TOL (the reference's
+    test tolerances).  The shapes named in ``timed_keys`` are timed: the
+    kernel, its plain version and one ``scaled_dot_product_attention`` on
+    (1, BH, S, Dh) views of the same tensors, beside the bound (each of
+    q, k, v, o moved once; 4 Dh flops a key-query pair)."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    for shape in shapes:
+        BH, Sq, Skv, Dh, causal = shape
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn((BH, s, Dh), generator=gen, device=dev,
+                                   dtype=torch.float32).to(dt)
+                       for s in (Sq, Skv, Skv))
+            got = fa.flash_attention_bh(q, k, v, causal=causal)
+            want = fa.flash_attention_bh_plain(q, k, v, causal=causal)
+            what = f"flash_attention_bh {name(dt)} at {shape}"
+            if got.dtype != dt or tuple(got.shape) != (BH, Sq, Dh):
+                fail(f"{what}: gives {tuple(got.shape)} {got.dtype}")
+            err = max_abs(got, want)
+            if not err <= FLASH_TOL[dt]:
+                fail(f"{what}: max abs err vs plain {err:.3e} > "
+                     f"{FLASH_TOL[dt]:g}")
+            print(f"{what}: max abs err vs plain {err:.3e}", flush=True)
+            del got, want
+            key = timed_keys.get(shape)
+            if key is None:
+                continue
+            nbytes = dt.itemsize * (2 * BH * Sq * Dh + 2 * BH * Skv * Dh)
+            flops = 4 * BH * Dh * _attn_pairs(Sq, Skv, causal)
+            b_ms, b_by = bound_ms(nbytes, flops, name(dt))
+            q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            results["flash_attention_bh"][f"{name(dt)} {key}"] = {
+                "shape": list(shape), "max_abs_err": err,
+                "ms": time_fn(lambda _: fa.flash_attention_bh(
+                    q, k, v, causal=causal), None),
+                "plain_ms": time_fn(lambda _: fa.flash_attention_bh_plain(
+                    q, k, v, causal=causal), None),
+                "library_ms": time_fn(lambda _: sdpa(
+                    q4, k4, v4, is_causal=causal), None),
+                "bytes": nbytes, "flops": flops, "bound_ms": b_ms,
+                "bound_by": b_by}
+            del q4, k4, v4
+        del q, k, v
+
+
+class _PhaseClock:
+    """Times each call of a wrapped engine phase (CUDA events on the card,
+    so no call waits on the device; the host clock on the CPU) and counts
+    the flash launches inside it."""
+
+    def __init__(self, dev, fn):
+        self.dev, self.fn, self.marks, self.launches = dev, fn, [], 0
+
+    def _mark(self):
+        if self.dev.type == "cuda":
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def __call__(self, *args):
+        from repro_torch.kernels import _build
+        n0 = _build.launch_counts["flash_attention_bh"]
+        t0 = self._mark()
+        out = self.fn(*args)
+        self.marks.append((t0, self._mark()))
+        self.launches += _build.launch_counts["flash_attention_bh"] - n0
+        return out
+
+    def ms(self) -> list:
+        sync(self.dev)
+        return [a.elapsed_time(b) if self.dev.type == "cuda" else 1e3 * (b - a)
+                for a, b in self.marks]
+
+
+def _serve_once(dev, cfg, model, reqs, bucket, max_seq):
+    """One ``ServeEngine.serve`` call, its prefill and decode calls timed
+    and their flash launches counted apart; wall time on the host clock
+    from a synchronised start to a synchronised end."""
+    from repro_torch.runtime import ServeEngine
+    eng = ServeEngine(cfg, model, max_seq=max_seq)
+    pre = eng._prefill = _PhaseClock(dev, eng._prefill)
+    dec = eng._decode = _PhaseClock(dev, eng._decode)
+    sync(dev)
+    t0 = time.perf_counter()
+    results = eng.serve(reqs, bucket=bucket)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.tokens) for r in results)
+    return results, {
+        "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+        "prefill_ms": pre.ms(), "decode_ms_per_step": sorted(dec.ms()),
+        "decode_steps": len(dec.marks), "prefill_launches": pre.launches,
+        "decode_launches": dec.launches}
+
+
+def _left_padded(reqs):
+    import numpy as np
+    S = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((len(reqs), S), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, S - len(r.prompt):] = r.prompt
+    return toks
+
+
+def _logit_gap(a, b) -> float:
+    """max |a - b| / max |b| (f32 logits)."""
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+def compare_paths(dev, cfg, model, reqs, max_seq, steps, tol, what):
+    """Prefill logits of the flash path against the chunked path on one
+    batch, then ``steps`` teacher-forced decode steps feeding both the
+    flash path's greedy tokens: each step's logits within ``tol`` of max
+    |logit|.  Returns the gaps and the share of greedy tokens that agree."""
+    from repro_torch.models import api
+    cfg_c = cfg.replace(attn_impl="chunked")
+    toks = torch.as_tensor(_left_padded(reqs), device=dev)
+    gaps, agree, n = [], 0, 0
+    with torch.inference_mode():
+        lf, sf = api.prefill_step(cfg, model, {"tokens": toks}, max_seq)
+        lc, sc = api.prefill_step(cfg_c, model, {"tokens": toks}, max_seq)
+        gaps.append(_logit_gap(lf, lc))
+        lf, lc = lf[:, -1:], lc[:, -1:]
+        for i in range(steps):
+            tf, tc = lf[:, -1].argmax(-1), lc[:, -1].argmax(-1)
+            agree += int((tf == tc).sum())
+            n += tf.numel()
+            if i == steps - 1:
+                break
+            lf, sf = api.decode_step(cfg, model, sf, tf[:, None])
+            lc, sc = api.decode_step(cfg_c, model, sc, tf[:, None])
+            gaps.append(_logit_gap(lf, lc))
+    del sf, sc, lf, lc
+    worst = max(gaps)
+    print(f"{what}: flash vs chunked logits, prefill {gaps[0]:.3e}, worst "
+          f"of {steps - 1} teacher-forced decode steps "
+          f"{max(gaps[1:], default=0.0):.3e} (<= {tol:g}); greedy tokens "
+          f"agree {agree}/{n}", flush=True)
+    if not worst <= tol:
+        fail(f"{what}: flash vs chunked logits differ by {worst:.3e} of max "
+             f"|logit| > {tol:g}")
+    return {"prefill_gap": gaps[0], "decode_gaps": gaps[1:],
+            "greedy_agree": agree / n}
+
+
+def profile_decode(dev, cfg, model, reqs, max_seq, steps: int = 4):
+    """Device time and kernel launches a decode step, from
+    ``torch.profiler`` over ``steps`` steps after a prefill of ``reqs``
+    (the kernels' own device time, summed); None where the profiler shows
+    no device time (the CPU)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    toks = torch.as_tensor(_left_padded(reqs), device=dev)
+    with torch.inference_mode():
+        logits, state = api.prefill_step(cfg, model, {"tokens": toks},
+                                         max_seq)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        del logits
+        sync(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                logits, state = api.decode_step(cfg, model, state, tok)
+                tok = logits[:, -1].argmax(-1)[:, None]
+            sync(dev)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    if not busy_us:
+        return None
+    return {"device_ms_per_step": busy_us / 1e3 / steps,
+            "kernels_per_step": sum(e.count for e in kern) / steps}
+
+
+def drive_serve(dev, full, time_fn, report):
+    """The slice's main path: qwen1.5-0.5b at full width through
+    ``ServeEngine.serve`` (``serve_plan``), weights from a seeded generator
+    on the device.  A warm-up call first; then the counted call, with the
+    counters set to 0 just before it: exactly n_layers flash launches a
+    prefill batch, none in decode.  The same traffic on the chunked path
+    for its times.  Correctness against the chunked path (the reference's
+    plain attention): prefill and teacher-forced decode logits within
+    LOGIT_TOL at the default policy and at FULL_F32."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.models.policy import FULL_F32
+    cfg, reqs, bucket, max_seq, batch_lens = serve_plan(full)
+    out = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "max_seq": max_seq, "bucket": bucket,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "batch_lens": batch_lens}
+    report["serve"] = out
+    if dev.type == "cuda":
+        report["peak_memory_gb_before_serve"] = \
+            torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    model = api.init_params(cfg, gen, device=dev)
+    t_start = time.perf_counter()
+    _serve_once(dev, cfg, model, reqs, bucket, max_seq)        # warm-up
+    _build.reset_launch_counts()
+    res_f, run_f = _serve_once(dev, cfg, model, reqs, bucket, max_seq)
+    counts = dict(_build.launch_counts)
+    out["launches"] = counts
+    out["flash"] = run_f
+    n_batches = len(run_f["prefill_ms"])
+    print(f"serve {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}) "
+          f"flash: {len(reqs)} requests in {n_batches} batches "
+          f"{batch_lens}, {run_f['tokens']} tokens in {run_f['wall_s']:.3f} "
+          f"s ({run_f['tokens_per_s']:.1f} tok/s); prefill ms "
+          f"{[round(t, 3) for t in run_f['prefill_ms']]}; decode ms/step "
+          f"median {run_f['decode_ms_per_step'][len(run_f['decode_ms_per_step']) // 2]:.3f}; "
+          f"launches {counts} (prefill {run_f['prefill_launches']}, decode "
+          f"{run_f['decode_launches']})", flush=True)
+    check_launches(counts, {"flash_attention_bh": cfg.n_layers * n_batches})
+    check_launches({"flash_attention_bh": run_f["prefill_launches"]},
+                   {"flash_attention_bh": cfg.n_layers * n_batches})
+    check_launches({"flash_attention_bh": run_f["decode_launches"]},
+                   {"flash_attention_bh": 0})
+    if len(res_f) != len(reqs) or any(
+            len(r.tokens) != q.max_new_tokens or r.tokens.min() < 0
+            or r.tokens.max() >= cfg.vocab for r, q in zip(res_f, reqs)):
+        fail("serve: results of the wrong length or outside the vocabulary")
+
+    # how far the host holds decode back: device time a step (profiler)
+    # against the step's time on the device's clock in the counted call
+    prof = profile_decode(dev, cfg, model, reqs[:4], max_seq)
+    if prof is not None:
+        steps = run_f["decode_ms_per_step"]
+        prof["idle_share"] = 1 - prof["device_ms_per_step"] / \
+            steps[len(steps) // 2]
+        print(f"decode step: {prof['kernels_per_step']:.0f} kernels, "
+              f"{prof['device_ms_per_step']:.3f} ms of device time; idle "
+              f"share {prof['idle_share']:.3f}", flush=True)
+    out["decode_profile"] = prof
+
+    cfg_c = cfg.replace(attn_impl="chunked")
+    _serve_once(dev, cfg_c, model, reqs, bucket, max_seq)      # warm-up
+    res_c, run_c = _serve_once(dev, cfg_c, model, reqs, bucket, max_seq)
+    out["chunked"] = run_c
+    same = sum(int((a.tokens == b.tokens).sum()) for a, b in zip(res_f, res_c))
+    out["served_tokens_agree"] = same / run_f["tokens"]
+    print(f"serve chunked: {run_c['tokens_per_s']:.1f} tok/s; prefill ms "
+          f"{[round(t, 3) for t in run_c['prefill_ms']]}; decode ms/step "
+          f"median {run_c['decode_ms_per_step'][len(run_c['decode_ms_per_step']) // 2]:.3f}; "
+          f"served tokens equal to the flash path's: {same}/{run_f['tokens']}",
+          flush=True)
+    if dev.type == "cuda":
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        # the kernel's share of prefill: its time at each batch's shape
+        # (B x heads folded), once a layer, over the batch's prefill time
+        from repro_torch.kernels import flash_attention as fa
+        shares = []
+        for S, pre_ms in zip(batch_lens, run_f["prefill_ms"]):
+            q = torch.randn((4 * cfg.n_heads, S, cfg.head_dim()), device=dev,
+                            dtype=torch.bfloat16)
+            k_ms = time_fn(lambda _: fa.flash_attention_bh(q, q, q), None)
+            shares.append({"S": S, "kernel_ms": k_ms,
+                           "share": cfg.n_layers * k_ms / pre_ms})
+            del q
+        out["kernel_share_of_prefill"] = shares
+        print(f"serve peak device memory {out['peak_memory_gb']:.2f} GB; "
+              f"kernel share of prefill "
+              f"{[round(s['share'], 4) for s in shares]}", flush=True)
+
+    # correctness on the longer batch (serve_plan's last four), both policies
+    big, steps = reqs[4:], reqs[0].max_new_tokens
+    out["check_default"] = compare_paths(dev, cfg, model, big, max_seq, steps,
+                                         LOGIT_TOL["default"], "default policy")
+    out["check_full_f32"] = compare_paths(
+        dev, cfg.replace(policy=FULL_F32), model, big, max_seq, steps,
+        LOGIT_TOL["full_f32"], "FULL_F32")
+    out["seconds"] = time.perf_counter() - t_start
+    del model
+
+
 def plain_path(op):
     """``op`` with every contraction on the plain PyTorch code (the
     "torch" dispatch path); pad/unpad still launch their kernels."""
@@ -1475,6 +1819,10 @@ REPLACES = {
     "sbgemm_n_real_tiled": ("src/repro_torch/kernels/csrc/sbgemm.cu",
                             "src/repro/kernels/sbgemv.py:624",
                             f"float64 S={S_BLOCK} 2x2"),
+    # the LM serving path: bf16 at the serve phase's longer prefill batch
+    "flash_attention_bh": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                           "src/repro/kernels/flash_attention.py:70",
+                           "bfloat16 serve"),
 }
 
 
@@ -1578,6 +1926,22 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     free(dev)
     if dev.type == "cuda":
         drive_fig1(dev, report)
+    free(dev)
+    # slice 5: the flash kernel and the LM serving path
+    full = dev.type == "cuda"
+    cfg, _, _, _, batch_lens = serve_plan(full)
+    serve_shape = (4 * cfg.n_heads, batch_lens[1], batch_lens[1],
+                   cfg.head_dim(), True)
+    long_shape = (4 * cfg.n_heads, FLASH_LONG, FLASH_LONG, cfg.head_dim(),
+                  True)
+    check_flash_kernel(dev, FLASH_RAGGED, {}, results, time_fn)
+    check_flash_kernel(dev, (serve_shape, long_shape) if full else
+                       (serve_shape,),
+                       {serve_shape: "serve", long_shape: f"S={FLASH_LONG}"}
+                       if timed else {}, results, time_fn)
+    free(dev)
+    drive_serve(dev, full, time_fn, report)
+    free(dev)
     return results, report
 
 
@@ -1624,6 +1988,7 @@ def main() -> int:
     results, report = run(dev, cfg.N_t, cfg.N_d, cfg.N_m, True, time_fn)
     report["peak_memory_gb"] = max(
         report.get("peak_memory_gb_before_autotune", 0.0),
+        report.get("peak_memory_gb_before_serve", 0.0),
         torch.cuda.max_memory_allocated(dev) / 1e9)
     print(f"peak device memory {report['peak_memory_gb']:.2f} GB", flush=True)
     report["seconds"] = time.perf_counter() - t_start
@@ -1641,7 +2006,10 @@ def main() -> int:
                 # the real kernels: the ops dispatch phase, which drives
                 # all six; the Fig. 1 sweep's own counts are kept apart
                 **{k: report["real_dispatch_launches"].get(k, 0)
-                   for k in REPLACES if "_real" in k}}
+                   for k in REPLACES if "_real" in k},
+                # the flash kernel: the counted serve call
+                "flash_attention_bh":
+                    report["serve"]["launches"].get("flash_attention_bh", 0)}
     line = kernel_line(results, launches, {"fig1": report["fig1"]["launches"]})
 
     out_dir = ROOT / "chiprun_out"

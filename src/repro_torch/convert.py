@@ -1,9 +1,10 @@
 """State carried across from the JAX package.
 
 The operator's state is its pair of Fourier planes, and a circulant Gram
-operator's also its pair of G_hat planes.  Handing the JAX package's
-planes over as numpy arrays (``np.asarray(op.F_hat_re)``) lets both
-packages compute with the same state.  Nothing here imports JAX.
+operator's also its pair of G_hat planes; an LM's state is its params
+pytree.  Handing the JAX package's arrays over as numpy arrays
+(``np.asarray(op.F_hat_re)``, ``jax.tree.map(np.asarray, params)``) lets
+both packages compute with the same state.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from .core.fftmatvec import FFTMatvec, default_device
 from .core.gram import GramOperator
 from .core.pipeline import ExecOpts
 from .core.precision import PrecisionConfig
+from .configs.base import ModelConfig
+from .models.api import family_module
 
 
 def _plane(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -53,3 +56,23 @@ def gram_from_numpy(op: FFTMatvec, G_hat_re, G_hat_im, *,
                          f"Gram, got {tuple(G_re.shape)} and "
                          f"{tuple(G_im.shape)}")
     return GramOperator(op, space, "circulant", G_re, G_im)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, params, device=None):
+    """The port's LM weights module holding the JAX package's params pytree
+    (numpy leaves; ``layers`` stacked on a leading layer axis, as
+    ``transformer.init_params`` builds it), at the policy's parameter
+    dtype on ``device`` (None = the card).  bf16 leaves widen exactly."""
+    mod = family_module(cfg)
+    dev = default_device(device)
+    model = mod.Transformer(cfg, device=dev)
+    stacked = params["layers"]
+    with torch.no_grad():
+        for i, lyr in enumerate(model.layers):
+            for name, p in lyr.named_parameters():
+                p.copy_(_plane(np.asarray(stacked[name])[i], p.dtype, dev))
+        for name in ("embed", "ln_f", "lm_head"):
+            p = getattr(model, name)
+            if p is not None:
+                p.copy_(_plane(params[name], p.dtype, dev))
+    return model

@@ -46,6 +46,9 @@ ENTRIES = {
     "sbgemm_real": {"sbgemm_n_real": (3, 4, 3), "sbgemm_th_real": (3, 4, 3),
                     "sbgemm_n_real_tiled": (4, 4, 5),
                     "sbgemm_th_real_tiled": (4, 4, 5)},
+    # q, k, v, o; B, Hq, Hkv, Sq, Skv, Dh and (batch, head, row) strides of
+    # each; causal, dtype, device
+    "flash_attention": {"flash_attention_bh": (4, 18, 3)},
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

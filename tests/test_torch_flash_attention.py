@@ -1,0 +1,132 @@
+"""The port's flash attention (``repro_torch.kernels.flash_attention``) on
+the CPU, against the JAX package.
+
+On a CPU tensor the wrapper runs its plain version, the same blocked
+online softmax as the reference kernel written step by step in PyTorch,
+so these tests hold the plain version and the GQA wrapper around it
+against the JAX Pallas kernel in interpret mode (as
+``tests/test_flash_attention.py`` runs it) and against the oracles.  The
+CUDA kernel is held against the plain version on the card by
+``chip_smoke.py``.  Tolerances: the reference's own, 2e-5 (f32) and 3e-2
+(bf16), which cover two summation orders and bf16's rounding of p.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.flash_attention import flash_attention_ref as jax_ref
+from repro_torch.backend import UnsupportedOnBackend
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
+
+# tests/test_flash_attention.py's CASES: B, Sq, Skv, Hq, Hkv, Dh
+CASES = [
+    (1, 128, 128, 2, 2, 32),
+    (2, 256, 256, 4, 1, 64),      # MQA
+    (2, 128, 256, 8, 2, 32),      # GQA, cross lengths (non-causal only)
+    (1, 384, 384, 2, 2, 128),
+]
+DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 3e-2)}
+
+
+def _inputs(seed, B, Sq, Skv, Hq, Hkv, Dh):
+    rng = np.random.default_rng(seed)
+    mk = lambda s, h: rng.standard_normal((B, s, h, Dh), dtype=np.float32)  # noqa: E731
+    return mk(Sq, Hq), mk(Skv, Hkv), mk(Skv, Hkv)
+
+
+def _both(arrs, tdt, jdt):
+    return ([torch.from_numpy(a).to(tdt) for a in arrs],
+            [jnp.asarray(a).astype(jdt) for a in arrs])
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else \
+        np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dh", CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_matches_jax_kernel(B, Sq, Skv, Hq, Hkv, Dh, dtype):
+    tdt, jdt, tol = DTYPES[dtype]
+    causal = Sq == Skv
+    (q, k, v), (jq, jk, jv) = _both(_inputs(0, B, Sq, Skv, Hq, Hkv, Dh),
+                                    tdt, jdt)
+    got = fa.flash_attention(q, k, v, causal=causal, q_block=64,
+                             kv_block=128)
+    want = jax_flash(jq, jk, jv, causal=causal, q_block=64, kv_block=128,
+                     interpret=True)
+    assert got.dtype == tdt and tuple(got.shape) == (B, Sq, Hq, Dh)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    # and the port's oracle against the reference's
+    np.testing.assert_allclose(_np(fa.flash_attention_ref(q, k, v,
+                                                          causal=causal)),
+                               _np(jax_ref(jq, jk, jv, causal=causal)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("Sq,Skv,Dh,causal,q_block,kv_block", [
+    (77, 77, 12, True, 32, 16),       # ragged blocks, Dh 12
+    (50, 50, 12, True, 64, 64),       # one block each
+    (40, 100, 16, False, 16, 48),     # cross lengths
+    (100, 40, 8, True, 24, 24),       # more queries than keys
+    (1, 5, 8, False, 256, 256),       # one query
+])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_matches_oracle_at_ragged_shapes(Sq, Skv, Dh, causal, q_block,
+                                               kv_block, dtype):
+    tdt, _, tol = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(a).to(tdt)
+               for a in _inputs(1, 1, Sq, Skv, 3, 3, Dh))
+    fold = lambda x: x.transpose(1, 2).reshape(3, x.shape[1], Dh)  # noqa: E731
+    got = fa.flash_attention_bh_plain(fold(q), fold(k), fold(v),
+                                      causal=causal, q_block=q_block,
+                                      kv_block=kv_block)
+    want = fold(fa.flash_attention_ref(q, k, v, causal=causal))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_flash_odd_blocks():
+    """S = 96 with the default blocks: the wrapper shrinks them to
+    divisors, as the reference's does (its test_flash_odd_blocks)."""
+    (q, k, v), (jq, jk, jv) = _both(_inputs(2, 1, 96, 96, 2, 2, 32),
+                                    torch.float32, jnp.float32)
+    got = fa.flash_attention(q, k, v, causal=True)
+    np.testing.assert_allclose(_np(got), _np(jax_flash(jq, jk, jv,
+                                                       causal=True,
+                                                       interpret=True)),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np(got), _np(jax_ref(jq, jk, jv,
+                                                     causal=True)),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_bh_wrapper_takes_plain_version_on_cpu():
+    """On CPU tensors flash_attention_bh is its plain version and counts
+    no launch; the folded call equals the 4-D wrapper's."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(3, 2, 70, 70, 4, 2, 16))
+    _build.reset_launch_counts()
+    want = fa.flash_attention(q, k, v, causal=True, q_block=32, kv_block=32)
+    kr, vr = (x.repeat_interleave(2, dim=2) for x in (k, v))
+    fold = lambda x: x.transpose(1, 2).reshape(8, 70, 16)  # noqa: E731
+    got = fa.flash_attention_bh(fold(q), fold(kr), fold(vr), causal=True,
+                                q_block=35, kv_block=35)
+    np.testing.assert_allclose(got.numpy(), fold(want).numpy(), rtol=2e-5,
+                               atol=2e-5)
+    assert _build.launch_counts["flash_attention_bh"] == 0
+
+
+def test_wrapper_rejects_what_the_kernel_cannot_take():
+    x = torch.zeros((1, 4, 160))
+    with pytest.raises(UnsupportedOnBackend, match="head dim"):
+        fa.flash_attention_bh(x, x, x)
+    q = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(ValueError, match="do not match"):
+        fa.flash_attention(q, torch.zeros((1, 4, 2, 16)),
+                           torch.zeros((1, 4, 2, 16)))
+    with pytest.raises(ValueError, match="query heads"):
+        fa.flash_attention(torch.zeros((1, 4, 3, 8)), q, q)

@@ -73,7 +73,7 @@ def test_every_ported_kernel_row_has_a_cuda_source():
         "sbgemm_n_complex_tiled", "sbgemm_th_complex_tiled",
         "sbgemm_gram_tiled", "sbgemv_n_real", "sbgemv_th_real",
         "sbgemm_n_real", "sbgemm_th_real", "sbgemm_n_real_tiled",
-        "sbgemm_th_real_tiled"}
+        "sbgemm_th_real_tiled", "flash_attention_bh"}
     for r in ported:
         src = r["port source"].strip("`")
         assert src.endswith(".cu") and (ROOT / src).is_file(), r
