@@ -86,7 +86,18 @@ CUDA toolkit.  It:
       share of prefill, a profiled decode step's device time, peak memory,
       and the same traffic on the chunked path; prefill and teacher-forced
       decode logits against the chunked path within 1e-1 of max |logit|
-      at the default policy and 1e-4 at ``FULL_F32``.
+      at the default policy and 1e-4 at ``FULL_F32``; the head's
+      default-policy logits against an f64 product of the same bf16
+      operands within HEAD_TOL of max |logit|;
+8. the staged f64 kernels (the GEMM, for N and T/H, and the Gram): the
+   registers and spill bytes ``ptxas`` gives each of their
+   instantiations, and ragged shapes that cross their item, warp-tile and
+   staged-chunk edges (m and n around the 128-row items, odd n, P around
+   64, 112 and 128, S = 1, 8, 9, 32, 33) for N, T/H, the Gram in both
+   spaces, the tiled and the real builds: each against its plain version,
+   each tiled build bit for bit against its untiled one on quantized
+   planes.  ddddd ``matmat``/``rmatmat`` at S = 32 and the G_hat setup are
+   printed as ratios to the plain path (reported, not gated).
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -839,6 +850,18 @@ def drive_block_path(dev, N_t, N_d, N_m, timed, time_fn, report):
                 print(f"{c} plain path: matmat S={Sx} {t['matmat_ms']:.3f} "
                       f"ms, rmatmat {t['rmatmat_ms']:.3f} ms", flush=True)
         block["times_plain_path"] = plain
+        # the kernel path's time over the plain path's (reported, not gated)
+        ratios = {}
+        for c in ("ddddd", "dssdd"):
+            for Sx, kt in ((S, times[c]), (S_WIDE, wide[c])):
+                pt = plain[f"{c} S={Sx}"]
+                ratios[f"{c} S={Sx}"] = {
+                    op: kt[f"{op}_ms"] / pt[f"{op}_ms"]
+                    for op in ("matmat", "rmatmat")}
+        block["ratio_to_plain_path"] = ratios
+        r = ratios[f"ddddd S={S_WIDE}"]
+        print(f"ddddd S={S_WIDE}: matmat {r['matmat']:.3f}x, rmatmat "
+              f"{r['rmatmat']:.3f}x the plain path", flush=True)
     return op_d
 
 
@@ -945,8 +968,11 @@ def drive_circulant(dev, op_d, timed, time_fn, report):
             lambda _: GramOperator.from_matvec(plain_path(op_d), space="data",
                                                mode="circulant"), None)
         out["apply_ms"] = time_fn(circ.apply, v)
+        out["setup_ratio_to_plain_path"] = (out["setup_ms"]
+                                            / out["setup_plain_path_ms"])
         print(f"  G_hat setup {out['setup_ms']:.3f} ms (plain path "
-              f"{out['setup_plain_path_ms']:.3f}), action "
+              f"{out['setup_plain_path_ms']:.3f}: "
+              f"{out['setup_ratio_to_plain_path']:.3f}x), action "
               f"{out['apply_ms']:.3f} ms", flush=True)
 
 
@@ -1423,6 +1449,9 @@ SERVE_NEW = 32                    # new tokens a request
 FLASH_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
 # max |logit difference| / max |logit|, flash path against chunked
 LOGIT_TOL = {"default": 1e-1, "full_f32": 1e-4}
+# the head at the default policy keeps its f32 sums: against the f64 product
+# of the same bf16 operands, f32 summation error over d_model terms
+HEAD_TOL = 1e-5
 # (BH, Sq, Skv, Dh, causal): ragged lengths, Dh 12/16/64/128, cross lengths
 FLASH_RAGGED = ((3, 77, 77, 64, True), (2, 40, 100, 16, False),
                 (3, 50, 50, 12, True), (2, 130, 130, 128, True))
@@ -1641,6 +1670,30 @@ def profile_decode(dev, cfg, model, reqs, max_seq, steps: int = 4):
             "kernels_per_step": sum(e.count for e in kern) / steps}
 
 
+def check_head(dev, cfg, model, gen) -> float:
+    """The LM head at the default policy keeps the f32 sums of its bf16
+    product, as the reference does: ``unembed`` on a random bf16 hidden
+    state against the f64 product of the same bf16 operands, within
+    HEAD_TOL of max |logit|."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    h = torch.randn((4, 8, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.policy.c())
+    with torch.inference_mode():
+        got = transformer.unembed(cfg, model, h)
+        x = L.rms_norm(h, model.ln_f, cfg.norm_eps)
+        head = model.embed.T if cfg.tie_embeddings else model.lm_head
+        want = x.double() @ head.to(x.dtype).double()
+    err = (got.double() - want).abs().max().item() / want.abs().max().item()
+    print(f"LM head, default policy ({cfg.policy.c()} compute, "
+          f"{got.dtype} logits): vs the f64 product of the same operands "
+          f"{err:.3e} of max |logit| (<= {HEAD_TOL:g})", flush=True)
+    if got.dtype != torch.float32 or not err <= HEAD_TOL:
+        fail(f"LM head logits {got.dtype} off the f64 product by {err:.3e} "
+             f"> {HEAD_TOL:g}")
+    return err
+
+
 def drive_serve(dev, full, time_fn, report):
     """The slice's main path: qwen1.5-0.5b at full width through
     ``ServeEngine.serve`` (``serve_plan``), weights from a seeded generator
@@ -1665,6 +1718,7 @@ def drive_serve(dev, full, time_fn, report):
         torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 29)
     model = api.init_params(cfg, gen, device=dev)
+    out["head_vs_f64"] = check_head(dev, cfg, model, gen)
     t_start = time.perf_counter()
     _serve_once(dev, cfg, model, reqs, bucket, max_seq)        # warm-up
     _build.reset_launch_counts()
@@ -1879,6 +1933,17 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     check_sbgemm_kernels(dev, N_t + 1, N_d, N_m, (S_BLOCK, S_WIDE), timed,
                          results, time_fn)
     free(dev)
+    # the staged f64 kernels' edges: m and n around the 128-row items, odd n
+    # (8-byte copies), n and m off the chunk widths (40 for N, 16 for T/H),
+    # S across the 8/16/32 passes, P around the Gram's 64-tiles and its
+    # 112-row bin
+    check_sbgemm_kernels(dev, 3, 77, 133, (1, 8, 9, 32, 33), False, results,
+                         time_fn)
+    check_sbgemm_kernels(dev, 2, 129, 257, (8, 32), False, results, time_fn)
+    for shape in ((3, 64, 31), (2, 65, 257), (2, 112, 66), (2, 113, 66),
+                  (2, 129, 66), (2, 33, 129)):
+        check_gram_kernel(dev, *shape, ("parameter", "data"), False, results,
+                          time_fn)
     # parameter-space G_hat at the paper shape is (1001, 5000, 5000) a
     # plane: only the data space is held there
     check_gram_kernel(dev, N_t + 1, N_d, N_m, ("data",), timed, results,
@@ -1898,7 +1963,10 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
                         time_fn)
     check_tiled_kernels(dev, 2, 300, 50, (1, 9), "NTH", False, results,
                         time_fn)
-    for shape in ((3, 7, 130), (2, 300, 50), (3, 70, 9)):
+    check_tiled_kernels(dev, 3, 77, 133, (8, 9, 32, 33), "NH", False, results,
+                        time_fn)
+    for shape in ((3, 7, 130), (2, 300, 50), (3, 70, 9), (2, 129, 66),
+                  (2, 65, 257)):
         check_tiled_gram(dev, *shape, ("parameter", "data"), False, results,
                          time_fn)
     check_tile_rounding(dev)
@@ -1919,6 +1987,8 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     # slice 4: the real-A products and the Fig. 1 sweep
     check_real_kernels(dev, 3, 7, 130, (1, 5, 33), False, results, time_fn)
     check_real_kernels(dev, 2, 300, 50, (1, 9), False, results, time_fn)
+    check_real_kernels(dev, 3, 77, 133, (8, 9, 32, 33), False, results,
+                       time_fn)
     if dev.type == "cuda":
         report["real_dispatch_launches"] = check_real_dispatch_on_card(dev)
     check_real_kernels(dev, N_t + 1, N_d, N_m, (1, S_BLOCK, S_WIDE), timed,
@@ -1943,6 +2013,39 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     drive_serve(dev, full, time_fn, report)
     free(dev)
     return results, report
+
+
+STAGED = ("zgemm_f64_kernel", "zgram_f64_kernel")
+
+
+def staged_ptxas(logs) -> dict:
+    """Registers and spill bytes of each instantiation of the staged f64
+    kernels, from the ``ptxas -v`` lines of the build logs (mangled names
+    shortened to the kernel and its template arguments)."""
+    import re
+    out, cur = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line)
+            if m:
+                cur = next((k for k in STAGED if k in m.group(1)), None)
+                name = m.group(1)
+                continue
+            if cur is None:
+                continue
+            key = f"{cur}[{name.split(cur, 1)[1].split('EEv')[0]}]"
+            info = out.setdefault(key, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                info["spill_stores"], info["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                info["registers"] = int(m.group(1))
+    return {k: {"registers": v.get("registers"),
+                "spill_stores": v.get("spill_stores", 0),
+                "spill_loads": v.get("spill_loads", 0)} for k, v in out.items()}
 
 
 def main() -> int:
@@ -1978,6 +2081,10 @@ def main() -> int:
                   and " 0 bytes spill stores, 0 bytes spill loads" not in line]
         print(f"  {src}: {len(regs)} kernels, at most {max(regs, default=0)} "
               f"registers a thread, spills: {spills or 'none'}")
+    staged = staged_ptxas(logs)
+    for fn, info in staged.items():
+        print(f"  {fn}: {info['registers']} registers, spill stores "
+              f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
     def time_fn(fn, arg, repeats=REPEATS, warmup=3):
         return time_callable(fn, arg, repeats=repeats, warmup=warmup)
@@ -2017,6 +2124,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_s": build_s,
+         "staged_ptxas": staged,
          "hbm_bytes_per_s": H100_HBM_BYTES_PER_S, "peak_flops": PEAK_FLOPS,
          "repeats": REPEATS, "kernels": line["kernels"], **report},
         indent=1))

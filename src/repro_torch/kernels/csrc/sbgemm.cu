@@ -9,10 +9,11 @@
 // shape B = 1001 bins, m = N_d = 100, n = N_m = 5000, S = 8 .. 32.
 //
 // f64 planes run on the FP64 tensor cores (67 TFLOP/s against 34 for the
-// FP64 vector units): one kernel, zgemm_f64_kernel below, takes every
-// product of this file through strides.  bf16 and f32 planes (f32 sums)
-// run on the vector units, in the kernels described here.  Bounds and
-// designs:
+// FP64 vector units), in the kernels of the f64 section below: N and the
+// Gram stage their operands in shared memory through an asynchronous
+// pipeline, T/H reads its fragments from global memory.  bf16 and f32
+// planes (f32 sums) run on the vector units, in the kernels described
+// here.  Bounds and designs:
 //
 //   N (sum over the long n), bytes-bound at S = 8 (8 S flops per complex
 //     A element: S flop per byte at f32, 2 S at bf16), the f32 product
@@ -54,18 +55,20 @@
 // Tiled builds (TILED = true) replace the TPU kernels
 // :sbgemm_n_complex_tiled, :sbgemm_th_complex_tiled and :sbgemm_gram_tiled:
 // each A element is rounded through its tile-map cell's level as it is
-// loaded (common.cuh: TileGrid), before any product (on the f64 path,
-// before the fragment enters the mma.sync), and nothing else changes, so
-// on planes quantized up front they give the untiled build's bits.  In the
+// loaded (common.cuh: TileGrid), before any product (on the f64 path, as
+// its fragment is read, from shared memory in the staged kernels, before
+// it enters the mma.sync), and nothing else changes, so on planes
+// quantized up front they give the untiled build's bits.  In the
 // Gram both factors of a product are rounded at their own cells.  They
 // move the untiled kernels' bytes: A stays stored at the carrier type.
 //
 // Real builds (REAL = true) replace the TPU kernels :sbgemm_n_real,
 // :sbgemm_th_real, :sbgemm_n_real_tiled and :sbgemm_th_real_tiled: the
 // same kernels with the imaginary planes compiled away (one A, X and Y
-// plane; on the f64 path one DMMA a tile pair instead of four).  With one
-// plane an A element carries 2 S flops: bytes-bound at every S here.  The
-// tiled real builds take the TILED flag unchanged.  Their C entries are
+// plane; on the f64 path one DMMA a tile pair instead of four; the Gram
+// has no real build).  With one plane an A element carries 2 S flops:
+// bytes-bound at every S here.  The tiled real builds take the TILED flag
+// unchanged.  Their C entries are
 // built from this file as a second library (sbgemm_real.cu defines
 // SBGEMM_REAL_ENTRIES), so the complex and the real instantiations compile
 // in parallel.
@@ -82,9 +85,8 @@ constexpr int kTile = 64;       // Gram output tile (kTile x kTile)
 constexpr int kMicro = 4;       // Gram register tile per thread (4 x 4)
 constexpr int kChunk = 16;      // Gram contraction chunk staged a step
 constexpr int kGramThreads = (kTile / kMicro) * (kTile / kMicro);
-constexpr int kMmaWarps = 8;    // f64 tensor-core kernel: warps of a block
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
@@ -422,31 +424,69 @@ sbgemm_gram_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
 unsigned batch_grid(int64_t B) { return (unsigned)(B < 65535 ? B : 65535); }
 
 // ---------------------------------------------------------------------------
-// f64 planes: one complex product on the FP64 tensor cores, bytes-bound
-// for the SBGEMMs (S / 2 flop per byte, under the card's 20 up to
-// S = 32) and compute-bound for the Gram.  C (M x N) per batch =
-// opA (M x K) opB (K x N), each operand read through strides, so one
-// kernel serves N (opA = A, opB = X), T/H (opA = A^T or A^H) and both
-// Gram spaces.  A warp owns a (TM x 8) x (TN x 8) tile of C and walks K
-// in steps of 4, each step four m8n8k4 DMMAs a pair of 8 x 8 tiles (the
-// real products Re Re, -Im Im, Re Im, Im Re).  Fragments load straight
-// from global memory, every load whole 32-byte sectors, with the K loop
-// unrolled by four; the loads are what bound it (no shared-memory staging
-// yet).  Each output sums its K products in one warp, in order: no
-// atomics, no cross-warp pass.
+// f64 planes on the FP64 tensor cores.  wgmma has no f64 type, so every
+// f64 product is mma.sync, in sm_90's m16n8k4 shape, which reaches the
+// FP64 tensor cores' full rate where the older m8n8k4 does not.  A complex
+// product is four real products a tile pair, always in the order Re Re,
+// -Im Im (into Re), Re Im, Im Re (into Im); with the REAL flag one.
+//
+// Both kernels stage their operands in shared memory through a cp.async
+// pipeline: a block copies k-chunks of its operand panels asynchronously
+// (8-byte copies, 16-byte ones where the rows allow) into a ring of
+// stages, then its warps read the fragments from shared memory.  Staged
+// rows are padded by kPad doubles, so the (g, t) lanes of a fragment read
+// hit 16 distinct bank pairs.  k past the end is zero-filled by the
+// copies; rows and columns past the end of the other axes are not copied,
+// and what they hold reaches only outputs that are not stored.  Tile
+// rounding (TILED) happens as a fragment leaves shared memory: the copies
+// land the stored bits, so every tiled build is its untiled build with
+// rounded fragments.
+//
+//   N (Y = A X) and T/H (Y = A^T X, A^H X): zgemm_f64_kernel, bytes-bound
+//     up to S = 32.  Work items are (bin, 128 output rows, a pass of SP =
+//     8, 16 or 32 columns): N's bin (m = 100) is one item, so its X panel
+//     is read once.  A block is persistent: it takes items blockIdx.x, +
+//     gridDim.x, ... and runs one pipeline of k-chunks across them (N: 40
+//     wide, 2 deep, the widest that fits at SP = 32; T/H: 16 wide, 2 deep,
+//     so that two or three blocks fit an SM), so it never waits on a cold
+//     pipeline between items (a cursor walks the chunks: no 64-bit
+//     division a chunk; the real T, half the bytes a chunk, takes 32-wide
+//     chunks 3 deep).  Each chunk stages the A panel (N: 128 rows x 40 k,
+//     320-byte runs of A's rows; T/H: 16 of A's rows x 128 columns, 1 KB
+//     runs) and the X panel (chunk x SP) once for the block's 8 warps.  A
+//     warp owns one m16 row tile and all SP columns, so each A fragment is
+//     read, and rounded, by one warp, and each output sums its k products
+//     in one warp in k order.
+//   Gram, G = opA opB with opA = A, opB = A^H (data space, k over n) or
+//     opA = A^H, opB = A (parameter space, k over m): zgram_f64_kernel.
+//     Blocks own 128 x 128 (a bin's whole G, for 64 < P <= 112: data space
+//     at the paper shape) or 64 x 64 output tiles on and above the
+//     diagonal.  A 16-wide k-chunk of the block's rows of A is staged once
+//     and feeds both fragments (on a diagonal tile both panels are the
+//     same rows), so a bin is read from HBM once; 4 chunks deep at 128, 2
+//     at 64.  The 8 warps own 32 x 16 tiles (two each at 128, of the 16
+//     with entries on or above the diagonal inside P <= 112; one each of
+//     2 x 4 at 64), 32 accumulators a tile, and skip their m16 x n8
+//     sub-tiles that lie wholly below the diagonal or outside G.  A warp
+//     loads a row sub-tile's fragments, then each column sub-tile's just
+//     before its four DMMAs, to hold few registers live (no spills).  Each
+//     entry on or above the diagonal is written, and its conjugate below
+//     it, so G is Hermitian but for the diagonal's imaginary parts
+//     (ops.sbgemm_gram averages those away).
+//   Every output sums its k products in one warp, in k order, on every run.
+//   No atomics, no cross-warp sums.
 // ---------------------------------------------------------------------------
 
-// Element (b, r, c) of an operand at b * sb + r * sr + c * sc; its
-// imaginary part is read times sgn (-1: the conjugate).  acol says which
-// index is A's column when the operand is (a view of) A, for the tiled
-// builds: 1 the first (r), 2 the second (c); 0 for X.
-struct Operand {
-  int64_t sb, sr, sc;
-  double sgn;
-  int acol;
-};
+constexpr int kGemmRows = 128;  // GEMM: output rows of an item, 8 warps of m16
+// GEMM: the k-chunk staged a step and the chunks in the pipeline, for N,
+// T/H and the real T (one plane: half the bytes a chunk)
+constexpr int kGemmNChunk = 40, kGemmNStages = 2;
+constexpr int kGemmTChunk = 16, kGemmTStages = 2;
+constexpr int kGemmTRealChunk = 32, kGemmTRealStages = 3;
+constexpr int kGChunk = 16;     // Gram: k-chunk staged a step
+constexpr int kPad = 4;         // doubles of padding a staged row
 
-// Round a loaded pair at level lv (2, the carrier's level: unchanged).
+// Round a fragment pair at level lv (2, the carrier's level: unchanged).
 __device__ __forceinline__ void tile_round(int lv, double& vr, double& vi) {
   if (lv < 2) {
     vr = quantize(vr, lv);
@@ -454,147 +494,518 @@ __device__ __forceinline__ void tile_round(int lv, double& vr, double& vi) {
   }
 }
 
-// d += a b for one m8n8k4 f64 tile pair.  Fragments (PTX ISA, mma.m8n8k4
-// .f64): lane l holds a = A[l / 4][l % 4], b = B[l % 4][l / 4] and
-// d = D[l / 4][2 (l % 4) + {0, 1}].
-__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
-  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a), "d"(b));
+// d += a b for one m16n8k4 f64 tile pair (PTX ISA, mma.m16n8k4 .f64):
+// lane l, g = l / 4, t = l % 4, holds a = {A[g][t], A[g + 8][t]},
+// b = B[t][g] and d = {D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]}.
+__device__ __forceinline__ void dmma16(double (&d)[4], double a0, double a1,
+                                       double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
-template <typename O, int TM, int TN, bool TILED, bool REAL>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
-                 const double* __restrict__ Br, const double* __restrict__ Bi,
-                 O* __restrict__ Cr, O* __restrict__ Ci,
-                 int64_t B, int64_t M, int64_t N, int64_t K, Operand a,
-                 Operand b, int64_t c_sb, int64_t c_sr, int herm, TileGrid tg) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int64_t RT = (M + 8 * TM - 1) / (8 * TM), CT = (N + 8 * TN - 1) / (8 * TN);
-  // consecutive warps take consecutive row tiles of one column tile, so a
-  // block's warps read the same opB fragments (cache hits)
-  const int64_t w = (int64_t)blockIdx.x * kMmaWarps + (threadIdx.x >> 5);
-  if (w >= RT * CT) return;                  // whole warp
-  const int64_t rt = w % RT, ct = w / RT;
-  // Hermitian C: only tiles on and above the diagonal run (TM == TN)
-  if (herm && rt > ct) return;
-  const int64_t r0 = rt * 8 * TM, c0 = ct * 8 * TN;
-  for (int64_t bb = blockIdx.y; bb < B; bb += gridDim.y) {
-    const double* ar = Ar + bb * a.sb;
-    const double* ai = Ai + (REAL ? 0 : bb * a.sb);   // REAL: Ai, Bi are null
-    const double* br = Br + bb * b.sb;
-    const double* bi = Bi + (REAL ? 0 : bb * b.sb);
-    // tiled: the levels of the fragment rows (opA) and columns (opB) that
-    // are A's column, fixed over k, 2 bits each; a k column's is looked up
-    // once a step
-    const uint32_t cells = TILED ? tile_row(tg, bb) : 0u;
-    uint32_t lv_a = 0, lv_b = 0;
-    if (TILED) {
-#pragma unroll
-      for (int u = 0; u < TM; ++u)
-        lv_a |= (uint32_t)(a.acol == 1 ? tile_level(tg, cells, r0 + u * 8 + g) : 2)
-                << (2 * u);
-#pragma unroll
-      for (int v = 0; v < TN; ++v)
-        lv_b |= (uint32_t)(b.acol == 2 ? tile_level(tg, cells, c0 + v * 8 + g) : 2)
-                << (2 * v);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Asynchronous global -> shared copy of one double (W = 1) or of an
+// aligned pair (W = 2); !ok reads nothing and zero-fills the destination.
+template <int W>
+__device__ __forceinline__ void cp_async(uint32_t dst, const double* src, bool ok) {
+  if constexpr (W == 2)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 8 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Stage a ROWS x COLS tile whose rows start at src + r ld (contiguous
+// along c) into shared memory at dst + r DLD + c, the block's NT threads
+// sharing the copies: rows r < rv and columns c < cv are copied.  The k
+// axis is the rows (KROWS) or the columns: past its end (r >= rv, or c >=
+// cv) the tile is zero-filled, so the products need no k mask; past the
+// end of the other axis nothing is written, and the stale values there
+// reach only outputs that are not stored.  vec: 16-byte pairs (ld, the
+// tile's start and cv even, the plane 16-byte aligned).
+template <int ROWS, int COLS, int DLD, int NT, bool KROWS>
+__device__ __forceinline__ void stage(double* dst, const double* src, int64_t ld,
+                                      int rv, int cv, bool vec) {
+  static_assert(COLS % 2 == 0 && DLD % 2 == 0, "rows of whole 16-byte pairs");
+  const uint32_t d0 = smem_addr(dst);
+  const int rows = KROWS ? ROWS : rv;        // rows written
+  if (vec) {
+    constexpr int CP = COLS / 2;
+    for (int e = threadIdx.x; e < rows * CP; e += NT) {
+      const int r = e / CP, c = 2 * (e % CP);
+      if (KROWS && c >= cv) continue;        // past the other axis
+      const bool ok = r < rv && c < cv;
+      cp_async<2>(d0 + 8u * (r * DLD + c), ok ? src + r * ld + c : src, ok);
     }
-    double cre[TM][TN][2], cim[TM][TN][2];
-#pragma unroll
-    for (int u = 0; u < TM; ++u)
-#pragma unroll
-      for (int v = 0; v < TN; ++v)
-        cre[u][v][0] = cre[u][v][1] = cim[u][v][0] = cim[u][v][1] = 0;
-#pragma unroll 4
-    for (int64_t k0 = 0; k0 < K; k0 += 4) {
-      const int64_t k = k0 + t;
-      const int lv_k = TILED && (a.acol == 2 || b.acol == 1) && k < K
-                           ? tile_level(tg, cells, k) : 2;
-      double fa_r[TM], fa_i[TM], fb_r[TN], fb_i[TN];
-#pragma unroll
-      for (int u = 0; u < TM; ++u) {
-        const int64_t r = r0 + u * 8 + g;
-        fa_r[u] = fa_i[u] = 0;
-        if (r < M && k < K) {
-          fa_r[u] = ar[r * a.sr + k * a.sc];
-          if constexpr (!REAL) fa_i[u] = ai[r * a.sr + k * a.sc];
-          if (TILED)
-            tile_round(a.acol == 2 ? lv_k : (int)(lv_a >> (2 * u)) & 3, fa_r[u], fa_i[u]);
-          fa_i[u] *= a.sgn;
-        }
-      }
-#pragma unroll
-      for (int v = 0; v < TN; ++v) {
-        const int64_t c = c0 + v * 8 + g;
-        fb_r[v] = fb_i[v] = 0;
-        if (c < N && k < K) {
-          fb_r[v] = br[k * b.sr + c * b.sc];
-          if constexpr (!REAL) fb_i[v] = bi[k * b.sr + c * b.sc];
-          if (TILED)
-            tile_round(b.acol == 1 ? lv_k : (int)(lv_b >> (2 * v)) & 3, fb_r[v], fb_i[v]);
-          fb_i[v] *= b.sgn;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < TM; ++u)
-#pragma unroll
-        for (int v = 0; v < TN; ++v) {
-          dmma(cre[u][v], fa_r[u], fb_r[v]);
-          if constexpr (!REAL) {
-            dmma(cre[u][v], -fa_i[u], fb_i[v]);
-            dmma(cim[u][v], fa_r[u], fb_i[v]);
-            dmma(cim[u][v], fa_i[u], fb_r[v]);
-          }
-        }
-    }
-    const bool mirror = herm && rt != ct;
-#pragma unroll
-    for (int u = 0; u < TM; ++u) {
-      const int64_t r = r0 + u * 8 + g;
-      if (r >= M) continue;
-#pragma unroll
-      for (int v = 0; v < TN; ++v)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int64_t c = c0 + v * 8 + 2 * t + h;
-          if (c >= N) continue;
-          Cr[bb * c_sb + r * c_sr + c] = Store<O>::from(cre[u][v][h]);
-          if constexpr (!REAL)
-            Ci[bb * c_sb + r * c_sr + c] = Store<O>::from(cim[u][v][h]);
-          if (mirror) {                        // C[c, r] = conj(C[r, c])
-            Cr[bb * c_sb + c * c_sr + r] = Store<O>::from(cre[u][v][h]);
-            if constexpr (!REAL)
-              Ci[bb * c_sb + c * c_sr + r] = Store<O>::from(-cim[u][v][h]);
-          }
-        }
+  } else {
+    for (int e = threadIdx.x; e < rows * COLS; e += NT) {
+      const int r = e / COLS, c = e % COLS;
+      if (KROWS && c >= cv) continue;
+      const bool ok = r < rv && c < cv;
+      cp_async<1>(d0 + 8u * (r * DLD + c), ok ? src + r * ld + c : src, ok);
     }
   }
 }
 
-// Launch the f64 tensor-core product: warp tiles of 16 x 8 (N <= 8) or
-// 16 x 32 columns for the GEMMs, 32 x 32 for the Hermitian Gram.
-template <typename O, bool TILED, bool REAL>
-int launch_zgemm_f64(const void* Ar, const void* Ai, const void* Br, const void* Bi,
-                     void* Cr, void* Ci, int64_t B, int64_t M, int64_t N, int64_t K,
-                     Operand a, Operand b, int64_t c_sb, int64_t c_sr, int herm,
-                     const TileGrid& tg, cudaStream_t s) {
-  auto go = [&](auto kernel, int tm, int tn) {
-    const int64_t tiles = ((M + 8 * tm - 1) / (8 * tm)) * ((N + 8 * tn - 1) / (8 * tn));
-    const int64_t bx = (tiles + kMmaWarps - 1) / kMmaWarps;
-    if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    kernel<<<dim3((unsigned)bx, batch_grid(B)), kMmaWarps * 32, 0, s>>>(
+bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
+
+// Shared-memory layout of a GEMM stage for NT column tiles of 8: the A
+// panel of each plane (kGemmRows x KC for N, KC x kGemmRows for T/H) and
+// the X panel of each plane (KC x SP).
+template <int NT, bool TRANS, bool REAL>
+struct GemmLayout {
+  static constexpr int SP = 8 * NT;           // columns of a pass
+  static constexpr int PL = REAL ? 1 : 2;     // planes
+  static constexpr int KC =
+      !TRANS ? kGemmNChunk : REAL ? kGemmTRealChunk : kGemmTChunk;
+  static constexpr int NS =
+      !TRANS ? kGemmNStages : REAL ? kGemmTRealStages : kGemmTStages;
+  static constexpr int ALD = TRANS ? kGemmRows + kPad : KC + kPad;
+  static constexpr int XLD = SP + kPad;
+  static constexpr int A_TILE = (TRANS ? KC : kGemmRows) * ALD;
+  static constexpr int X_TILE = KC * XLD;
+  static constexpr int STAGE = PL * (A_TILE + X_TILE);
+  static constexpr int BYTES = 8 * NS * STAGE;
+};
+
+template <typename O, int NT, bool TRANS, bool TILED, bool REAL>
+__global__ void __launch_bounds__(kGemmRows / 16 * 32, 1)
+zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
+                 const double* __restrict__ Xr, const double* __restrict__ Xi,
+                 O* __restrict__ Yr, O* __restrict__ Yi, int64_t B, int64_t m,
+                 int64_t n, int64_t S, int conj, int vec_a, int vec_x, TileGrid tg) {
+  using L = GemmLayout<NT, TRANS, REAL>;
+  constexpr int BM = kGemmRows, KC = L::KC, NS = L::NS;
+  constexpr int NTH = BM / 16 * 32, SP = L::SP, PL = L::PL;
+  extern __shared__ __align__(16) double smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // Y (B, M, S) = opA (M x K) X (K x S) per bin
+  const int64_t M = TRANS ? n : m, K = TRANS ? m : n;
+  const int64_t RTS = (M + BM - 1) / BM, SPS = (S + SP - 1) / SP;
+  const int64_t items = B * RTS * SPS, KCH = (K + KC - 1) / KC;
+  const double sgn = conj ? -1.0 : 1.0;      // conj(A): negate Im(A)
+  // A position in this block's chunk stream: item it (blockIdx.x, +
+  // gridDim.x, ...), its chunk c and the stage it goes to.  Advanced one
+  // chunk at a time, so the 64-bit divisions run once an item.
+  struct Cursor {
+    int64_t it, c, b, r0, s0;
+    int rv, sv, slot;
+    uint32_t cells;                          // tiled: the bin's row of cells
+  };
+  auto at_item = [&](Cursor& q) {
+    q.c = 0;
+    if (q.it >= items) return;
+    q.b = q.it / (RTS * SPS);
+    q.r0 = (q.it / SPS) % RTS * BM;
+    q.s0 = q.it % SPS * SP;
+    q.rv = (int)min64(BM, M - q.r0);
+    q.sv = (int)min64(SP, S - q.s0);
+    q.cells = TILED ? tile_row(tg, q.b) : 0u;
+  };
+  auto advance = [&](Cursor& q) {
+    q.slot = q.slot + 1 == NS ? 0 : q.slot + 1;
+    if (++q.c == KCH) {
+      q.it += gridDim.x;
+      at_item(q);
+    }
+  };
+  // the load cursor's chunk into its stage; one copy group a chunk (empty
+  // past the last), so the wait below counts chunks
+  auto load = [&](const Cursor& w) {
+    if (w.it < items) {
+      const int64_t k0 = w.c * KC;
+      const int kv = (int)min64(KC, K - k0);
+      double* st = smem + w.slot * L::STAGE;
+#pragma unroll
+      for (int pl = 0; pl < PL; ++pl) {
+        const double* a = (pl ? Ai : Ar) + w.b * m * n;
+        double* sa = st + pl * L::A_TILE;
+        if (TRANS)   // A's rows k0.. (k), its columns r0.. (output rows)
+          stage<KC, BM, L::ALD, NTH, true>(sa, a + k0 * n + w.r0, n, kv, w.rv, vec_a);
+        else         // A's rows r0.., its columns k0..
+          stage<BM, KC, L::ALD, NTH, false>(sa, a + w.r0 * n + k0, n, w.rv, kv, vec_a);
+        const double* x = (pl ? Xi : Xr) + (w.b * K + k0) * S + w.s0;
+        stage<KC, SP, L::XLD, NTH, true>(st + PL * L::A_TILE + pl * L::X_TILE, x, S, kv,
+                                         w.sv, vec_x);
+      }
+    }
+    cp_async_commit();
+  };
+  double acc[PL][NT][4];
+#pragma unroll
+  for (int p = 0; p < PL; ++p)
+#pragma unroll
+    for (int v = 0; v < NT; ++v)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][v][e] = 0;
+  int lv_r = 0;   // T/H tiled: the levels of the fragment rows (A's columns)
+  Cursor w, ld;                              // compute and load cursors
+  w.it = blockIdx.x;
+  w.slot = 0;
+  at_item(w);
+  ld = w;
+#pragma unroll
+  for (int f = 0; f < NS - 1; ++f) {
+    load(ld);
+    advance(ld);
+  }
+  for (; w.it < items; advance(w)) {
+    cp_async_wait<NS - 2>();         // this thread's copies of chunk w landed
+    __syncthreads();                 // everyone's; the chunk before is consumed
+    load(ld);
+    advance(ld);
+    const int64_t c = w.c;
+    const bool rows = 16 * warp < w.rv;      // whole warp: rows in its tile
+    const int r = 16 * warp + g;             // this lane's fragment rows r, r + 8
+    if (TILED && TRANS && c == 0 && rows)
+      lv_r = tile_level(tg, w.cells, min64(w.r0 + r, M - 1)) |
+             tile_level(tg, w.cells, min64(w.r0 + r + 8, M - 1)) << 2;
+    if (rows) {
+      const double* st = smem + w.slot * L::STAGE;
+      const double* sx = st + PL * L::A_TILE + g;
+#pragma unroll
+      for (int j = 0; j < KC / 4; ++j) {
+        const int kk = 4 * j + t;            // this lane's k in the chunk
+        const int o0 = TRANS ? kk * L::ALD + r : r * L::ALD + kk;
+        const int o1 = o0 + (TRANS ? 8 : 8 * L::ALD);
+        double a0r = st[o0], a1r = st[o1], a0i = 0, a1i = 0;
+        if constexpr (!REAL) {
+          a0i = st[L::A_TILE + o0];
+          a1i = st[L::A_TILE + o1];
+        }
+        if (TILED) {
+          const int lv0 = TRANS ? lv_r & 3 : tile_level(tg, w.cells, c * KC + kk);
+          tile_round(lv0, a0r, a0i);
+          tile_round(TRANS ? lv_r >> 2 : lv0, a1r, a1i);
+        }
+        if constexpr (!REAL) {
+          a0i *= sgn;
+          a1i *= sgn;
+        }
+#pragma unroll
+        for (int v = 0; v < NT; ++v) {
+          const double br = sx[kk * L::XLD + 8 * v];
+          dmma16(acc[0][v], a0r, a1r, br);
+          if constexpr (!REAL) {
+            const double bi = sx[L::X_TILE + kk * L::XLD + 8 * v];
+            dmma16(acc[0][v], -a0i, -a1i, bi);
+            dmma16(acc[1][v], a0r, a1r, bi);
+            dmma16(acc[1][v], a0i, a1i, br);
+          }
+        }
+      }
+    }
+    if (c == KCH - 1 && rows) {              // the item's last chunk: store
+#pragma unroll
+      for (int p = 0; p < PL; ++p)
+#pragma unroll
+        for (int v = 0; v < NT; ++v)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r + 8 * (e >> 1), col = 8 * v + 2 * t + (e & 1);
+            if (row < w.rv && col < w.sv)
+              (p ? Yi : Yr)[(w.b * M + w.r0 + row) * S + w.s0 + col] =
+                  Store<O>::from(acc[p][v][e]);
+            acc[p][v][e] = 0;
+          }
+    }
+  }
+}
+
+// The Gram kernel's block shape: BP x BP output tiles, 8 warps of TW
+// 32 x 16 tiles each (2 at BP = 128, 1 at 64), one staged panel of A's rows
+// (BP = 128, which runs only as a whole bin's diagonal tile) or two (the p
+// and q rows), both planes, STAGES chunks deep.  A panel holds BP rows x kGChunk k (data
+// space: rows of A along n) or kGChunk k x BP columns (parameter space:
+// rows of A along n = p).
+template <int BP>
+struct GramLayout {
+  static constexpr int WARPS = 8, TW = BP == 128 ? 2 : 1;
+  static constexpr int PANELS = BP == 128 ? 1 : 2;
+  static constexpr int STAGES = BP == 128 ? 4 : 2;
+  static constexpr int DATA_LD = kGChunk + kPad, PARAM_LD = BP + kPad;
+  static constexpr int PANEL = BP * DATA_LD > kGChunk * PARAM_LD ? BP * DATA_LD
+                                                                 : kGChunk * PARAM_LD;
+  static constexpr int STAGE = PANELS * 2 * PANEL;
+  static constexpr int BYTES = 8 * STAGES * STAGE;
+};
+
+// BP = 128's 32 x 16 tiles (i, j) (rows 32 i, columns 16 j): the 16 with
+// entries on or above the diagonal for P <= 112.  Warp w takes tiles w
+// and w + 8, so that the four SM sub-partitions (warp % 4) get 12-13 of the
+// 49 m16 x n8 sub-tiles each at P = 100.
+__constant__ unsigned char kGramTiles128[16][2] = {
+    {0, 1}, {0, 2}, {0, 3}, {0, 4}, {0, 5}, {1, 3}, {1, 4}, {1, 5},
+    {0, 0}, {0, 6}, {1, 2}, {2, 5}, {1, 6}, {2, 4}, {2, 6}, {3, 6}};
+
+template <typename O, int BP, bool DATA, bool TILED>
+__global__ void __launch_bounds__(GramLayout<BP>::WARPS * 32, 1)
+zgram_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
+                 O* __restrict__ Gr, O* __restrict__ Gi, int64_t B, int64_t m,
+                 int64_t n, int vec, TileGrid tg) {
+  using L = GramLayout<BP>;
+  constexpr int KC = kGChunk, NTH = L::WARPS * 32, TW = L::TW;
+  // staged element (panel row r, k) at r * SR + k * SK
+  constexpr int SR = DATA ? L::DATA_LD : 1, SK = DATA ? 1 : L::PARAM_LD;
+  // imaginary signs: data opA = A, opB = A^H; parameter opA = A^H, opB = A
+  constexpr double SA = DATA ? 1.0 : -1.0, SB = -SA;
+  extern __shared__ __align__(16) double smem[];
+  const int64_t P = DATA ? m : n, K = DATA ? n : m;
+  // this block's tile (pt, qt), pt <= qt, in row-major order of the upper
+  // triangle of T x T tiles
+  const int T = (int)((P + BP - 1) / BP);
+  int pt = 0, x = blockIdx.x;
+  while (x >= T - pt) {
+    x -= T - pt;
+    ++pt;
+  }
+  const int qt = pt + x;
+  const bool diag = pt == qt;
+  const int64_t p0 = (int64_t)pt * BP, q0 = (int64_t)qt * BP;
+  const int pv = (int)min64(BP, P - p0), qv = (int)min64(BP, P - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this warp's tiles (i, j) and, for each, the m16 x n8 sub-tiles (u, v)
+  // to compute: inside G, and on a diagonal tile not wholly below the
+  // diagonal; bit 2 u + v
+  int ti[TW], tj[TW];
+  uint32_t need[TW];
+#pragma unroll
+  for (int w = 0; w < TW; ++w) {
+    ti[w] = BP == 128 ? kGramTiles128[warp + 8 * w][0] : warp >> 2;
+    tj[w] = BP == 128 ? kGramTiles128[warp + 8 * w][1] : warp & 3;
+    need[w] = 0;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int r = 32 * ti[w] + 16 * u, c = 16 * tj[w] + 8 * v;
+        if (r < pv && c < qv && (!diag || c + 7 >= r)) need[w] |= 1u << (2 * u + v);
+      }
+  }
+  const int64_t chunks = (K + KC - 1) / KC;
+  for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
+    const double* base_r = Ar + b * m * n;
+    const double* base_i = Ai + b * m * n;
+    const uint32_t cells = TILED ? tile_row(tg, b) : 0u;
+    // parameter space, tiled: the levels of each tile's fragment rows (opA:
+    // A's columns p) and columns (opB: q), fixed over k, 2 bits each
+    uint32_t lv_pq[TW];
+#pragma unroll
+    for (int w = 0; w < TW; ++w) {
+      lv_pq[w] = 0;
+      if (TILED && !DATA) {
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          lv_pq[w] |= (uint32_t)tile_level(tg, cells,
+                                           min64(p0 + 32 * ti[w] + 8 * h + g, P - 1))
+                      << (2 * h);
+#pragma unroll
+        for (int v = 0; v < 2; ++v)
+          lv_pq[w] |= (uint32_t)tile_level(tg, cells,
+                                           min64(q0 + 16 * tj[w] + 8 * v + g, P - 1))
+                      << (8 + 2 * v);
+      }
+    }
+    auto load = [&](int64_t c) {
+      if (c < chunks) {
+        double* st = smem + (c % L::STAGES) * L::STAGE;
+        const int64_t k0 = c * KC;
+        const int kv = (int)min64(KC, K - k0);
+#pragma unroll
+        for (int panel = 0; panel < L::PANELS; ++panel) {
+          if (panel && diag) break;            // one panel serves both sides
+          const int64_t r0 = panel ? q0 : p0;
+          const int rv = panel ? qv : pv;
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl) {
+            double* dst = st + (2 * panel + pl) * L::PANEL;
+            const double* src = pl ? base_i : base_r;
+            if (DATA)
+              stage<BP, KC, L::DATA_LD, NTH, false>(dst, src + r0 * n + k0, n, rv, kv,
+                                                    vec);
+            else
+              stage<KC, BP, L::PARAM_LD, NTH, true>(dst, src + k0 * n + r0, n, kv, rv,
+                                                    vec);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    double cre[TW][2][2][4], cim[TW][2][2][4];
+#pragma unroll
+    for (int w = 0; w < TW; ++w)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cre[w][u][v][e] = cim[w][u][v][e] = 0;
+#pragma unroll
+    for (int c = 0; c < L::STAGES - 1; ++c) load(c);
+    for (int64_t c = 0; c < chunks; ++c) {
+      cp_async_wait<L::STAGES - 2>();
+      __syncthreads();
+      load(c + L::STAGES - 1);
+      const double* pp = smem + (c % L::STAGES) * L::STAGE;   // p rows
+      const double* qq = pp + (diag ? 0 : 2 * L::PANEL);      // q rows
+#pragma unroll
+      for (int jj = 0; jj < KC / 4; ++jj) {
+        const int kk = 4 * jj + t;
+        const int lv_k = TILED && DATA ? tile_level(tg, cells, c * KC + kk) : 2;
+#pragma unroll
+        for (int w = 0; w < TW; ++w)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if (!(need[w] & (3u << (2 * u)))) continue;   // row tile u unused
+            double ar[2], ai[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int off = (32 * ti[w] + 16 * u + 8 * h + g) * SR + kk * SK;
+              ar[h] = pp[off];
+              ai[h] = SA * pp[L::PANEL + off];
+              if (TILED)
+                tile_round(DATA ? lv_k : (int)(lv_pq[w] >> (2 * (2 * u + h))) & 3,
+                           ar[h], ai[h]);
+            }
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              if (!(need[w] & (1u << (2 * u + v)))) continue;
+              const int off = (16 * tj[w] + 8 * v + g) * SR + kk * SK;
+              double br = qq[off], bi = SB * qq[L::PANEL + off];
+              if (TILED)
+                tile_round(DATA ? lv_k : (int)(lv_pq[w] >> (8 + 2 * v)) & 3, br, bi);
+              dmma16(cre[w][u][v], ar[0], ar[1], br);
+              dmma16(cre[w][u][v], -ai[0], -ai[1], bi);
+              dmma16(cim[w][u][v], ar[0], ar[1], bi);
+              dmma16(cim[w][u][v], ai[0], ai[1], br);
+            }
+          }
+      }
+    }
+    cp_async_wait<0>();
+    // this bin's G from this block's tile origin: (r, c) of the tile at
+    // r * P + c, (c, r) at c * P + r (P^2 < 2^31, checked at launch)
+    const int Pi = (int)P;
+    O* gr = Gr + (b * P + p0) * P + q0;
+    O* gi = Gi + (b * P + p0) * P + q0;
+    O* hr = Gr + (b * P + q0) * P + p0;
+    O* hi = Gi + (b * P + q0) * P + p0;
+#pragma unroll
+    for (int w = 0; w < TW; ++w)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          if (!(need[w] & (1u << (2 * u + v)))) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 32 * ti[w] + 16 * u + g + 8 * (e >> 1);
+            const int c = 16 * tj[w] + 8 * v + 2 * t + (e & 1);
+            if (r >= pv || c >= qv || (diag && r > c)) continue;
+            gr[r * Pi + c] = Store<O>::from(cre[w][u][v][e]);
+            gi[r * Pi + c] = Store<O>::from(cim[w][u][v][e]);
+            if (!diag || r < c) {              // G[q, p] = conj(G[p, q])
+              hr[c * Pi + r] = Store<O>::from(cre[w][u][v][e]);
+              hi[c * Pi + r] = Store<O>::from(-cim[w][u][v][e]);
+            }
+          }
+        }
+    __syncthreads();   // the stages are free before the next bin's copies
+  }
+}
+
+// Launch the staged GEMM: N (TRANS false, Y (B, m, S) = A X) or T/H (Y
+// (B, n, S) = A^T X, A^H X with conj), passes of 8, 16 or 32 columns, as
+// many persistent blocks as fit on the card at once.
+template <typename O, bool TRANS, bool TILED, bool REAL>
+int launch_gemm_f64(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
+                    void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
+                    int conj, const TileGrid& tg, int device, cudaStream_t s) {
+  const int vec_a = n % 2 == 0 && aligned16(Ar) && aligned16(Ai);
+  const int vec_x = S % 2 == 0 && aligned16(Xr) && aligned16(Xi);
+  const int64_t M = TRANS ? n : m;
+  if ((TRANS ? m : n) == 0) {              // an empty sum: Y = 0
+    const size_t bytes = (size_t)(B * M * S) * sizeof(O);
+    cudaError_t e = cudaMemsetAsync(Yr, 0, bytes, s);
+    if (e == cudaSuccess && !REAL) e = cudaMemsetAsync(Yi, 0, bytes, s);
+    return (int)e;
+  }
+  auto go = [&](auto kernel, int nt, int bytes) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    int sms = 0, per_sm = 0;
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kGemmRows / 16 * 32, bytes);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const int64_t items =
+        B * ((M + kGemmRows - 1) / kGemmRows) * ((S + 8 * nt - 1) / (8 * nt));
+    const int64_t grid = min64(items, (int64_t)sms * per_sm);
+    kernel<<<(unsigned)grid, kGemmRows / 16 * 32, bytes, s>>>(
         static_cast<const double*>(Ar), static_cast<const double*>(Ai),
-        static_cast<const double*>(Br), static_cast<const double*>(Bi),
-        static_cast<O*>(Cr), static_cast<O*>(Ci), B, M, N, K, a, b, c_sb, c_sr,
-        herm, tg);
+        static_cast<const double*>(Xr), static_cast<const double*>(Xi),
+        static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj, vec_a, vec_x, tg);
     return (int)cudaGetLastError();
   };
-  if constexpr (!REAL)        // the real products are never Hermitian
-    if (herm) return go(zgemm_f64_kernel<O, 4, 4, TILED, REAL>, 4, 4);
-  if (N <= 8) return go(zgemm_f64_kernel<O, 2, 1, TILED, REAL>, 2, 1);
-  return go(zgemm_f64_kernel<O, 2, 4, TILED, REAL>, 2, 4);
+  if (S <= 8)
+    return go(zgemm_f64_kernel<O, 1, TRANS, TILED, REAL>, 1,
+              GemmLayout<1, TRANS, REAL>::BYTES);
+  if (S <= 16)
+    return go(zgemm_f64_kernel<O, 2, TRANS, TILED, REAL>, 2,
+              GemmLayout<2, TRANS, REAL>::BYTES);
+  return go(zgemm_f64_kernel<O, 4, TRANS, TILED, REAL>, 4,
+            GemmLayout<4, TRANS, REAL>::BYTES);
+}
+
+// Launch the staged Gram kernel: one 128 x 128 block a bin for
+// 64 < P <= 112, else 64 x 64 blocks on and above the diagonal.
+template <typename O, bool TILED>
+int launch_gram_f64(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
+                    int64_t m, int64_t n, int data, const TileGrid& tg,
+                    cudaStream_t s) {
+  const int64_t P = data ? m : n;
+  const int vec = n % 2 == 0 && aligned16(Ar) && aligned16(Ai);
+  if (P * P > 0x7fffffff) return (int)cudaErrorInvalidValue;   // a bin's G: int offsets
+  auto go = [&](auto kernel, int64_t bp, int warps, int bytes) {
+    const int64_t T = (P + bp - 1) / bp, tiles = T * (T + 1) / 2;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3((unsigned)tiles, batch_grid(B)), warps * 32, bytes, s>>>(
+        static_cast<const double*>(Ar), static_cast<const double*>(Ai),
+        static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, vec, tg);
+    return (int)cudaGetLastError();
+  };
+  if (P > 64 && P <= 112)
+    return data ? go(zgram_f64_kernel<O, 128, true, TILED>, 128, GramLayout<128>::WARPS,
+                     GramLayout<128>::BYTES)
+                : go(zgram_f64_kernel<O, 128, false, TILED>, 128, GramLayout<128>::WARPS,
+                     GramLayout<128>::BYTES);
+  return data ? go(zgram_f64_kernel<O, 64, true, TILED>, 64, GramLayout<64>::WARPS,
+                   GramLayout<64>::BYTES)
+              : go(zgram_f64_kernel<O, 64, false, TILED>, 64, GramLayout<64>::WARPS,
+                   GramLayout<64>::BYTES);
 }
 
 // Y (B, m, S) = A (B, m, n) X (B, n, S); REAL: the planes Ar, Xr, Yr only.
@@ -606,12 +1017,10 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
   if (e != cudaSuccess) return (int)e;
   if (B == 0 || m == 0 || S == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dt_in == DT_F64) {                     // opA = A, opB = X
+  if (dt_in == DT_F64) {
     DISPATCH_DTYPE(dt_out, O,
-      return launch_zgemm_f64<O, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, S, n,
-                                              Operand{m * n, n, 1, 1.0, 2},
-                                              Operand{n * S, S, 1, 1.0, 0},
-                                              m * S, S, 0, tg, s);
+      return launch_gemm_f64<O, false, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S,
+                                                    0, tg, device, s);
     )
   }
   const int64_t rows = kNWarps * kNRows;     // output rows of a block
@@ -636,12 +1045,10 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
   if (e != cudaSuccess) return (int)e;
   if (B == 0 || n == 0 || S == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dt_in == DT_F64) {                     // opA = A^T (conj: A^H), opB = X
+  if (dt_in == DT_F64) {
     DISPATCH_DTYPE(dt_out, O,
-      return launch_zgemm_f64<O, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, n, S, m,
-                                              Operand{m * n, 1, n, conj ? -1.0 : 1.0, 1},
-                                              Operand{m * S, S, 1, 1.0, 0}, n * S, S, 0,
-                                              tg, s);
+      return launch_gemm_f64<O, true, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S,
+                                                   conj, tg, device, s);
     )
   }
   const int64_t bx = (n + kThreads - 1) / kThreads;
@@ -657,8 +1064,9 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
 }
 
 // G = A^H A, (B, n, n), or with data != 0 G = A A^H, (B, m, m).  The tiles
-// below the diagonal are the conjugates of those above; the diagonal tiles
-// are not symmetrized (the wrapper does that).
+// below the diagonal are the conjugates of those above; the vector kernel's
+// diagonal tiles, and the f64 kernel's diagonal entries, are not
+// symmetrized (ops.sbgemm_gram does that).
 template <bool TILED>
 int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
                 int64_t m, int64_t n, int data, const TileGrid& tg, int dt_in,
@@ -669,15 +1077,8 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
   if (B == 0 || P == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (dt_in == DT_F64) {
-    // parameter: opA[p][i] = conj(A[i, p]), opB[i][q] = A[i, q];
-    // data: opA[p][j] = A[p, j], opB[j][q] = conj(A[q, j])
-    const Operand a = data ? Operand{m * n, n, 1, 1.0, 2}
-                           : Operand{m * n, 1, n, -1.0, 1};
-    const Operand b = data ? Operand{m * n, 1, n, -1.0, 1}
-                           : Operand{m * n, n, 1, 1.0, 2};
     DISPATCH_DTYPE(dt_out, O,
-      return launch_zgemm_f64<O, TILED, false>(Ar, Ai, Ar, Ai, Gr, Gi, B, P, P,
-                                               data ? n : m, a, b, P * P, P, 1, tg, s);
+      return launch_gram_f64<O, TILED>(Ar, Ai, Gr, Gi, B, m, n, data, tg, s);
     )
   }
   const int64_t tiles = (P + kTile - 1) / kTile;

@@ -25,16 +25,32 @@ def rms_norm(x, gamma, eps: float = 1e-5):
     return (h * scale).to(x.dtype) * gamma.to(x.dtype)
 
 
+def matmul_f32(x, w):
+    """x @ w(cast to x's dtype) with f32 sums and an f32 result, as the
+    reference's ``preferred_element_type=F32``.  For bf16/f16 operands the
+    device decides how: on the card the f32-output product
+    (``torch.mm(..., out_dtype=torch.float32)``, which runs or raises); on
+    the CPU, which has no kernel for that overload, the operands widened
+    to f32 and an f32 product.  A bf16 x bf16 product is exact in f32, so
+    both compute the same f32-summed function."""
+    w = w.to(x.dtype)
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return torch.matmul(x, w).to(F32)
+    if x.device.type == "cpu":
+        return torch.matmul(x.to(F32), w.to(F32))
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def dense(x, w, b=None):
-    """x @ w (+ b) in x's dtype.  The reference adds the bias to the f32
-    product and rounds once; ``torch.matmul`` on bf16 rounds the product
-    first, so at bf16 the bias is added after one more rounding (within
-    the bf16 tolerance; at f32 the two agree).  These products lie
-    outside any kernel of the reference, so they stay ``torch.matmul``."""
-    y = torch.matmul(x, w.to(x.dtype))
-    if b is not None:
-        y = (y.to(F32) + b.to(F32)).to(x.dtype)
-    return y
+    """x @ w (+ b) in x's dtype.  With a bias, as in the reference, the
+    bias is added to the f32 product and the sum rounded once to x's
+    dtype; without one, ``torch.matmul`` rounds its f32 sums once.  These
+    products lie outside any kernel of the reference, so they stay
+    library products."""
+    if b is None:
+        return torch.matmul(x, w.to(x.dtype))
+    return (matmul_f32(x, w) + b.to(F32)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

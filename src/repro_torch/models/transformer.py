@@ -181,12 +181,12 @@ def embed_tokens(cfg: ModelConfig, params: Transformer, tokens,
 
 
 def unembed(cfg: ModelConfig, params: Transformer, h):
-    """Logits at the policy's logits dtype.  The reference keeps the f32
-    sums of the head product; here the product is taken in the compute
-    dtype (one more rounding at bf16), as ``layers.dense`` explains."""
+    """Logits at the policy's logits dtype: the f32 sums of the head
+    product in the compute dtype (``layers.matmul_f32``), cast once, as
+    the reference."""
     x = L.rms_norm(h, params.ln_f, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return torch.matmul(x, head.to(x.dtype)).to(cfg.policy.l())
+    return L.matmul_f32(x, head).to(cfg.policy.l())
 
 
 def _positions(B: int, S: int, start: int, device):

@@ -1,8 +1,10 @@
 """The port's transformer primitives (``repro_torch.models.layers``) on the
 CPU, against the JAX package's ``repro.models.layers``: the same numpy
 inputs through both.  Tolerances: 1e-5 at f32 (two summation orders);
-2e-2 at bf16, where ``dense`` rounds its product before adding a bias
-(one bf16 ulp) and the frameworks round elementwise steps alike.
+2e-2 at bf16, where the two frameworks' f32 sums may round to
+neighbouring bf16 values.  ``dense`` with a bias is also held at bf16 on
+inputs whose products and sums are exact in f32, where both must give
+the same single rounding of (sum + bias) to bf16.
 """
 
 import jax.numpy as jnp
@@ -53,6 +55,40 @@ def test_dense(rng, dt, with_bias):
     got = L.dense(x, w, b)
     assert got.dtype == tdt
     _close(got, JL.dense(jx, jw, jb), tol)
+
+
+@pytest.mark.parametrize("d_in,d_out", [(32, 24), (64, 80)])
+def test_dense_bias_rounds_once(rng, d_in, d_out):
+    """At the default policy (bf16 compute) the bias is added to the f32
+    sums and rounded once, as the reference does.  x and w are small
+    dyadic numbers, so every product and partial sum is exact in f32 and
+    the summation order cannot matter: the two frameworks must agree to
+    f32 resolution (1e-5 of max |y|), far below one bf16 step.  Rounding
+    the product to bf16 before adding the bias misses by a bf16 step."""
+    x = rng.integers(-8, 9, (2, 5, d_in)) / 4
+    w = rng.integers(-16, 17, (d_in, d_out)) / 8
+    b = rng.standard_normal(d_out)
+    (tx, jx), (tw, jw), (tb, jb) = (
+        _pair(x, torch.bfloat16, jnp.bfloat16),
+        _pair(w, torch.float32, jnp.float32),
+        _pair(b, torch.float32, jnp.float32))
+    got = L.dense(tx, tw, tb)
+    want = np.asarray(JL.dense(jx, jw, jb), np.float32)
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert err <= 1e-5, err
+
+
+def test_matmul_f32_keeps_the_f32_sums(rng):
+    """``matmul_f32`` on bf16 operands equals the f64 product of the same
+    bf16 values to f32 resolution (on the CPU: widened operands)."""
+    x = torch.from_numpy(rng.standard_normal((3, 7, 48))).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((48, 40)) / 7).float()
+    got = L.matmul_f32(x, w)
+    want = x.double() @ w.to(torch.bfloat16).double()
+    assert got.dtype == torch.float32 and got.shape == (3, 7, 40)
+    err = (got.double() - want).abs().max() / want.abs().max()
+    assert err <= 1e-6, err
 
 
 def test_rope(rng, dt):

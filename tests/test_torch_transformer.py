@@ -7,7 +7,9 @@ on the same tokens.  Bounds: at ``FULL_F32`` the reference's own
 ``test_decode_matches_forward_dense`` bound, 2e-4 (rtol and atol); at the
 default policy (bf16 compute) the largest logit difference within 3e-2 of
 the largest |logit| at 2 layers (bf16 rounds at other places in the two
-frameworks; see ``layers.dense``).  The reference cannot run a decode
+frameworks).  The head itself (``unembed``) keeps the f32 sums at the
+default policy as the reference does: on the same hidden state the two
+agree within 1e-5 of the largest |logit|.  The reference cannot run a decode
 step with ``attn_impl="flash"`` (its dispatch tests a traced position),
 so the port's flash decode is held against the reference's chunked
 decode, which computes the same function.
@@ -23,6 +25,7 @@ import torch
 
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import api as japi
+from repro.models import transformer as jtransformer
 from repro.models.policy import FULL_F32 as JAX_F32
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import lm_params_from_numpy
@@ -133,6 +136,26 @@ def test_forward_prefill_decode_match_jax(arch, impl, f32):
             jl, jcache = jdec(params, jcache, jnp.asarray(tok))
             _assert_logits(tl, jl, f32)
         assert cache["pos"] == S + 2
+
+
+@pytest.mark.parametrize("arch", ["qwen1p5_0p5b", "llama3_405b"])
+def test_unembed_keeps_f32_sums_at_the_default_policy(arch):
+    """Tied (qwen) and untied (llama) heads at the default policy: the
+    port's logits against the reference's on the same bf16 hidden state,
+    at f32-summation resolution (rel 1e-5 of max |logit|).  Logits rounded
+    to bf16 miss this by two orders of magnitude."""
+    jc, tc = _cfgs(arch, "chunked", False)
+    params, model = _weights(arch, False)
+    h = np.random.default_rng(5).standard_normal((2, 9, tc.d_model))
+    th = torch.from_numpy(h.astype(np.float32)).to(torch.bfloat16)
+    jh = jnp.asarray(h.astype(np.float32)).astype(jnp.bfloat16)
+    with torch.inference_mode():
+        got = transformer.unembed(tc, model, th)
+    want = np.asarray(jax.jit(lambda p, x: jtransformer.unembed(jc, p, x))(
+        params, jh), np.float32)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert err <= 1e-5, err
 
 
 @pytest.mark.parametrize("impl", ["flash", "chunked", "block_causal"])
