@@ -97,7 +97,19 @@ CUDA toolkit.  It:
    spaces, the tiled and the real builds: each against its plain version,
    each tiled build bit for bit against its untiled one on quantized
    planes.  ddddd ``matmat``/``rmatmat`` at S = 32 and the G_hat setup are
-   printed as ratios to the plain path (reported, not gated).
+   printed as ratios to the plain path (reported, not gated);
+9. the bf16 tensor-core kernels (the N product and the Gram of bf16
+   planes): their ``ptxas`` registers and spill bytes, and ragged shapes
+   across their edges (m = 15, 16, 17, 100, 129 with odd n, n % 8 != 0 and
+   n shorter than one k-chunk at S = 1 .. 40; the Gram at P = 31 .. 300
+   in both spaces), bf16 and f32 outputs, each against its plain version
+   at the h tolerance.  ``hhhhh`` and ``shhss`` ``matmat``/``rmatmat`` at
+   S = 32 and the ``hhhhh`` circulant G_hat setup (against ``torch-ref``
+   at the h tolerance) are timed beside the plain path, and the bf16
+   Gram's library call once more with its re/im combine (reported, not
+   gated).  Both kernels are also built without their products and
+   without their copies and timed at the paper shape, so the side that
+   bounds each is measured (reported, not gated).
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -274,16 +286,30 @@ def _library(Ar, Ai, x_re, x_im, mode):
     return lambda _: torch.bmm(Ac.mT, xc)
 
 
-def _library_gram(Ar, Ai, data: bool):
+def _library_gram(Ar, Ai, data: bool, combine: bool = False):
     """One torch.bmm for the Gram blocks: A A^H (data) or A^H A on complex
     tensors at f32/f64; at bf16 the stacked real planes against
-    themselves, which gives all four real products (combine left out)."""
+    themselves, which gives all four real products (with ``combine``, then
+    the two adds that make G's planes from them)."""
     if Ar.dtype == torch.bfloat16:
+        P = Ar.shape[1] if data else Ar.shape[2]
         if data:
             As = torch.cat([Ar, Ai], dim=1)              # (B, 2m, n)
-            return lambda _: torch.bmm(As, As.mT)
-        As = torch.cat([Ar, Ai], dim=2)                  # (B, m, 2n)
-        return lambda _: torch.bmm(As.mT, As)
+            prod = lambda: torch.bmm(As, As.mT)
+        else:
+            As = torch.cat([Ar, Ai], dim=2)              # (B, m, 2n)
+            prod = lambda: torch.bmm(As.mT, As)
+        if not combine:
+            return lambda _: prod()
+
+        def combined(_):
+            # [[rr, ri], [ir, ii]]: Gr = rr + ii; Gi = ir - ri (data),
+            # ri - ir (parameter)
+            G = prod()
+            rr, ii = G[:, :P, :P], G[:, P:, P:]
+            ri, ir = G[:, :P, P:], G[:, P:, :P]
+            return rr + ii, (ir - ri) if data else (ri - ir)
+        return combined
     Ac = torch.complex(Ar, Ai)
     if data:
         return lambda _: torch.bmm(Ac, Ac.mH)
@@ -428,14 +454,125 @@ def check_gram_kernel(dev, B, m, n, spaces, timed, results, time_fn):
             flops = 4 * B * P * (P + 1) * K
             b_ms, b_by = bound_ms(nbytes, flops, name(dt))
             lib = _library_gram(Ar, Ai, data)
-            results["sbgemm_gram_complex"][f"{name(dt)} {space}"] = {
+            row = results["sbgemm_gram_complex"][f"{name(dt)} {space}"] = {
                 "shape": [B, m, n], "space": space, "max_abs_err": err,
                 "ms": time_fn(kfn, None), "plain_ms": time_fn(pfn, None),
                 "library_ms": time_fn(lib, None),
                 "bytes": nbytes, "flops": flops,
                 "bound_ms": b_ms, "bound_by": b_by}
+            if dt == torch.bfloat16:
+                # the stacked bmm leaves out the re/im combine; with it, the
+                # library does the kernel's whole function
+                lib = _library_gram(Ar, Ai, data, combine=True)
+                e = max(rel(g, w) for g, w in zip(lib(None), pfn(None)))
+                if not e <= TOL["h"]:
+                    fail(f"{what}: library with combine differs, rel {e:.3e}")
+                row["library_combine_ms"] = time_fn(lib, None)
+                print(f"  bf16 Gram {row['ms']:.4f} ms, bmm "
+                      f"{row['library_ms']:.4f}, bmm + combine "
+                      f"{row['library_combine_ms']:.4f}", flush=True)
             del lib
         del Ar, Ai
+
+
+def check_bf16_tensor_core_kernels(dev):
+    """The bf16 tensor-core kernels (untiled complex N and Gram of bf16
+    planes) at ragged shapes across their edges: m around the 16-row warp
+    tiles and the 112-row item, n odd (element copies), n % 8 != 0, n
+    shorter than one 64-wide k-chunk and n over several chunks with a
+    ragged last one (16-byte copies), S across the 8/16/32 passes; the
+    Gram at P around its 16-row tiles, its 112-row tile and its 64-row
+    off-diagonal halves, in both spaces.  bf16 and f32 outputs, each
+    against its plain version at the h tolerance."""
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    dt = torch.bfloat16
+
+    def planes(*shape):
+        return [torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float64).to(dt) for _ in range(2)]
+
+    n_n = n_g = 0
+    for m in (15, 16, 17, 100, 129):
+        for n in (133, 130, 40, 264):
+            A = planes(2, m, n)
+            for S in (1, 8, 9, 16, 17, 32, 33, 40):
+                X = planes(2, n, S)
+                for od in (dt, torch.float32):
+                    check_planes(f"sbgemm_n_complex bf16 -> {name(od)} at "
+                                 f"{(2, m, n, S)}",
+                                 sk.sbgemm_n_complex(*A, *X, out_dtype=od),
+                                 sk.sbgemm_n_complex_plain(*A, *X, od), dt)
+                    n_n += 1
+    for P in (31, 64, 100, 112, 113, 128, 129, 300):
+        for space in ("data", "parameter"):
+            data = space == "data"
+            for K in (7, 77, 264):
+                m, n = (P, K) if data else (K, P)
+                A = planes(2, m, n)
+                for od in (dt, torch.float32):
+                    check_planes(f"sbgemm_gram_complex {space} bf16 -> "
+                                 f"{name(od)} at {(2, m, n)}",
+                                 sk.sbgemm_gram_complex(*A, data=data,
+                                                        out_dtype=od),
+                                 sk.sbgemm_gram_complex_plain(*A, data, od),
+                                 dt)
+                    n_g += 1
+    sync(dev)
+    print(f"bf16 tensor-core kernels: {n_n} N and {n_g} Gram calls at ragged "
+          f"shapes within {TOL['h']:g} of their plain versions", flush=True)
+
+
+# measurement builds of csrc/sbgemm.cu: the bf16 tensor-core kernels with
+# one side compiled out (csrc/sbgemm_bf16.cuh)
+BOUND_PROBES = {"no_mma_ms": ("SBGEMM_BF16_NO_MMA",),
+                "no_copy_ms": ("SBGEMM_BF16_NO_COPY",)}
+
+
+def probe_bf16_bounds(dev, B, m, n, time_fn):
+    """The bf16 tensor-core kernels at the paper shape, each built as the
+    wrappers load it, without its products (the copy pipeline and the
+    fragment loads alone) and without its copies (the products alone, on
+    whatever shared memory holds): the slower one-sided build names the
+    side that bounds the kernel.  Called through the C entries, so no
+    launch is counted.  Reported, not gated."""
+    from repro_torch.kernels import _build
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    dt = torch.bfloat16
+    code = _build.DTYPE_CODES[dt]
+
+    def planes(*shape, fill=True):
+        return [torch.randn(shape, generator=gen, device=dev).to(dt) if fill
+                else torch.empty(shape, device=dev, dtype=dt)
+                for _ in range(2)]
+
+    A = planes(B, m, n)
+    cases = {"sbgemm_gram_complex data": (
+        "sbgemm_gram_complex", (*A, *planes(B, m, m, fill=False)), (B, m, n),
+        (1,))}
+    for S in (S_BLOCK, S_WIDE):
+        cases[f"sbgemm_n_complex S={S}"] = (
+            "sbgemm_n_complex", (*A, *planes(B, n, S),
+                                 *planes(B, m, S, fill=False)), (B, m, n, S),
+            ())
+    out = {}
+    for what, (entry, tensors, sizes, ints) in cases.items():
+        ptrs = [t.data_ptr() for t in tensors]
+        row = out[what] = {}
+        for label, defines in (("ms", ()), *BOUND_PROBES.items()):
+            fn = getattr(_build.library("sbgemm", defines), entry)
+
+            def call(_, fn=fn):
+                _build.check(fn(*ptrs, *sizes, *ints, code, code, dev.index,
+                                _build.stream_of(A[0])), entry)
+            row[label] = time_fn(call, None)
+        row["bound_side"] = ("tensor cores" if row["no_copy_ms"]
+                             > row["no_mma_ms"] else "copies")
+        print(f"{what} bf16: {row['ms']:.4f} ms; without products "
+              f"{row['no_mma_ms']:.4f}, without copies "
+              f"{row['no_copy_ms']:.4f}: bound by the {row['bound_side']}",
+              flush=True)
+    return out
 
 
 def check_tiled_kernels(dev, B, m, n, S_list, modes, timed, results, time_fn):
@@ -829,7 +966,7 @@ def drive_block_path(dev, N_t, N_d, N_m, timed, time_fn, report):
         Dw = torch.randn((N_d, N_t, S_WIDE), generator=gen, device=dev,
                          dtype=torch.float64)
         wide = {}
-        for c in ("ddddd", "dssdd"):
+        for c in ("ddddd", "dssdd", "hhhhh", "shhss"):
             t = {"matmat_ms": time_fn(ops[c].matmat, Mw),
                  "rmatmat_ms": time_fn(ops[c].rmatmat, Dw)}
             t["matmat_per_rhs_ms"] = t["matmat_ms"] / S_WIDE
@@ -841,7 +978,7 @@ def drive_block_path(dev, N_t, N_d, N_m, timed, time_fn, report):
         # the same entry points with Phase 3 on the plain PyTorch
         # contraction, for the end-to-end cost of the kernels
         plain = {}
-        for c in ("ddddd", "dssdd"):
+        for c in ("ddddd", "dssdd", "hhhhh", "shhss"):
             op_p = plain_path(ops[c])
             for Sx, Mx, Dx in ((S, M, D), (S_WIDE, Mw, Dw)):
                 t = {"matmat_ms": time_fn(op_p.matmat, Mx),
@@ -852,16 +989,17 @@ def drive_block_path(dev, N_t, N_d, N_m, timed, time_fn, report):
         block["times_plain_path"] = plain
         # the kernel path's time over the plain path's (reported, not gated)
         ratios = {}
-        for c in ("ddddd", "dssdd"):
+        for c in ("ddddd", "dssdd", "hhhhh", "shhss"):
             for Sx, kt in ((S, times[c]), (S_WIDE, wide[c])):
                 pt = plain[f"{c} S={Sx}"]
                 ratios[f"{c} S={Sx}"] = {
                     op: kt[f"{op}_ms"] / pt[f"{op}_ms"]
                     for op in ("matmat", "rmatmat")}
         block["ratio_to_plain_path"] = ratios
-        r = ratios[f"ddddd S={S_WIDE}"]
-        print(f"ddddd S={S_WIDE}: matmat {r['matmat']:.3f}x, rmatmat "
-              f"{r['rmatmat']:.3f}x the plain path", flush=True)
+        for c in ("ddddd", "hhhhh", "shhss"):
+            r = ratios[f"{c} S={S_WIDE}"]
+            print(f"{c} S={S_WIDE}: matmat {r['matmat']:.3f}x, rmatmat "
+                  f"{r['rmatmat']:.3f}x the plain path", flush=True)
     return op_d
 
 
@@ -974,6 +1112,36 @@ def drive_circulant(dev, op_d, timed, time_fn, report):
               f"{out['setup_plain_path_ms']:.3f}: "
               f"{out['setup_ratio_to_plain_path']:.3f}x), action "
               f"{out['apply_ms']:.3f} ms", flush=True)
+
+    # hhhhh: G_hat from bf16 F_hat through the bf16 tensor-core Gram
+    from repro_torch.core import TPU_FAST
+    op_h = op_d.with_precision(TPU_FAST)
+    _build.reset_launch_counts()
+    circ_h = GramOperator.from_matvec(op_h, space="data", mode="circulant")
+    sync(dev)
+    check_launches(dict(_build.launch_counts), {"sbgemm_gram_complex": 1})
+    ref_h = GramOperator.from_matvec(op_h.with_backend("torch-ref"),
+                                     space="data", mode="circulant")
+    e_h = max(rel(circ_h.G_hat_re, ref_h.G_hat_re),
+              rel(circ_h.G_hat_im, ref_h.G_hat_im))
+    hh = out["hhhhh"] = {"G_hat_vs_ref": e_h}
+    print(f"circulant G_hat hhhhh: vs torch-ref {e_h:.3e} (<= {TOL['h']:g})",
+          flush=True)
+    if not e_h <= TOL["h"]:
+        fail(f"hhhhh circulant G_hat vs torch-ref {e_h:.3e} > {TOL['h']:g}")
+    del circ_h, ref_h
+    if timed:
+        hh["setup_ms"] = time_fn(
+            lambda _: GramOperator.from_matvec(op_h, space="data",
+                                               mode="circulant"), None)
+        hh["setup_plain_path_ms"] = time_fn(
+            lambda _: GramOperator.from_matvec(plain_path(op_h), space="data",
+                                               mode="circulant"), None)
+        hh["setup_ratio_to_plain_path"] = (hh["setup_ms"]
+                                           / hh["setup_plain_path_ms"])
+        print(f"  hhhhh G_hat setup {hh['setup_ms']:.3f} ms (plain path "
+              f"{hh['setup_plain_path_ms']:.3f}: "
+              f"{hh['setup_ratio_to_plain_path']:.3f}x)", flush=True)
 
 
 def drive_solvers(dev, op_d, timed, time_fn, report):
@@ -1944,11 +2112,17 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
                   (2, 129, 66), (2, 33, 129)):
         check_gram_kernel(dev, *shape, ("parameter", "data"), False, results,
                           time_fn)
+    # the bf16 tensor-core kernels' edges
+    check_bf16_tensor_core_kernels(dev)
     # parameter-space G_hat at the paper shape is (1001, 5000, 5000) a
     # plane: only the data space is held there
     check_gram_kernel(dev, N_t + 1, N_d, N_m, ("data",), timed, results,
                       time_fn)
     free(dev)
+    if timed and dev.type == "cuda":
+        report["bf16_bound_probe"] = probe_bf16_bounds(dev, N_t + 1, N_d, N_m,
+                                                       time_fn)
+        free(dev)
     op_d = drive_block_path(dev, N_t, N_d, N_m, timed, time_fn, report)
     free(dev)
     drive_gram_path(dev, op_d, timed, time_fn, report)
@@ -2015,13 +2189,15 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     return results, report
 
 
-STAGED = ("zgemm_f64_kernel", "zgram_f64_kernel")
+STAGED = ("zgemm_f64_kernel", "zgram_f64_kernel", "zgemm_bf16_kernel",
+          "zgram_bf16_kernel")
 
 
 def staged_ptxas(logs) -> dict:
     """Registers and spill bytes of each instantiation of the staged f64
-    kernels, from the ``ptxas -v`` lines of the build logs (mangled names
-    shortened to the kernel and its template arguments)."""
+    and the bf16 tensor-core kernels, from the ``ptxas -v`` lines of the
+    build logs (mangled names shortened to the kernel and its template
+    arguments)."""
     import re
     out, cur = {}, None
     for log in logs.values():
@@ -2069,7 +2245,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build()
+    logs = _build.build(variants=[("sbgemm", d)
+                                  for d in BOUND_PROBES.values()])
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.1f} s", flush=True)
     for src, log in logs.items():
@@ -2081,7 +2258,8 @@ def main() -> int:
                   and " 0 bytes spill stores, 0 bytes spill loads" not in line]
         print(f"  {src}: {len(regs)} kernels, at most {max(regs, default=0)} "
               f"registers a thread, spills: {spills or 'none'}")
-    staged = staged_ptxas(logs)
+    staged = staged_ptxas({k: v for k, v in logs.items()
+                           if k in _build.SOURCES})
     for fn, info in staged.items():
         print(f"  {fn}: {info['registers']} registers, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")

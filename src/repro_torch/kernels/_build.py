@@ -93,56 +93,70 @@ def _sources(name: str) -> list:
     return sorted(seen)
 
 
-def _target(name: str) -> pathlib.Path:
+def _target(name: str, defines: tuple = ()) -> pathlib.Path:
     # the library's own sources only: an edit elsewhere rebuilds nothing here
     h = hashlib.sha256()
     for f in _sources(name):
         h.update(f.encode())
         h.update((CSRC / f).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines)).encode())
+    tag = "".join(f"_{d.lower()}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES) -> dict:
+def _key(name: str, defines: tuple) -> str:
+    return " ".join((name, *(f"-D{d}" for d in defines)))
+
+
+def build(names=SOURCES, variants=()) -> dict:
     """Compile the named sources that are not built yet, one ``nvcc`` per
-    source, all started together.  Returns ``{name: nvcc output}`` for the
-    sources compiled by this call; raises if any build fails."""
-    todo = [n for n in names if not _target(n).exists()]
+    source, all started together; ``variants``, (source, macros) pairs,
+    are built beside them, each source compiled with those ``-D`` macros
+    into a library of its own (measurement builds, which no wrapper loads).
+    Returns ``{name: nvcc output}`` for the libraries compiled by this call
+    (a variant under "<source> -D<macro> .."); raises if any build fails."""
+    jobs = [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]
+    todo = [j for j in jobs if not _target(*j).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for n in todo:
-        tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), tmp)
+    for n, defines in todo:
+        tmp = _target(n, defines).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
+        procs[_key(n, defines)] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True),
+            tmp, _target(n, defines))
     logs, failed = {}, []
-    for n, (p, tmp) in procs.items():
-        logs[n] = p.communicate()[0]
+    for k, (p, tmp, target) in procs.items():
+        logs[k] = p.communicate()[0]
         if p.returncode != 0:
-            failed.append(n)
+            failed.append(k)
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, _target(n))
+            os.replace(tmp, target)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
+                           + "\n".join(logs[k] for k in failed))
     return logs
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use, with
-    the argument types of its C entries declared."""
+def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (compiled with the ``-D``
+    macros ``defines``: a measurement build), built at first use, with the
+    argument types of its C entries declared."""
+    key = _key(name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build((name,))
-            lib = ctypes.CDLL(str(_target(name)))
+            build((), ((name, defines),))
+            lib = ctypes.CDLL(str(_target(name, tuple(defines))))
             for fn_name, counts in ENTRIES[name].items():
                 _declare(getattr(lib, fn_name), *counts)
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
 
 

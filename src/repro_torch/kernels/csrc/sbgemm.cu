@@ -11,9 +11,10 @@
 // f64 planes run on the FP64 tensor cores (67 TFLOP/s against 34 for the
 // FP64 vector units), in the kernels of the f64 section below: N and the
 // Gram stage their operands in shared memory through an asynchronous
-// pipeline, T/H reads its fragments from global memory.  bf16 and f32
-// planes (f32 sums) run on the vector units, in the kernels described
-// here.  Bounds and designs:
+// pipeline, T/H reads its fragments from global memory.  The untiled
+// complex N and Gram of bf16 planes run on the bf16 tensor cores with f32
+// sums (sbgemm_bf16.cuh).  Every other bf16 and f32 build (f32 sums) runs
+// on the vector units, in the kernels described here.  Bounds and designs:
 //
 //   N (sum over the long n), bytes-bound at S = 8 (8 S flops per complex
 //     A element: S flop per byte at f32, 2 S at bf16), the f32 product
@@ -399,13 +400,18 @@ sbgemm_gram_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   }
 }
 
-// As DISPATCH_DTYPE, for the plane types of the vector-unit kernels (f64
-// planes go to the tensor-core kernel).
-#define DISPATCH_NARROW(code, T, ...)                               \
-  switch (code) {                                                   \
-    case DT_BF16: { using T = __nv_bfloat16; __VA_ARGS__ } break;   \
-    case DT_F32: { using T = float; __VA_ARGS__ } break;            \
-    default: return (int)cudaErrorInvalidValue;                     \
+// As DISPATCH_DTYPE, for the plane types of the vector-unit kernels: f32,
+// and bf16 where BF16 holds (f64 planes go to the FP64 tensor-core kernels,
+// the bf16 planes of the untiled complex N and Gram to the bf16 ones, and
+// their vector builds are not compiled).
+#define DISPATCH_NARROW(code, BF16, T, ...)                                \
+  switch (code) {                                                          \
+    case DT_BF16:                                                          \
+      if constexpr (BF16) { using T = __nv_bfloat16; __VA_ARGS__ }         \
+      else return (int)cudaErrorInvalidValue;                              \
+      break;                                                               \
+    case DT_F32: { using T = float; __VA_ARGS__ } break;                   \
+    default: return (int)cudaErrorInvalidValue;                            \
   }
 
 // Run the statements in __VA_ARGS__ with SC bound to the column pass width
@@ -509,10 +515,10 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Asynchronous global -> shared copy of one double (W = 1) or of an
-// aligned pair (W = 2); !ok reads nothing and zero-fills the destination.
+// Asynchronous global -> shared copy of 8 bytes (W = 1: one double) or of
+// an aligned 16 (W = 2); !ok reads nothing and zero-fills the destination.
 template <int W>
-__device__ __forceinline__ void cp_async(uint32_t dst, const double* src, bool ok) {
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool ok) {
   if constexpr (W == 2)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
@@ -1008,6 +1014,8 @@ int launch_gram_f64(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t 
                    GramLayout<64>::BYTES);
 }
 
+#include "sbgemm_bf16.cuh"
+
 // Y (B, m, S) = A (B, m, n) X (B, n, S); REAL: the planes Ar, Xr, Yr only.
 template <bool TILED, bool REAL>
 int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
@@ -1023,11 +1031,18 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
                                                     0, tg, device, s);
     )
   }
+  if constexpr (!TILED && !REAL) {
+    if (dt_in == DT_BF16) {
+      DISPATCH_DTYPE(dt_out, O,
+        return bf16tc::launch_n<O>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, device, s);
+      )
+    }
+  }
   const int64_t rows = kNWarps * kNRows;     // output rows of a block
   const int64_t bx = (m + rows - 1) / rows;
   if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)bx, batch_grid(B));
-  DISPATCH_NARROW(dt_in, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_N_PASS(S, SC,
+  DISPATCH_NARROW(dt_in, TILED || REAL, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_N_PASS(S, SC,
     sbgemm_n_kernel<T, O, SC, TILED, REAL><<<grid, kNWarps * 32, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(Xr), static_cast<const T*>(Xi),
@@ -1054,7 +1069,7 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
   const int64_t bx = (n + kThreads - 1) / kThreads;
   if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)bx, batch_grid(B));
-  DISPATCH_NARROW(dt_in, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
+  DISPATCH_NARROW(dt_in, true, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
     sbgemm_th_kernel<T, O, SC, TILED, REAL><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(Xr), static_cast<const T*>(Xi),
@@ -1065,7 +1080,7 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
 
 // G = A^H A, (B, n, n), or with data != 0 G = A A^H, (B, m, m).  The tiles
 // below the diagonal are the conjugates of those above; the vector kernel's
-// diagonal tiles, and the f64 kernel's diagonal entries, are not
+// diagonal tiles, and the f64 and bf16 kernels' diagonal entries, are not
 // symmetrized (ops.sbgemm_gram does that).
 template <bool TILED>
 int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
@@ -1081,10 +1096,17 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
       return launch_gram_f64<O, TILED>(Ar, Ai, Gr, Gi, B, m, n, data, tg, s);
     )
   }
+  if constexpr (!TILED) {
+    if (dt_in == DT_BF16) {
+      DISPATCH_DTYPE(dt_out, O,
+        return bf16tc::launch_gram<O>(Ar, Ai, Gr, Gi, B, m, n, data, device, s);
+      )
+    }
+  }
   const int64_t tiles = (P + kTile - 1) / kTile;
   if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)tiles, (unsigned)tiles, batch_grid(B));
-  DISPATCH_NARROW(dt_in, T, DISPATCH_DTYPE(dt_out, O,
+  DISPATCH_NARROW(dt_in, TILED, T, DISPATCH_DTYPE(dt_out, O,
     sbgemm_gram_kernel<T, O, TILED><<<grid, kGramThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, data, tg);

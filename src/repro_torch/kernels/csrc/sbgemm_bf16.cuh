@@ -1,0 +1,594 @@
+// bf16 planes on Hopper's tensor cores: the untiled complex N product and
+// Gram blocks of sbgemm.cu, for bf16 A with f32 sums.
+//
+// Replaces, for bf16 planes, the TPU kernels
+// src/repro/kernels/sbgemv.py:sbgemm_n_complex (Y = A X as four
+// f32-accumulated real dots, Yr = rr - ii, Yi = ir + ri) and
+// :sbgemm_gram_complex (G = A^H A from four f32-accumulated real products,
+// Gr = Ar^T Ar + Ai^T Ai, Gi = Ar^T Ai - Ai^T Ar; the data-space A A^H read
+// from A as stored).  A bf16 x bf16 product is exact in f32, so
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate) computes the vector kernels'
+// function up to the order of the sums.  The tiled and real builds, and
+// every f32 build, stay on the vector kernels.
+//
+// Included by sbgemm.cu inside its anonymous namespace, after the f64
+// section, whose copy helpers (cp_async, cp_async_commit, cp_async_wait,
+// smem_addr) and min64 / aligned16 it uses.  Measurement builds of
+// sbgemm.cu (chip_smoke.py's bound probe; no wrapper loads them) compile
+// one side of both kernels out: SBGEMM_BF16_NO_MMA the products, leaving
+// the copy pipeline and the fragment loads, SBGEMM_BF16_NO_COPY the
+// operand copies, leaving the products on whatever shared memory holds.
+//
+// Both kernels are persistent (blocks take items blockIdx.x, + gridDim.x,
+// ...) and run one cp.async ring of k-chunks across their items, as
+// zgemm_f64_kernel does: a block of 7 warps stages each chunk of its
+// operand panels once, 16-byte copies where a row is 16-byte aligned
+// (n % 8 == 0, and S % 8 == 0 for X), else each element loaded and stored
+// by a thread (odd n, n % 8 != 0).  k past the end is zero-filled, so the
+// products need no k mask; rows and columns past the end of the other axes
+// are not written, and what they hold reaches only outputs that are not
+// stored.  Staged rows are odd multiples of 16 bytes long, so the 8 rows an
+// ldmatrix reads hit distinct banks.  Every output sums its k products in
+// one warp, in k order, on every run: no atomics, no split across warps or
+// blocks.
+//
+//   N (Y = A X, X (B, n, S), columns last): zgemm_bf16_kernel, bytes-bound
+//     (at S = 32 its tensor-core work, m padded to 112, is ~0.14 TFLOP,
+//     far under the time its 2.66 GB take at the HBM rate), so its job is
+//     to stream A at that rate.  Items are (bin, 112 output rows, a pass of
+//     SP = 8, 16 or 32 columns): a bin's m = 100 rows are one item, its X
+//     read once a pass.  128-wide k-chunks (96 at S > 16) of both A planes
+//     (51 KB at m = 100; A's rows are read in 256-byte runs, which stream
+//     faster than 128-byte ones) and of X sit in a ring 3 deep, one block
+//     an SM.  Warp w owns the m16 row tile w and all SP columns: each A
+//     fragment (ldmatrix) feeds SP / 8 n8 tiles x 4 real products, Re Re
+//     and -Im Im into Re, then Re Im and Im Re into Im (-Im: the fragment's
+//     sign bits flipped, exact); X's fragments come from the [k][s] panel
+//     through ldmatrix.trans.
+//   Gram, G = U U^H per bin with U's rows the P indices (data space: A's
+//     rows, k over n; parameter space: A's columns, k over m, read through
+//     ldmatrix.trans): zgram_bf16_kernel.  Items are (bin, a 112 x 112
+//     output tile on the diagonal or half of one above it); at the paper's
+//     data space (P = 100) a bin is one tile, read from HBM once, in
+//     128-wide k-chunks 3 deep (one panel a stage; 64-wide, 3 deep with two
+//     panels; 32-wide in parameter space, where K = m is short).  The
+//     fragment of a 16-row tile of U serves as the A operand and, in
+//     halves, as the B operands of two n8 column tiles, so a warp loads
+//     each of its row tiles once a k-step.
+//     Diagonal tile: warp w loads the tiles of line w of the Fano plane,
+//     {w, w + 1, w + 3} mod 7; each pair of the 7 tiles lies on exactly one
+//     line, so the 21 pairs x != y and the 7 pairs (w, w) split 4 to a warp
+//     (3 tiles loaded for 8 n8 sub-tiles; a pair x > y yields the lower
+//     block, stored with its conjugate mirror like any other).
+//     Off-diagonal tile (P > 112): two items, each the 112 p rows against
+//     64 or 48 of the q rows; warp w takes row tile w of the p rows against
+//     the q item's 4 or 3 tiles, so every warp holds at most 4 pairs of
+//     accumulators (with 7, ptxas spilled).  Sub-tiles past P are skipped.
+//     On paper bytes-bound at the paper shape (2.04 GB against ~0.25 TFLOP
+//     of sub-tiles), but the busiest SM sub-partition carries 2 warps x 32
+//     mma a k-step (7 warps on 4 sub-partitions), and measured it lands on
+//     the tensor-core side: built without its copies it takes longer than
+//     built without its products (PERF.md).  wgmma is the next step.  Each
+//     entry on or above the diagonal is written, and its conjugate below
+//     it; the diagonal's imaginary parts are not zeroed (ops.sbgemm_gram
+//     symmetrizes).
+
+namespace bf16tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 7;                 // a block: one warp an m16 row tile
+constexpr int kRows = 16 * kWarps;        // rows of an item (N) or tile (Gram)
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPadE = 8;                  // bf16 of padding a staged row
+constexpr int kHalf = 64;                 // Gram: q rows of an off-diagonal item
+
+// Flip the sign bits of both bf16 halves: exact negation.
+__device__ __forceinline__ uint32_t neg2(uint32_t v) { return v ^ 0x80008000u; }
+
+// d += a b for one m16n8k16 tile pair (PTX ISA, mma.m16n8k16 .bf16): lane
+// l, g = l / 4, t = l % 4, holds a = {A[g][2t..], A[g + 8][2t..], A[g][2t +
+// 8..], A[g + 8][2t + 8..]}, b = {B[2t..][g], B[2t + 8..][g]} (two bf16 a
+// register, the lower k in the low half) and d = {D[g][2t], D[g][2t + 1],
+// D[g + 8][2t], D[g + 8][2t + 1]}.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+#ifndef SBGEMM_BF16_NO_MMA
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#endif
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8 j .. 8 j + 7 giving
+// the row addresses of matrix j; lane l receives row l / 4, columns 2 (l %
+// 4) and + 1 of each (TRANS: column l / 4, rows 2 (l % 4) and + 1).
+template <bool TRANS>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// Two transposed 8 x 8 matrices (lanes 0 .. 15 give the row addresses).
+__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+// Stage a ROWS x COLS bf16 tile whose rows start at src + r ld (contiguous
+// along c) into shared memory at dst + r DLD + c, as stage() does for f64
+// planes: rows r < rv and columns c < cv are copied; the k axis is the rows
+// (KROWS) or the columns, and past its end the tile is zero-filled; past
+// the end of the other axis nothing is written.  vec: 16-byte copies of 8
+// elements (ld, the tile's start and cv multiples of 8, the plane 16-byte
+// aligned); otherwise a thread loads and stores each element.
+template <int ROWS, int COLS, int DLD, bool KROWS>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src, int64_t ld, int rv,
+                                      int cv, bool vec) {
+  static_assert(COLS % 8 == 0 && DLD % 8 == 0, "rows of whole 16-byte runs");
+#ifdef SBGEMM_BF16_NO_COPY
+  return;
+#endif
+  const int rows = KROWS ? ROWS : rv;        // rows written
+  if (vec) {
+    constexpr int CV = COLS / 8;
+    const uint32_t d0 = smem_addr(dst);
+    for (int e = threadIdx.x; e < rows * CV; e += kThreads) {
+      const int r = e / CV, c = 8 * (e % CV);
+      if (KROWS && c >= cv) continue;        // past the other axis
+      const bool ok = r < rv && c < cv;
+      cp_async<2>(d0 + 2u * (r * DLD + c), ok ? src + r * ld + c : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * COLS; e += kThreads) {
+      const int r = e / COLS, c = e % COLS;
+      if (KROWS && c >= cv) continue;
+      dst[r * DLD + c] = r < rv && c < cv ? src[r * ld + c] : __ushort_as_bfloat16(0);
+    }
+  }
+}
+
+// Shared-memory layout of an N stage for NT column tiles of 8: the A panel
+// of each plane (kRows x KC) and the X panel of each plane (KC x SP).
+template <int NT>
+struct NLayout {
+  static constexpr int SP = 8 * NT, KC = NT == 4 ? 96 : 128, NS = 3;
+  static constexpr int ALD = KC + kPadE;                       // 208, 272 bytes
+  static constexpr int XLD = SP % 16 ? SP + 2 * kPadE : SP + kPadE;   // 48, 80
+  static constexpr int A_TILE = kRows * ALD, X_TILE = KC * XLD;
+  static constexpr int STAGE = 2 * (A_TILE + X_TILE);          // elements
+  static constexpr int BYTES = 2 * NS * STAGE;
+};
+
+template <typename O, int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
+                  const bf16* __restrict__ Xr, const bf16* __restrict__ Xi,
+                  O* __restrict__ Yr, O* __restrict__ Yi, int64_t B, int64_t m,
+                  int64_t n, int64_t S, int vec_a, int vec_x) {
+  using L = NLayout<NT>;
+  constexpr int KC = L::KC, NS = L::NS, SP = L::SP;
+  extern __shared__ __align__(16) bf16 sbf[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t RTS = (m + kRows - 1) / kRows, SPS = (S + SP - 1) / SP;
+  const int64_t items = B * RTS * SPS, KCH = (n + KC - 1) / KC;
+  // A position in this block's chunk stream, as in zgemm_f64_kernel
+  struct Cursor {
+    int64_t it, c, b, r0, s0;
+    int rv, sv, slot;
+  };
+  auto at_item = [&](Cursor& q) {
+    q.c = 0;
+    if (q.it >= items) return;
+    q.b = q.it / (RTS * SPS);
+    q.r0 = (q.it / SPS) % RTS * kRows;
+    q.s0 = q.it % SPS * SP;
+    q.rv = (int)min64(kRows, m - q.r0);
+    q.sv = (int)min64(SP, S - q.s0);
+  };
+  auto advance = [&](Cursor& q) {
+    q.slot = q.slot + 1 == NS ? 0 : q.slot + 1;
+    if (++q.c == KCH) {
+      q.it += gridDim.x;
+      at_item(q);
+    }
+  };
+  // one copy group a chunk (empty past the last), so the wait counts chunks
+  auto load = [&](const Cursor& w) {
+    if (w.it < items) {
+      const int64_t k0 = w.c * KC;
+      const int kv = (int)min64(KC, n - k0);
+      bf16* st = sbf + w.slot * L::STAGE;
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl) {
+        const bf16* a = (pl ? Ai : Ar) + (w.b * m + w.r0) * n + k0;
+        stage<kRows, KC, L::ALD, false>(st + pl * L::A_TILE, a, n, w.rv, kv, vec_a);
+        const bf16* x = (pl ? Xi : Xr) + (w.b * n + k0) * S + w.s0;
+        stage<KC, SP, L::XLD, true>(st + 2 * L::A_TILE + pl * L::X_TILE, x, S, kv, w.sv,
+                                    vec_x);
+      }
+    }
+    cp_async_commit();
+  };
+  // this lane's ldmatrix row: A (row tile `warp`, matrices in fragment
+  // order: rows +0 / +8, k +0 / +8); X ([k][s]: k +0 / +8, columns +0 / +8)
+  const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
+  const uint32_t a_off = 2u * ((16 * warp + lr) * L::ALD + lc);
+  const uint32_t x_off = 2u * (2 * L::A_TILE + lr * L::XLD + lc);
+  float acc[2][NT][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int v = 0; v < NT; ++v)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][v][e] = 0.f;
+  Cursor w, ld;                              // compute and load cursors
+  w.it = blockIdx.x;
+  w.slot = 0;
+  at_item(w);
+  ld = w;
+#pragma unroll
+  for (int f = 0; f < NS - 1; ++f) {
+    load(ld);
+    advance(ld);
+  }
+  for (; w.it < items; advance(w)) {
+    cp_async_wait<NS - 2>();         // this thread's copies of chunk w landed
+    __syncthreads();                 // everyone's; the chunk before is consumed
+    load(ld);
+    advance(ld);
+    const bool rows = 16 * warp < w.rv;      // whole warp: rows in its tile
+    if (rows) {
+      const uint32_t st = smem_addr(sbf + w.slot * L::STAGE);
+#pragma unroll
+      for (int j = 0; j < KC / 16; ++j) {
+        uint32_t ar[4], ai[4], an[4], xr[NT][2], xi[NT][2];
+        ldsm4<false>(ar, st + a_off + 32u * j);
+        ldsm4<false>(ai, st + a_off + 2u * L::A_TILE + 32u * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) an[e] = neg2(ai[e]);
+        const uint32_t xa = st + x_off + 2u * 16 * j * L::XLD;
+        if constexpr (NT == 1) {
+          ldsm2t(xr[0], xa);
+          ldsm2t(xi[0], xa + 2u * L::X_TILE);
+        } else {
+#pragma unroll
+          for (int v = 0; v < NT; v += 2) {  // two n8 tiles an ldmatrix
+            uint32_t r[4];
+            ldsm4<true>(r, xa + 16u * v);
+            xr[v][0] = r[0], xr[v][1] = r[1], xr[v + 1][0] = r[2], xr[v + 1][1] = r[3];
+            ldsm4<true>(r, xa + 2u * L::X_TILE + 16u * v);
+            xi[v][0] = r[0], xi[v][1] = r[1], xi[v + 1][0] = r[2], xi[v + 1][1] = r[3];
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < NT; ++v) {
+          mma16816(acc[0][v], ar, xr[v][0], xr[v][1]);
+          mma16816(acc[0][v], an, xi[v][0], xi[v][1]);
+          mma16816(acc[1][v], ar, xi[v][0], xi[v][1]);
+          mma16816(acc[1][v], ai, xr[v][0], xr[v][1]);
+        }
+      }
+    }
+    if (w.c == KCH - 1 && rows) {            // the item's last chunk: store
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int v = 0; v < NT; ++v)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = 16 * warp + g + 8 * (e >> 1), col = 8 * v + 2 * t + (e & 1);
+            if (row < w.rv && col < w.sv)
+              (p ? Yi : Yr)[(w.b * m + w.r0 + row) * S + w.s0 + col] =
+                  Store<O>::from(acc[p][v][e]);
+            acc[p][v][e] = 0.f;
+          }
+    }
+  }
+}
+
+// Shared-memory layout of a Gram stage: PANELS panels (the p rows, and on
+// an off-diagonal item the q rows) of both planes, each kRows rows of U x
+// KC k (data space: rows of A along n) or KC k x kRows (parameter space:
+// rows of A along n = p).  One panel when a bin is one tile (P <= 112).
+template <bool DATA, int PANELS>
+struct GLayout {
+  static constexpr int KC = !DATA ? 32 : PANELS == 1 ? 128 : 64;
+  static constexpr int NS = DATA || PANELS == 2 ? 3 : 4;
+  static constexpr int LD = DATA ? KC + kPadE : kRows + kPadE;   // 272, 144 / 240 bytes
+  static constexpr int PANEL = DATA ? kRows * LD : KC * LD;
+  static constexpr int STAGE = PANELS * 2 * PANEL;
+  static constexpr int BYTES = 2 * NS * STAGE;
+  // element offsets of row tile x's fragment and of k-step j in a panel
+  static constexpr int TILE = DATA ? 16 * LD : 16, STEP = DATA ? 16 : 16 * LD;
+};
+
+template <typename O, bool DATA, int PANELS>
+__global__ void __launch_bounds__(kThreads, 1)
+zgram_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
+                  O* __restrict__ Gr, O* __restrict__ Gi, int64_t B, int64_t m,
+                  int64_t n, int vec) {
+  using L = GLayout<DATA, PANELS>;
+  constexpr int KC = L::KC, NS = L::NS;
+  extern __shared__ __align__(16) bf16 sbf[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t P = DATA ? m : n, K = DATA ? n : m;
+  // a bin's items: row pt of tiles holds its diagonal tile and two items
+  // of each tile right of it, 2 (T - pt) - 1, so T^2 in all
+  const int T = (int)((P + kRows - 1) / kRows);
+  const int64_t tiles = (int64_t)T * T, items = B * tiles;
+  const int64_t KCH = (K + KC - 1) / KC;
+  struct Cursor {
+    int64_t it, c, b, p0, q0;
+    int pv, qv, slot;
+    bool diag;
+  };
+  auto at_item = [&](Cursor& q) {
+    q.c = 0;
+    if (q.it >= items) return;
+    q.b = q.it / tiles;
+    // item x of row pt: the diagonal tile (x = 0), else half (x + 1) % 2 of
+    // tile pt + (x + 1) / 2 (a half past P is empty)
+    int pt = 0, x = (int)(q.it % tiles);
+    while (x >= 2 * (T - pt) - 1) {
+      x -= 2 * (T - pt) - 1;
+      ++pt;
+    }
+    const int half = (x + 1) % 2;
+    q.diag = x == 0;
+    q.p0 = (int64_t)pt * kRows;
+    q.q0 = (int64_t)(pt + (x + 1) / 2) * kRows + (q.diag ? 0 : half * kHalf);
+    q.pv = (int)min64(kRows, P - q.p0);
+    q.qv = (int)min64(q.diag ? kRows : half ? kRows - kHalf : kHalf, P - q.q0);
+  };
+  auto advance = [&](Cursor& q) {
+    q.slot = q.slot + 1 == NS ? 0 : q.slot + 1;
+    if (++q.c == KCH) {
+      q.it += gridDim.x;
+      at_item(q);
+    }
+  };
+  auto load = [&](const Cursor& w) {
+    if (w.it < items) {
+      const int64_t k0 = w.c * KC;
+      const int kv = (int)min64(KC, K - k0);
+      bf16* st = sbf + w.slot * L::STAGE;
+#pragma unroll
+      for (int panel = 0; panel < PANELS; ++panel) {
+        if (panel && w.diag) break;          // one panel serves both sides
+        const int64_t r0 = panel ? w.q0 : w.p0;
+        const int rv = panel ? w.qv : w.pv;
+#pragma unroll
+        for (int pl = 0; pl < 2; ++pl) {
+          bf16* dst = st + (2 * panel + pl) * L::PANEL;
+          const bf16* src = (pl ? Ai : Ar) + w.b * m * n;
+          if (DATA)
+            stage<kRows, KC, L::LD, false>(dst, src + r0 * n + k0, n, rv, kv, vec);
+          else
+            stage<KC, kRows, L::LD, true>(dst, src + k0 * n + r0, n, kv, rv, vec);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // this lane's ldmatrix row in a panel: matrices in fragment order (rows
+  // of U +0 / +8, k +0 / +8), read transposed in parameter space
+  const int lo = DATA ? ((lane & 7) + 8 * ((lane >> 3) & 1)) * L::LD + 8 * (lane >> 4)
+                      : ((lane & 7) + 8 * (lane >> 4)) * L::LD + 8 * ((lane >> 3) & 1);
+  // diagonal tile: this warp's three row tiles (Fano line `warp`) and its
+  // pairs q = 0 .. 3 of them, (0, 0), (0, 1), (0, 2), (1, 2): (q / 3, q - q / 3)
+  const int fano[3] = {warp, (warp + 1) % 7, (warp + 3) % 7};
+  float acc[4][2][2][4];                     // [pair][n8 half][re, im][e]
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[p][h][c][e] = 0.f;
+  // the four real products of row tile x (fr, fi) against an n8 half of
+  // row tile y (its registers (r0, r1) of each plane) into a pair's
+  // accumulators
+  auto products = [&](float (&cr)[4], float (&ci)[4], const uint32_t (&fr)[4],
+                      const uint32_t (&fi)[4], uint32_t yr0, uint32_t yr1, uint32_t yi0,
+                      uint32_t yi1) {
+    mma16816(cr, fr, yr0, yr1);
+    mma16816(cr, fi, yi0, yi1);
+    if (DATA) {   // Gi = Ui Ur^T - Ur Ui^T
+      mma16816(ci, fi, yr0, yr1);
+      mma16816(ci, fr, neg2(yi0), neg2(yi1));
+    } else {      // Gi = Ur^T Ui - Ui^T Ur
+      mma16816(ci, fr, yi0, yi1);
+      const uint32_t fn[4] = {neg2(fi[0]), neg2(fi[1]), neg2(fi[2]), neg2(fi[3])};
+      mma16816(ci, fn, yr0, yr1);
+    }
+  };
+  // the store of an item's outputs, (r, c) of its tile: G[p0 + r][q0 + c]
+  // and its conjugate mirror
+  auto put = [&](const Cursor& w, float (&cr)[4], float (&ci)[4], int x, int y, int h) {
+    const int Pi = (int)P;                   // P^2 < 2^31, checked at launch
+    O* gr = Gr + w.b * P * P;
+    O* gi = Gi + w.b * P * P;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * x + g + 8 * (e >> 1), c = 16 * y + 8 * h + 2 * t + (e & 1);
+      if (r >= w.pv || c >= w.qv || (w.diag && x == y && r > c)) continue;
+      const int p = (int)w.p0 + r, q = (int)w.q0 + c;
+      gr[p * Pi + q] = Store<O>::from(cr[e]);
+      gi[p * Pi + q] = Store<O>::from(ci[e]);
+      if (p != q) {
+        gr[q * Pi + p] = Store<O>::from(cr[e]);
+        gi[q * Pi + p] = Store<O>::from(-ci[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cr[e] = ci[e] = 0.f;
+  };
+  Cursor w, ld;
+  w.it = blockIdx.x;
+  w.slot = 0;
+  at_item(w);
+  ld = w;
+#pragma unroll
+  for (int f = 0; f < NS - 1; ++f) {
+    load(ld);
+    advance(ld);
+  }
+  for (; w.it < items; advance(w)) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    load(ld);
+    advance(ld);
+    const uint32_t pp = smem_addr(sbf + w.slot * L::STAGE) + 2u * lo;   // p rows
+    const bool last = w.c == KCH - 1;
+    if (PANELS == 1 || w.diag) {
+      // a pair is needed when both its tiles hold rows of G, an n8 half
+      // when its columns do
+      bool need[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int x = fano[q / 3], y = fano[q - q / 3];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) need[q][h] = 16 * x < w.pv && 16 * y + 8 * h < w.pv;
+      }
+#pragma unroll
+      for (int j = 0; j < KC / 16; ++j) {
+        uint32_t fr[3][4], fi[3][4];
+#pragma unroll
+        for (int u = 0; u < 3; ++u) {
+          const uint32_t a = pp + 2u * (fano[u] * L::TILE + j * L::STEP);
+          ldsm4<!DATA>(fr[u], a);
+          ldsm4<!DATA>(fi[u], a + 2u * L::PANEL);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int a = q / 3, b = q - q / 3;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (need[q][h])
+              products(acc[q][h][0], acc[q][h][1], fr[a], fi[a], fr[b][h], fr[b][h + 2],
+                       fi[b][h], fi[b][h + 2]);
+        }
+      }
+      if (last)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            put(w, acc[q][h][0], acc[q][h][1], fano[q / 3], fano[q - q / 3], h);
+    } else if constexpr (PANELS == 2) {
+      if (16 * warp < w.pv) {
+        // off-diagonal item: row tile `warp` of the p rows against the q rows
+        const uint32_t qq = pp + 2u * 2 * L::PANEL;
+#pragma unroll
+        for (int j = 0; j < KC / 16; ++j) {
+          uint32_t fr[4], fi[4];
+          const uint32_t a = pp + 2u * (warp * L::TILE + j * L::STEP);
+          ldsm4<!DATA>(fr, a);
+          ldsm4<!DATA>(fi, a + 2u * L::PANEL);
+#pragma unroll
+          for (int y = 0; y < kHalf / 16; ++y) {
+            if (16 * y >= w.qv) continue;
+            uint32_t yr[4], yi[4];
+            const uint32_t b = qq + 2u * (y * L::TILE + j * L::STEP);
+            ldsm4<!DATA>(yr, b);
+            ldsm4<!DATA>(yi, b + 2u * L::PANEL);
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (16 * y + 8 * h < w.qv)
+                products(acc[y][h][0], acc[y][h][1], fr, fi, yr[h], yr[h + 2], yi[h],
+                         yi[h + 2]);
+          }
+        }
+        if (last)
+#pragma unroll
+          for (int y = 0; y < kHalf / 16; ++y)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) put(w, acc[y][h][0], acc[y][h][1], warp, y, h);
+      }
+    }
+  }
+}
+
+// Launch a persistent kernel of kThreads threads and `bytes` of dynamic
+// shared memory: as many blocks as fit on the card at once, at most one an
+// item.
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, int bytes, int64_t items, int device,
+                      cudaStream_t s, Args... args) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int sms = 0, per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)min64(items, (int64_t)sms * per_sm), kThreads, bytes, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// Y (B, m, S) = A (B, m, n) X (B, n, S) on bf16 planes, passes of 8, 16 or
+// 32 columns.
+template <typename O>
+int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
+             void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, int device,
+             cudaStream_t s) {
+  if (n == 0) {                              // an empty sum: Y = 0
+    const size_t bytes = (size_t)(B * m * S) * sizeof(O);
+    cudaError_t e = cudaMemsetAsync(Yr, 0, bytes, s);
+    if (e == cudaSuccess) e = cudaMemsetAsync(Yi, 0, bytes, s);
+    return (int)e;
+  }
+  const int vec_a = n % 8 == 0 && aligned16(Ar) && aligned16(Ai);
+  const int vec_x = S % 8 == 0 && aligned16(Xr) && aligned16(Xi);
+  const int64_t rts = (m + kRows - 1) / kRows;
+  auto go = [&](auto kernel, int nt, int bytes) {
+    return launch_persistent(kernel, bytes, B * rts * ((S + 8 * nt - 1) / (8 * nt)), device,
+                             s, static_cast<const bf16*>(Ar), static_cast<const bf16*>(Ai),
+                             static_cast<const bf16*>(Xr), static_cast<const bf16*>(Xi),
+                             static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, vec_a,
+                             vec_x);
+  };
+  if (S <= 8) return go(zgemm_bf16_kernel<O, 1>, 1, NLayout<1>::BYTES);
+  if (S <= 16) return go(zgemm_bf16_kernel<O, 2>, 2, NLayout<2>::BYTES);
+  return go(zgemm_bf16_kernel<O, 4>, 4, NLayout<4>::BYTES);
+}
+
+// G = A^H A, (B, n, n), or with data != 0 G = A A^H, (B, m, m), on bf16
+// planes: one panel a stage when a bin is one tile (P <= 112).
+template <typename O>
+int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B, int64_t m,
+                int64_t n, int data, int device, cudaStream_t s) {
+  const int64_t P = data ? m : n;
+  if (P * P > 0x7fffffff) return (int)cudaErrorInvalidValue;   // a bin's G: int offsets
+  if ((data ? n : m) == 0) {                 // an empty sum: G = 0
+    const size_t bytes = (size_t)(B * P * P) * sizeof(O);
+    cudaError_t e = cudaMemsetAsync(Gr, 0, bytes, s);
+    if (e == cudaSuccess) e = cudaMemsetAsync(Gi, 0, bytes, s);
+    return (int)e;
+  }
+  const int vec = n % 8 == 0 && aligned16(Ar) && aligned16(Ai);
+  const int64_t T = (P + kRows - 1) / kRows;
+  auto go = [&](auto kernel, int bytes) {
+    return launch_persistent(kernel, bytes, B * T * T, device, s,
+                             static_cast<const bf16*>(Ar), static_cast<const bf16*>(Ai),
+                             static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, vec);
+  };
+  if (T == 1)
+    return data ? go(zgram_bf16_kernel<O, true, 1>, GLayout<true, 1>::BYTES)
+                : go(zgram_bf16_kernel<O, false, 1>, GLayout<false, 1>::BYTES);
+  return data ? go(zgram_bf16_kernel<O, true, 2>, GLayout<true, 2>::BYTES)
+              : go(zgram_bf16_kernel<O, false, 2>, GLayout<false, 2>::BYTES);
+}
+
+}  // namespace bf16tc

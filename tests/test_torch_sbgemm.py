@@ -145,6 +145,13 @@ def test_sbgemm_out_dtype_casts_from_the_accumulator():
 # ---------------------------------------------------------------------------
 
 GRAM_SHAPES = [(3, 4, 16), (1, 2, 40), (2, 8, 8)]
+# f32 cases keep the shape as their id; bf16 cases (the planes the bf16
+# tensor-core kernel takes on the card) add "-bf16"
+GRAM_CASES = ([pytest.param(*s, torch.float32, id="-".join(map(str, s)))
+               for s in GRAM_SHAPES]
+              + [pytest.param(*s, torch.bfloat16,
+                              id="-".join(map(str, s)) + "-bf16")
+                 for s in GRAM_SHAPES])
 
 
 def _gram_planes(B, m, n, dt, seed):
@@ -154,15 +161,25 @@ def _gram_planes(B, m, n, dt, seed):
 
 
 @pytest.mark.parametrize("space", ["parameter", "data"])
-@pytest.mark.parametrize("B,m,n", GRAM_SHAPES)
-def test_sbgemm_gram_matches_pallas_interpret(space, B, m, n):
-    jp, tp = _gram_planes(B, m, n, torch.float32, seed=B + m + n)
+@pytest.mark.parametrize("B,m,n,dt", GRAM_CASES)
+def test_sbgemm_gram_matches_pallas_interpret(space, B, m, n, dt):
+    """f32 at 1e-4, as ``tests/test_gram.py``; bf16 at 2e-2 (one bf16
+    rounding of the output), both through ``ops.sbgemm_gram`` and as the
+    wrapper's plain version computes it for the kernel on the card (f32
+    sums of the bf16 products, no symmetrization)."""
+    jp, tp = _gram_planes(B, m, n, dt, seed=B + m + n)
     want = jops.sbgemm_gram(*jp, space=space, **PALLAS)
     got = ops.sbgemm_gram(*tp, space=space)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
     P = n if space == "parameter" else m
     for g, w in zip(got, want):
+        assert g.shape == (B, P, P) and g.dtype == dt
+        np.testing.assert_allclose(_np(g), _np(w), rtol=tol, atol=tol)
+    raw = tsb.sbgemm_gram_complex(*tp, data=space == "data",
+                                  out_dtype=torch.float32)
+    for g, w in zip(raw, want):
         assert g.shape == (B, P, P) and g.dtype == torch.float32
-        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(_np(g), _np(w), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("space", ["parameter", "data"])
