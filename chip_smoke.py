@@ -98,16 +98,24 @@ CUDA toolkit.  It:
    each tiled build bit for bit against its untiled one on quantized
    planes.  ddddd ``matmat``/``rmatmat`` at S = 32 and the G_hat setup are
    printed as ratios to the plain path (reported, not gated);
-9. the bf16 tensor-core kernels (the N product and the Gram of bf16
-   planes): their ``ptxas`` registers and spill bytes, and ragged shapes
-   across their edges (m = 15, 16, 17, 100, 129 with odd n, n % 8 != 0 and
-   n shorter than one k-chunk at S = 1 .. 40; the Gram at P = 31 .. 300
-   in both spaces), bf16 and f32 outputs, each against its plain version
-   at the h tolerance.  ``hhhhh`` and ``shhss`` ``matmat``/``rmatmat`` at
-   S = 32 and the ``hhhhh`` circulant G_hat setup (against ``torch-ref``
-   at the h tolerance) are timed beside the plain path, and the bf16
-   Gram's library call once more with its re/im combine (reported, not
-   gated).  Both kernels are also built without their products and
+9. the bf16 tensor-core kernels (the N and T/H products and the Gram of
+   bf16 planes): their ``ptxas`` registers and spill bytes, and ragged
+   shapes across their edges (N: m = 15, 16, 17, 100, 129 with odd n, n %
+   8 != 0 and n shorter than one k-chunk; T/H in modes T and H: m = 1 ..
+   129 across the 112-wide k-chunk, n = 40 .. 133 around the 112-row
+   items; both at S = 1 .. 40, bf16, f32 and f64 outputs; the Gram at P =
+   31 .. 300 in both spaces, bf16 and f32 outputs), each against its
+   plain version at the h tolerance.  ``hhhhh`` and ``shhss``
+   ``matmat``/``rmatmat`` at S = 32 and the ``hhhhh`` circulant G_hat
+   setup (against ``torch-ref`` at the h tolerance) are timed beside the
+   plain path, and the bf16 Gram's library call once more with its re/im
+   combine (reported, not gated);
+10. the staged f32 N kernel (FFMA on the vector units): its ``ptxas``
+   registers and spill bytes, and ragged shapes (m = 15 .. 129 around its
+   100-row items, n = 40 .. 5000 with odd n and n % 4 != 0, S = 1 .. 40):
+   the f32 output against its plain version at the s tolerance, the bf16
+   and f64 outputs bit for bit the f32 output cast.  The bf16 Gram, N and
+   T/H (mode H) and the f32 N are also built without their products and
    without their copies and timed at the paper shape, so the side that
    bounds each is measured (reported, not gated).
 
@@ -184,10 +192,11 @@ def rel(got, want) -> float:
     return (got.to(torch.float64) - w).norm().item() / (w.norm().item() or 1.0)
 
 
-def check_planes(what: str, got, want, dt) -> float:
+def check_planes(what: str, got, want, dt, tol=None) -> float:
     """Hold each output plane of a kernel against its plain version at the
-    level's tolerance; returns the largest absolute difference."""
-    tol = TOL[LEVEL_OF[dt]]
+    level's tolerance (or ``tol``); returns the largest absolute
+    difference."""
+    tol = TOL[LEVEL_OF[dt]] if tol is None else tol
     err = 0.0
     for g, w in zip(got, want):
         if tuple(g.shape) != tuple(w.shape) or g.dtype != w.dtype:
@@ -476,34 +485,52 @@ def check_gram_kernel(dev, B, m, n, spaces, timed, results, time_fn):
 
 
 def check_bf16_tensor_core_kernels(dev):
-    """The bf16 tensor-core kernels (untiled complex N and Gram of bf16
-    planes) at ragged shapes across their edges: m around the 16-row warp
-    tiles and the 112-row item, n odd (element copies), n % 8 != 0, n
-    shorter than one 64-wide k-chunk and n over several chunks with a
-    ragged last one (16-byte copies), S across the 8/16/32 passes; the
-    Gram at P around its 16-row tiles, its 112-row tile and its 64-row
-    off-diagonal halves, in both spaces.  bf16 and f32 outputs, each
+    """The bf16 tensor-core kernels (untiled complex N, T/H and Gram of bf16
+    planes) at ragged shapes across their edges.  N: m around the 16-row
+    warp tiles and the 112-row item, n odd (element copies), n % 8 != 0, n
+    shorter than one k-chunk and n over several chunks with a ragged last
+    one (16-byte copies), S across the 8/16/32 passes.  T/H (modes T and
+    H): k = m from 1 to past one 112-wide k-chunk, n around the 112-row
+    items (odd n: element copies), the same S.  The Gram at P around its
+    16-row tiles, its 112-row tile and its 64-row off-diagonal halves, in
+    both spaces.  bf16, f32 and f64 outputs (the Gram bf16 and f32), each
     against its plain version at the h tolerance."""
     from repro_torch.kernels import sbgemv as sk
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
     dt = torch.bfloat16
+    outs = (dt, torch.float32, torch.float64)
+    S_list = (1, 8, 9, 16, 17, 32, 33, 40)
 
     def planes(*shape):
         return [torch.randn(shape, generator=gen, device=dev,
                             dtype=torch.float64).to(dt) for _ in range(2)]
 
-    n_n = n_g = 0
+    n_n = n_t = n_g = 0
     for m in (15, 16, 17, 100, 129):
         for n in (133, 130, 40, 264):
             A = planes(2, m, n)
-            for S in (1, 8, 9, 16, 17, 32, 33, 40):
+            for S in S_list:
                 X = planes(2, n, S)
-                for od in (dt, torch.float32):
+                for od in outs:
                     check_planes(f"sbgemm_n_complex bf16 -> {name(od)} at "
                                  f"{(2, m, n, S)}",
                                  sk.sbgemm_n_complex(*A, *X, out_dtype=od),
                                  sk.sbgemm_n_complex_plain(*A, *X, od), dt)
                     n_n += 1
+    for m in (1, 7, 15, 16, 17, 100, 113, 129):
+        for n in (40, 111, 112, 113, 130, 133):
+            A = planes(2, m, n)
+            for S in S_list:
+                X = planes(2, m, S)
+                for conj in (False, True):
+                    for od in outs:
+                        check_planes(
+                            f"sbgemm_th_complex mode {'H' if conj else 'T'} "
+                            f"bf16 -> {name(od)} at {(2, m, n, S)}",
+                            sk.sbgemm_th_complex(*A, *X, conj=conj,
+                                                 out_dtype=od),
+                            sk.sbgemm_th_complex_plain(*A, *X, conj, od), dt)
+                        n_t += 1
     for P in (31, 64, 100, 112, 113, 128, 129, 300):
         for space in ("data", "parameter"):
             data = space == "data"
@@ -519,59 +546,113 @@ def check_bf16_tensor_core_kernels(dev):
                                  dt)
                     n_g += 1
     sync(dev)
-    print(f"bf16 tensor-core kernels: {n_n} N and {n_g} Gram calls at ragged "
-          f"shapes within {TOL['h']:g} of their plain versions", flush=True)
+    print(f"bf16 tensor-core kernels: {n_n} N, {n_t} T/H and {n_g} Gram "
+          f"calls at ragged shapes within {TOL['h']:g} of their plain "
+          f"versions", flush=True)
 
 
-# measurement builds of csrc/sbgemm.cu: the bf16 tensor-core kernels with
-# one side compiled out (csrc/sbgemm_bf16.cuh)
-BOUND_PROBES = {"no_mma_ms": ("SBGEMM_BF16_NO_MMA",),
-                "no_copy_ms": ("SBGEMM_BF16_NO_COPY",)}
+def check_f32_n_kernel(dev):
+    """The staged f32 N kernel at ragged shapes across its edges: m around
+    its 20-row warp bands and 100-row items, n shorter than one 32-wide
+    k-chunk, odd and n % 4 != 0 (element copies) and the paper's 5000, S
+    across the 8/16/32 passes and past 32.  The f32 output against the
+    plain version at the s tolerance; the bf16 and f64 outputs bit for bit
+    the f32 output cast (the sums do not depend on the output dtype), and
+    against the plain version within one rounding of their dtype."""
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    dt = torch.float32
+
+    def planes(*shape):
+        return [torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float64).to(dt) for _ in range(2)]
+
+    calls = 0
+    for m in (15, 16, 17, 25, 100, 129):
+        for n in (40, 130, 133, 264, 5000):
+            A = planes(2, m, n)
+            for S in (1, 8, 9, 16, 17, 32, 33, 40):
+                X = planes(2, n, S)
+                what = f"sbgemm_n_complex f32 at {(2, m, n, S)}"
+                got = sk.sbgemm_n_complex(*A, *X)
+                check_planes(what, got, sk.sbgemm_n_complex_plain(*A, *X, dt),
+                             dt)
+                for od in (torch.bfloat16, torch.float64):
+                    cast = sk.sbgemm_n_complex(*A, *X, out_dtype=od)
+                    if not same_bits(cast, [g.to(od) for g in got]):
+                        fail(f"{what} -> {name(od)} differs from the f32 "
+                             f"output cast")
+                    check_planes(f"{what} -> {name(od)}", cast,
+                                 sk.sbgemm_n_complex_plain(*A, *X, od), dt,
+                                 max(TOL["s"], 2.0 ** -8
+                                     if od == torch.bfloat16 else 0.0))
+                calls += 3
+    sync(dev)
+    print(f"f32 N kernel: {calls} calls at ragged shapes within "
+          f"{TOL['s']:g} of its plain version (bf16 / f64 outputs: the f32 "
+          f"output cast, bit for bit)", flush=True)
 
 
-def probe_bf16_bounds(dev, B, m, n, time_fn):
-    """The bf16 tensor-core kernels at the paper shape, each built as the
-    wrappers load it, without its products (the copy pipeline and the
-    fragment loads alone) and without its copies (the products alone, on
-    whatever shared memory holds): the slower one-sided build names the
-    side that bounds the kernel.  Called through the C entries, so no
-    launch is counted.  Reported, not gated."""
+# measurement builds of csrc/sbgemm.cu: the bf16 tensor-core kernels and
+# the f32 N kernel with one side compiled out (csrc/sbgemm_bf16.cuh,
+# csrc/sbgemm_f32.cuh)
+BOUND_PROBES = {"no_products_ms": ("SBGEMM_BF16_NO_MMA", "SBGEMM_F32_NO_FMA"),
+                "no_copy_ms": ("SBGEMM_BF16_NO_COPY", "SBGEMM_F32_NO_COPY")}
+
+
+def probe_bounds(dev, B, m, n, time_fn):
+    """The bf16 tensor-core kernels (the data-space Gram, N and mode H at S
+    = 8 and 32) and the f32 N kernel (S = 8 and 32) at the paper shape,
+    each built as the wrappers load it, without its products (the copy
+    pipeline alone, with the bf16 fragment loads) and without its copies
+    (the products alone, on whatever shared memory holds): the slower
+    one-sided build names the side that bounds the kernel.  Called through
+    the C entries, so no launch is counted.  Reported, not gated."""
     from repro_torch.kernels import _build
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
-    dt = torch.bfloat16
-    code = _build.DTYPE_CODES[dt]
 
-    def planes(*shape, fill=True):
+    def planes(dt, *shape, fill=True):
         return [torch.randn(shape, generator=gen, device=dev).to(dt) if fill
                 else torch.empty(shape, device=dev, dtype=dt)
                 for _ in range(2)]
 
-    A = planes(B, m, n)
-    cases = {"sbgemm_gram_complex data": (
-        "sbgemm_gram_complex", (*A, *planes(B, m, m, fill=False)), (B, m, n),
-        (1,))}
-    for S in (S_BLOCK, S_WIDE):
-        cases[f"sbgemm_n_complex S={S}"] = (
-            "sbgemm_n_complex", (*A, *planes(B, n, S),
-                                 *planes(B, m, S, fill=False)), (B, m, n, S),
-            ())
     out = {}
-    for what, (entry, tensors, sizes, ints) in cases.items():
-        ptrs = [t.data_ptr() for t in tensors]
-        row = out[what] = {}
-        for label, defines in (("ms", ()), *BOUND_PROBES.items()):
-            fn = getattr(_build.library("sbgemm", defines), entry)
+    for dt in (torch.bfloat16, torch.float32):
+        A = planes(dt, B, m, n)
+        cases = {}
+        if dt == torch.bfloat16:
+            cases["sbgemm_gram_complex data"] = (
+                "sbgemm_gram_complex", (*A, *planes(dt, B, m, m, fill=False)),
+                (B, m, n), (1,))
+        for S in (S_BLOCK, S_WIDE):
+            cases[f"sbgemm_n_complex S={S}"] = (
+                "sbgemm_n_complex", (*A, *planes(dt, B, n, S),
+                                     *planes(dt, B, m, S, fill=False)),
+                (B, m, n, S), ())
+            if dt == torch.bfloat16:
+                cases[f"sbgemm_th_complex H S={S}"] = (
+                    "sbgemm_th_complex", (*A, *planes(dt, B, m, S),
+                                          *planes(dt, B, n, S, fill=False)),
+                    (B, m, n, S), (1,))
+        code = _build.DTYPE_CODES[dt]
+        for what, (entry, tensors, sizes, ints) in cases.items():
+            ptrs = [t.data_ptr() for t in tensors]
+            row = out[f"{what} {name(dt)}"] = {}
+            for label, defines in (("ms", ()), *BOUND_PROBES.items()):
+                fn = getattr(_build.library("sbgemm", defines), entry)
 
-            def call(_, fn=fn):
-                _build.check(fn(*ptrs, *sizes, *ints, code, code, dev.index,
-                                _build.stream_of(A[0])), entry)
-            row[label] = time_fn(call, None)
-        row["bound_side"] = ("tensor cores" if row["no_copy_ms"]
-                             > row["no_mma_ms"] else "copies")
-        print(f"{what} bf16: {row['ms']:.4f} ms; without products "
-              f"{row['no_mma_ms']:.4f}, without copies "
-              f"{row['no_copy_ms']:.4f}: bound by the {row['bound_side']}",
-              flush=True)
+                def call(_, fn=fn):
+                    _build.check(fn(*ptrs, *sizes, *ints, code, code,
+                                    dev.index, _build.stream_of(A[0])), entry)
+                row[label] = time_fn(call, None)
+            row["bound_side"] = ("products" if row["no_copy_ms"]
+                                 > row["no_products_ms"] else "copies")
+            print(f"{what} {name(dt)}: {row['ms']:.4f} ms; without products "
+                  f"{row['no_products_ms']:.4f}, without copies "
+                  f"{row['no_copy_ms']:.4f}: bound by the "
+                  f"{row['bound_side']}", flush=True)
+        del A, cases
+        free(dev)
     return out
 
 
@@ -2112,16 +2193,16 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
                   (2, 129, 66), (2, 33, 129)):
         check_gram_kernel(dev, *shape, ("parameter", "data"), False, results,
                           time_fn)
-    # the bf16 tensor-core kernels' edges
+    # the bf16 tensor-core kernels' and the f32 N kernel's edges
     check_bf16_tensor_core_kernels(dev)
+    check_f32_n_kernel(dev)
     # parameter-space G_hat at the paper shape is (1001, 5000, 5000) a
     # plane: only the data space is held there
     check_gram_kernel(dev, N_t + 1, N_d, N_m, ("data",), timed, results,
                       time_fn)
     free(dev)
     if timed and dev.type == "cuda":
-        report["bf16_bound_probe"] = probe_bf16_bounds(dev, N_t + 1, N_d, N_m,
-                                                       time_fn)
+        report["bound_probe"] = probe_bounds(dev, N_t + 1, N_d, N_m, time_fn)
         free(dev)
     op_d = drive_block_path(dev, N_t, N_d, N_m, timed, time_fn, report)
     free(dev)
@@ -2190,14 +2271,14 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
 
 
 STAGED = ("zgemm_f64_kernel", "zgram_f64_kernel", "zgemm_bf16_kernel",
-          "zgram_bf16_kernel")
+          "zgram_bf16_kernel", "zgemm_f32_kernel")
 
 
 def staged_ptxas(logs) -> dict:
-    """Registers and spill bytes of each instantiation of the staged f64
-    and the bf16 tensor-core kernels, from the ``ptxas -v`` lines of the
-    build logs (mangled names shortened to the kernel and its template
-    arguments)."""
+    """Registers and spill bytes of each instantiation of the staged f64,
+    the bf16 tensor-core and the f32 N kernels, from the ``ptxas -v``
+    lines of the build logs (mangled names shortened to the kernel and its
+    template arguments)."""
     import re
     out, cur = {}, None
     for log in logs.values():

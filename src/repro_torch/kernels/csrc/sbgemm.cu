@@ -9,12 +9,13 @@
 // shape B = 1001 bins, m = N_d = 100, n = N_m = 5000, S = 8 .. 32.
 //
 // f64 planes run on the FP64 tensor cores (67 TFLOP/s against 34 for the
-// FP64 vector units), in the kernels of the f64 section below: N and the
-// Gram stage their operands in shared memory through an asynchronous
-// pipeline, T/H reads its fragments from global memory.  The untiled
-// complex N and Gram of bf16 planes run on the bf16 tensor cores with f32
-// sums (sbgemm_bf16.cuh).  Every other bf16 and f32 build (f32 sums) runs
-// on the vector units, in the kernels described here.  Bounds and designs:
+// FP64 vector units), in the staged kernels of the f64 section below.  The
+// untiled complex N, T/H and Gram of bf16 planes run on the bf16 tensor
+// cores with f32 sums (sbgemm_bf16.cuh), and the complex N of f32 planes,
+// untiled and tiled, in a staged FP32 kernel (sbgemm_f32.cuh).  The other
+// bf16 and f32 builds (f32 sums: the complex T/H and Gram of f32 planes,
+// the other tiled builds and every real build) run on the vector units, in
+// the kernels described here.  Bounds and designs:
 //
 //   N (sum over the long n), bytes-bound at S = 8 (8 S flops per complex
 //     A element: S flop per byte at f32, 2 S at bf16), the f32 product
@@ -58,7 +59,8 @@
 // each A element is rounded through its tile-map cell's level as it is
 // loaded (common.cuh: TileGrid), before any product (on the f64 path, as
 // its fragment is read, from shared memory in the staged kernels, before
-// it enters the mma.sync), and nothing else changes, so on planes
+// it enters the mma.sync; in the f32 N kernel as it leaves shared memory),
+// and nothing else changes, so on planes
 // quantized up front they give the untiled build's bits.  In the
 // Gram both factors of a product are rounded at their own cells.  They
 // move the untiled kernels' bytes: A stays stored at the carrier type.
@@ -400,17 +402,21 @@ sbgemm_gram_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   }
 }
 
-// As DISPATCH_DTYPE, for the plane types of the vector-unit kernels: f32,
-// and bf16 where BF16 holds (f64 planes go to the FP64 tensor-core kernels,
-// the bf16 planes of the untiled complex N and Gram to the bf16 ones, and
-// their vector builds are not compiled).
-#define DISPATCH_NARROW(code, BF16, T, ...)                                \
+// As DISPATCH_DTYPE, for the plane types of the vector-unit kernels: bf16
+// where BF16 holds and f32 where F32 holds (f64 planes go to the FP64
+// tensor-core kernels, the bf16 planes of the untiled complex N, T/H and
+// Gram to the bf16 ones, the f32 planes of the complex N to the staged f32
+// kernel, and their vector builds are not compiled).
+#define DISPATCH_NARROW(code, BF16, F32, T, ...)                           \
   switch (code) {                                                          \
     case DT_BF16:                                                          \
       if constexpr (BF16) { using T = __nv_bfloat16; __VA_ARGS__ }         \
       else return (int)cudaErrorInvalidValue;                              \
       break;                                                               \
-    case DT_F32: { using T = float; __VA_ARGS__ } break;                   \
+    case DT_F32:                                                           \
+      if constexpr (F32) { using T = float; __VA_ARGS__ }                  \
+      else return (int)cudaErrorInvalidValue;                              \
+      break;                                                               \
     default: return (int)cudaErrorInvalidValue;                            \
   }
 
@@ -515,16 +521,17 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Asynchronous global -> shared copy of 8 bytes (W = 1: one double) or of
-// an aligned 16 (W = 2); !ok reads nothing and zero-fills the destination.
-template <int W>
+// Asynchronous global -> shared copy of N = 4, 8 or 16 aligned bytes; !ok
+// reads nothing and zero-fills the destination.
+template <int N>
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool ok) {
-  if constexpr (W == 2)
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 bytes");
+  if constexpr (N == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(ok ? 8 : 0) : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(dst), "l"(src), "n"(N), "r"(ok ? N : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -537,39 +544,60 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Stage a ROWS x COLS tile whose rows start at src + r ld (contiguous
-// along c) into shared memory at dst + r DLD + c, the block's NT threads
-// sharing the copies: rows r < rv and columns c < cv are copied.  The k
-// axis is the rows (KROWS) or the columns: past its end (r >= rv, or c >=
-// cv) the tile is zero-filled, so the products need no k mask; past the
-// end of the other axis nothing is written, and the stale values there
-// reach only outputs that are not stored.  vec: 16-byte pairs (ld, the
-// tile's start and cv even, the plane 16-byte aligned).
-template <int ROWS, int COLS, int DLD, int NT, bool KROWS>
-__device__ __forceinline__ void stage(double* dst, const double* src, int64_t ld,
-                                      int rv, int cv, bool vec) {
-  static_assert(COLS % 2 == 0 && DLD % 2 == 0, "rows of whole 16-byte pairs");
+// Stage a ROWS x COLS tile of doubles or floats whose rows start at src +
+// r ld (contiguous along c) into shared memory at dst + r DLD + c, the
+// block's NT threads sharing the copies: rows r < rv and columns c < cv are
+// copied.  The k axis is the rows (KROWS) or the columns: past its end (r
+// >= rv, or c >= cv) the tile is zero-filled, so the products need no k
+// mask; past the end of the other axis nothing is written, and the stale
+// values there reach only outputs that are not stored.  vec: 16-byte
+// copies of V elements (ld, the tile's start and cv multiples of V, the
+// plane 16-byte aligned); otherwise one copy an element.
+template <int ROWS, int COLS, int DLD, int NT, bool KROWS, typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int64_t ld, int rv, int cv,
+                                      bool vec) {
+  constexpr int V = 16 / sizeof(T), E = sizeof(T);
+  static_assert(COLS % V == 0 && DLD % V == 0, "rows of whole 16-byte runs");
   const uint32_t d0 = smem_addr(dst);
   const int rows = KROWS ? ROWS : rv;        // rows written
   if (vec) {
-    constexpr int CP = COLS / 2;
+    constexpr int CP = COLS / V;
     for (int e = threadIdx.x; e < rows * CP; e += NT) {
-      const int r = e / CP, c = 2 * (e % CP);
+      const int r = e / CP, c = V * (e % CP);
       if (KROWS && c >= cv) continue;        // past the other axis
       const bool ok = r < rv && c < cv;
-      cp_async<2>(d0 + 8u * (r * DLD + c), ok ? src + r * ld + c : src, ok);
+      cp_async<16>(d0 + E * (r * DLD + c), ok ? src + r * ld + c : src, ok);
     }
   } else {
     for (int e = threadIdx.x; e < rows * COLS; e += NT) {
       const int r = e / COLS, c = e % COLS;
       if (KROWS && c >= cv) continue;
       const bool ok = r < rv && c < cv;
-      cp_async<1>(d0 + 8u * (r * DLD + c), ok ? src + r * ld + c : src, ok);
+      cp_async<E>(d0 + E * (r * DLD + c), ok ? src + r * ld + c : src, ok);
     }
   }
 }
 
 bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
+
+// Launch a persistent kernel of `threads` threads and `bytes` of dynamic
+// shared memory: as many blocks as fit on the card at once, at most one an
+// item.
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, int threads, int bytes, int64_t items, int device,
+                      cudaStream_t s, Args... args) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int sms = 0, per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)min64(items, (int64_t)sms * per_sm), threads, bytes, s>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 // Shared-memory layout of a GEMM stage for NT column tiles of 8: the A
 // panel of each plane (kGemmRows x KC for N, KC x kGemmRows for T/H) and
@@ -955,24 +983,13 @@ int launch_gemm_f64(const void* Ar, const void* Ai, const void* Xr, const void* 
     return (int)e;
   }
   auto go = [&](auto kernel, int nt, int bytes) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    int sms = 0, per_sm = 0;
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kGemmRows / 16 * 32, bytes);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     const int64_t items =
         B * ((M + kGemmRows - 1) / kGemmRows) * ((S + 8 * nt - 1) / (8 * nt));
-    const int64_t grid = min64(items, (int64_t)sms * per_sm);
-    kernel<<<(unsigned)grid, kGemmRows / 16 * 32, bytes, s>>>(
+    return launch_persistent(
+        kernel, kGemmRows / 16 * 32, bytes, items, device, s,
         static_cast<const double*>(Ar), static_cast<const double*>(Ai),
         static_cast<const double*>(Xr), static_cast<const double*>(Xi),
         static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj, vec_a, vec_x, tg);
-    return (int)cudaGetLastError();
   };
   if (S <= 8)
     return go(zgemm_f64_kernel<O, 1, TRANS, TILED, REAL>, 1,
@@ -1015,6 +1032,7 @@ int launch_gram_f64(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t 
 }
 
 #include "sbgemm_bf16.cuh"
+#include "sbgemm_f32.cuh"
 
 // Y (B, m, S) = A (B, m, n) X (B, n, S); REAL: the planes Ar, Xr, Yr only.
 template <bool TILED, bool REAL>
@@ -1031,24 +1049,35 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
                                                     0, tg, device, s);
     )
   }
-  if constexpr (!TILED && !REAL) {
-    if (dt_in == DT_BF16) {
+  if constexpr (!REAL) {
+    if (dt_in == DT_F32) {
       DISPATCH_DTYPE(dt_out, O,
-        return bf16tc::launch_n<O>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, device, s);
+        return f32simt::launch_n<O, TILED>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, tg, device,
+                                           s);
       )
     }
   }
-  const int64_t rows = kNWarps * kNRows;     // output rows of a block
-  const int64_t bx = (m + rows - 1) / rows;
-  if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)bx, batch_grid(B));
-  DISPATCH_NARROW(dt_in, TILED || REAL, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_N_PASS(S, SC,
-    sbgemm_n_kernel<T, O, SC, TILED, REAL><<<grid, kNWarps * 32, 0, s>>>(
-        static_cast<const T*>(Ar), static_cast<const T*>(Ai),
-        static_cast<const T*>(Xr), static_cast<const T*>(Xi),
-        static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, tg);
-  )))
-  return (int)cudaGetLastError();
+  if constexpr (!TILED && !REAL) {
+    if (dt_in == DT_BF16) {
+      DISPATCH_DTYPE(dt_out, O,
+        return bf16tc::launch_gemm<O, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, 0,
+                                             device, s);
+      )
+    }
+    return (int)cudaErrorInvalidValue;
+  } else {   // the tiled bf16 and the real builds
+    const int64_t rows = kNWarps * kNRows;   // output rows of a block
+    const int64_t bx = (m + rows - 1) / rows;
+    if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)bx, batch_grid(B));
+    DISPATCH_NARROW(dt_in, true, REAL, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_N_PASS(S, SC,
+      sbgemm_n_kernel<T, O, SC, TILED, REAL><<<grid, kNWarps * 32, 0, s>>>(
+          static_cast<const T*>(Ar), static_cast<const T*>(Ai),
+          static_cast<const T*>(Xr), static_cast<const T*>(Xi),
+          static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, tg);
+    )))
+    return (int)cudaGetLastError();
+  }
 }
 
 // Y (B, n, S) = A^T X, or A^H X when conj != 0; X is (B, m, S).
@@ -1066,10 +1095,18 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
                                                    conj, tg, device, s);
     )
   }
+  if constexpr (!TILED && !REAL) {
+    if (dt_in == DT_BF16) {
+      DISPATCH_DTYPE(dt_out, O,
+        return bf16tc::launch_gemm<O, true>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj,
+                                            device, s);
+      )
+    }
+  }
   const int64_t bx = (n + kThreads - 1) / kThreads;
   if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)bx, batch_grid(B));
-  DISPATCH_NARROW(dt_in, true, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
+  DISPATCH_NARROW(dt_in, TILED || REAL, true, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
     sbgemm_th_kernel<T, O, SC, TILED, REAL><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(Xr), static_cast<const T*>(Xi),
@@ -1106,7 +1143,7 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
   const int64_t tiles = (P + kTile - 1) / kTile;
   if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)tiles, (unsigned)tiles, batch_grid(B));
-  DISPATCH_NARROW(dt_in, TILED, T, DISPATCH_DTYPE(dt_out, O,
+  DISPATCH_NARROW(dt_in, TILED, true, T, DISPATCH_DTYPE(dt_out, O,
     sbgemm_gram_kernel<T, O, TILED><<<grid, kGramThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, data, tg);

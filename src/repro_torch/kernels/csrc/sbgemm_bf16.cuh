@@ -1,23 +1,25 @@
-// bf16 planes on Hopper's tensor cores: the untiled complex N product and
+// bf16 planes on Hopper's tensor cores: the untiled complex N, T/H and
 // Gram blocks of sbgemm.cu, for bf16 A with f32 sums.
 //
 // Replaces, for bf16 planes, the TPU kernels
 // src/repro/kernels/sbgemv.py:sbgemm_n_complex (Y = A X as four
-// f32-accumulated real dots, Yr = rr - ii, Yi = ir + ri) and
-// :sbgemm_gram_complex (G = A^H A from four f32-accumulated real products,
-// Gr = Ar^T Ar + Ai^T Ai, Gi = Ar^T Ai - Ai^T Ar; the data-space A A^H read
-// from A as stored).  A bf16 x bf16 product is exact in f32, so
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate) computes the vector kernels'
-// function up to the order of the sums.  The tiled and real builds, and
-// every f32 build, stay on the vector kernels.
+// f32-accumulated real dots, Yr = rr - ii, Yi = ir + ri),
+// :sbgemm_th_complex (Y = A^T X, or A^H X with conj: Yr = rr + ii, Yi = ir
+// - ri, the contraction over the short m) and :sbgemm_gram_complex (G =
+// A^H A from four f32-accumulated real products, Gr = Ar^T Ar + Ai^T Ai, Gi
+// = Ar^T Ai - Ai^T Ar; the data-space A A^H read from A as stored).  A bf16
+// x bf16 product is exact in f32, so mma.sync.m16n8k16 (bf16 in, f32
+// accumulate) computes the vector kernels' function up to the order of the
+// sums.  The tiled and real builds stay on the vector kernels.
 //
 // Included by sbgemm.cu inside its anonymous namespace, after the f64
 // section, whose copy helpers (cp_async, cp_async_commit, cp_async_wait,
-// smem_addr) and min64 / aligned16 it uses.  Measurement builds of
-// sbgemm.cu (chip_smoke.py's bound probe; no wrapper loads them) compile
-// one side of both kernels out: SBGEMM_BF16_NO_MMA the products, leaving
-// the copy pipeline and the fragment loads, SBGEMM_BF16_NO_COPY the
-// operand copies, leaving the products on whatever shared memory holds.
+// smem_addr), min64 / aligned16 and launch_persistent it uses.
+// Measurement builds of sbgemm.cu (chip_smoke.py's bound probe; no wrapper
+// loads them) compile one side of both kernels out: SBGEMM_BF16_NO_MMA the
+// products, leaving the copy pipeline and the fragment loads,
+// SBGEMM_BF16_NO_COPY the operand copies, leaving the products on whatever
+// shared memory holds.
 //
 // Both kernels are persistent (blocks take items blockIdx.x, + gridDim.x,
 // ...) and run one cp.async ring of k-chunks across their items, as
@@ -32,19 +34,30 @@
 // one warp, in k order, on every run: no atomics, no split across warps or
 // blocks.
 //
-//   N (Y = A X, X (B, n, S), columns last): zgemm_bf16_kernel, bytes-bound
-//     (at S = 32 its tensor-core work, m padded to 112, is ~0.14 TFLOP,
-//     far under the time its 2.66 GB take at the HBM rate), so its job is
-//     to stream A at that rate.  Items are (bin, 112 output rows, a pass of
-//     SP = 8, 16 or 32 columns): a bin's m = 100 rows are one item, its X
-//     read once a pass.  128-wide k-chunks (96 at S > 16) of both A planes
-//     (51 KB at m = 100; A's rows are read in 256-byte runs, which stream
-//     faster than 128-byte ones) and of X sit in a ring 3 deep, one block
-//     an SM.  Warp w owns the m16 row tile w and all SP columns: each A
-//     fragment (ldmatrix) feeds SP / 8 n8 tiles x 4 real products, Re Re
-//     and -Im Im into Re, then Re Im and Im Re into Im (-Im: the fragment's
-//     sign bits flipped, exact); X's fragments come from the [k][s] panel
-//     through ldmatrix.trans.
+//   N (Y = A X, X (B, n, S), columns last) and T/H (Y = A^T X or A^H X, X
+//     (B, m, S)): zgemm_bf16_kernel, the TRANS flag choosing T/H.
+//     Bytes-bound (at S = 32 its tensor-core work, the 100 rows or k padded
+//     to 112, is ~0.14 TFLOP, far under the time its 2.66 GB take at the
+//     HBM rate), so its job is to stream A at that rate.  Items are (bin,
+//     112 output rows, a pass of SP = 8, 16 or 32 columns), in a ring 3
+//     deep, one block an SM; warp w owns the m16 output tile w and all SP
+//     columns: each A fragment (ldmatrix) feeds SP / 8 n8 tiles x 4 real
+//     products, Re Re and -Im Im (+Im Im with conj) into Re, then Re Im and
+//     Im Re (-Im Re with conj) into Im (a negated fragment: its sign bits
+//     flipped, exact); X's fragments come from the [k][s] panel through
+//     ldmatrix.trans.
+//     N: a bin's m = 100 rows are one item, its X read once a pass; k runs
+//     over n in 128-wide chunks (96 at S > 16) of both A planes (51 KB at
+//     m = 100; A's rows are read in 256-byte runs, which stream faster than
+//     128-byte ones) and of X.
+//     T/H: the output rows are A's columns (45 items a bin at n = 5000, the
+//     last of 72 rows) and k is A's short m, in 112-wide chunks, so at the
+//     paper shape one chunk is a whole item and the ring streams items.
+//     The A panel is staged [k][r], A's rows as stored (224-byte runs
+//     along n), and its fragments are read through ldmatrix.trans, as the
+//     parameter-space Gram reads U; a bin's X panel is read from L2 once an
+//     item.  As an item can be a single chunk, the cursor steps through the
+//     items without a division.
 //   Gram, G = U U^H per bin with U's rows the P indices (data space: A's
 //     rows, k over n; parameter space: A's columns, k over m, read through
 //     ldmatrix.trans): zgram_bf16_kernel.  Items are (bin, a 112 x 112
@@ -142,7 +155,7 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src, int64_t ld, in
       const int r = e / CV, c = 8 * (e % CV);
       if (KROWS && c >= cv) continue;        // past the other axis
       const bool ok = r < rv && c < cv;
-      cp_async<2>(d0 + 2u * (r * DLD + c), ok ? src + r * ld + c : src, ok);
+      cp_async<16>(d0 + 2u * (r * DLD + c), ok ? src + r * ld + c : src, ok);
     }
   } else {
     for (int e = threadIdx.x; e < rows * COLS; e += kThreads) {
@@ -153,63 +166,82 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src, int64_t ld, in
   }
 }
 
-// Shared-memory layout of an N stage for NT column tiles of 8: the A panel
-// of each plane (kRows x KC) and the X panel of each plane (KC x SP).
-template <int NT>
-struct NLayout {
-  static constexpr int SP = 8 * NT, KC = NT == 4 ? 96 : 128, NS = 3;
-  static constexpr int ALD = KC + kPadE;                       // 208, 272 bytes
+// Shared-memory layout of a GEMM stage for NT column tiles of 8: the A
+// panel of each plane (N: kRows x KC, A's rows as stored; T/H: KC x kRows,
+// A's rows k along the output rows) and the X panel of each plane (KC x
+// SP).  STEP and TILE: the element offsets in an A panel of k-step j (16 k)
+// and of row tile w (16 output rows).
+template <int NT, bool TRANS>
+struct ZLayout {
+  static constexpr int SP = 8 * NT, NS = 3;
+  static constexpr int KC = TRANS ? 112 : NT == 4 ? 96 : 128;
+  static constexpr int ALD = TRANS ? kRows + kPadE : KC + kPadE;   // 240; 208, 272 bytes
   static constexpr int XLD = SP % 16 ? SP + 2 * kPadE : SP + kPadE;   // 48, 80
-  static constexpr int A_TILE = kRows * ALD, X_TILE = KC * XLD;
+  static constexpr int A_TILE = (TRANS ? KC : kRows) * ALD, X_TILE = KC * XLD;
   static constexpr int STAGE = 2 * (A_TILE + X_TILE);          // elements
   static constexpr int BYTES = 2 * NS * STAGE;
+  static constexpr int STEP = TRANS ? 16 * ALD : 16, TILE = TRANS ? 16 : 16 * ALD;
 };
 
-template <typename O, int NT>
+// Y = op(A) X per bin: N (Y (B, m, S) = A X, k over n) or TRANS (Y (B, n,
+// S) = A^T X, A^H X with conj, k over m).
+template <typename O, int NT, bool TRANS>
 __global__ void __launch_bounds__(kThreads, 1)
 zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
                   const bf16* __restrict__ Xr, const bf16* __restrict__ Xi,
                   O* __restrict__ Yr, O* __restrict__ Yi, int64_t B, int64_t m,
-                  int64_t n, int64_t S, int vec_a, int vec_x) {
-  using L = NLayout<NT>;
+                  int64_t n, int64_t S, int conj, int vec_a, int vec_x) {
+  using L = ZLayout<NT, TRANS>;
   constexpr int KC = L::KC, NS = L::NS, SP = L::SP;
   extern __shared__ __align__(16) bf16 sbf[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int64_t RTS = (m + kRows - 1) / kRows, SPS = (S + SP - 1) / SP;
-  const int64_t items = B * RTS * SPS, KCH = (n + KC - 1) / KC;
-  // A position in this block's chunk stream, as in zgemm_f64_kernel
+  const int64_t M = TRANS ? n : m, K = TRANS ? m : n;
+  const int64_t KCH = (K + KC - 1) / KC;
+  // A position in this block's chunk stream: item (b, rt, sp) of the B x
+  // RTS x SPS items (bin, kRows output rows, SP columns), taken blockIdx.x,
+  // + gridDim.x, ..., its chunk c and the ring stage it goes to.  gridDim.x
+  // is added to the item digit by digit, with carries, so no division runs
+  // past the first item (an item can be a single chunk).
+  const int RTS = (int)((M + kRows - 1) / kRows), SPS = (int)((S + SP - 1) / SP);
+  const int64_t step_b = gridDim.x / ((int64_t)RTS * SPS);
+  const int step_rt = (int)(gridDim.x / SPS % RTS), step_sp = (int)(gridDim.x % SPS);
   struct Cursor {
-    int64_t it, c, b, r0, s0;
-    int rv, sv, slot;
+    int64_t b, c, r0, s0;
+    int rt, sp, rv, sv, slot;
   };
-  auto at_item = [&](Cursor& q) {
+  auto at_item = [&](Cursor& q) {     // past the last item, q.b >= B
     q.c = 0;
-    if (q.it >= items) return;
-    q.b = q.it / (RTS * SPS);
-    q.r0 = (q.it / SPS) % RTS * kRows;
-    q.s0 = q.it % SPS * SP;
-    q.rv = (int)min64(kRows, m - q.r0);
+    q.r0 = (int64_t)q.rt * kRows;
+    q.s0 = (int64_t)q.sp * SP;
+    q.rv = (int)min64(kRows, M - q.r0);
     q.sv = (int)min64(SP, S - q.s0);
   };
   auto advance = [&](Cursor& q) {
     q.slot = q.slot + 1 == NS ? 0 : q.slot + 1;
     if (++q.c == KCH) {
-      q.it += gridDim.x;
+      if ((q.sp += step_sp) >= SPS) q.sp -= SPS, ++q.rt;
+      if ((q.rt += step_rt) >= RTS) q.rt -= RTS, ++q.b;
+      q.b += step_b;
       at_item(q);
     }
   };
   // one copy group a chunk (empty past the last), so the wait counts chunks
   auto load = [&](const Cursor& w) {
-    if (w.it < items) {
+    if (w.b < B) {
       const int64_t k0 = w.c * KC;
-      const int kv = (int)min64(KC, n - k0);
+      const int kv = (int)min64(KC, K - k0);
       bf16* st = sbf + w.slot * L::STAGE;
 #pragma unroll
       for (int pl = 0; pl < 2; ++pl) {
-        const bf16* a = (pl ? Ai : Ar) + (w.b * m + w.r0) * n + k0;
-        stage<kRows, KC, L::ALD, false>(st + pl * L::A_TILE, a, n, w.rv, kv, vec_a);
-        const bf16* x = (pl ? Xi : Xr) + (w.b * n + k0) * S + w.s0;
+        const bf16* a = (pl ? Ai : Ar) + w.b * m * n;
+        if (TRANS)   // A's rows k0.. (k), its columns r0.. (output rows)
+          stage<KC, kRows, L::ALD, true>(st + pl * L::A_TILE, a + k0 * n + w.r0, n, kv,
+                                         w.rv, vec_a);
+        else         // A's rows r0.., its columns k0..
+          stage<kRows, KC, L::ALD, false>(st + pl * L::A_TILE, a + w.r0 * n + k0, n, w.rv,
+                                          kv, vec_a);
+        const bf16* x = (pl ? Xi : Xr) + (w.b * K + k0) * S + w.s0;
         stage<KC, SP, L::XLD, true>(st + 2 * L::A_TILE + pl * L::X_TILE, x, S, kv, w.sv,
                                     vec_x);
       }
@@ -217,10 +249,16 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
     cp_async_commit();
   };
   // this lane's ldmatrix row: A (row tile `warp`, matrices in fragment
-  // order: rows +0 / +8, k +0 / +8); X ([k][s]: k +0 / +8, columns +0 / +8)
+  // order: rows +0 / +8, k +0 / +8; T/H reads [k][r] transposed); X ([k][s]:
+  // k +0 / +8, columns +0 / +8)
   const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
-  const uint32_t a_off = 2u * ((16 * warp + lr) * L::ALD + lc);
+  const int a_row = TRANS ? (lane & 7) + 8 * (lane >> 4) : lr;
+  const int a_col = TRANS ? 8 * ((lane >> 3) & 1) : lc;
+  const uint32_t a_off = 2u * (warp * L::TILE + a_row * L::ALD + a_col);
   const uint32_t x_off = 2u * (2 * L::A_TILE + lr * L::XLD + lc);
+  // the sign bits the Im A fragments take into the Re sum (-Im Im; +Im Im
+  // with conj) and into the Im sum (+Im Re; -Im Re with conj)
+  const uint32_t flip_ii = conj ? 0u : 0x80008000u, flip_ri = flip_ii ^ 0x80008000u;
   float acc[2][NT][4];
 #pragma unroll
   for (int p = 0; p < 2; ++p)
@@ -229,7 +267,9 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[p][v][e] = 0.f;
   Cursor w, ld;                              // compute and load cursors
-  w.it = blockIdx.x;
+  w.b = blockIdx.x / ((int64_t)RTS * SPS);
+  w.rt = (int)(blockIdx.x / SPS % RTS);
+  w.sp = (int)(blockIdx.x % SPS);
   w.slot = 0;
   at_item(w);
   ld = w;
@@ -238,7 +278,7 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
     load(ld);
     advance(ld);
   }
-  for (; w.it < items; advance(w)) {
+  for (; w.b < B; advance(w)) {
     cp_async_wait<NS - 2>();         // this thread's copies of chunk w landed
     __syncthreads();                 // everyone's; the chunk before is consumed
     load(ld);
@@ -248,11 +288,14 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
       const uint32_t st = smem_addr(sbf + w.slot * L::STAGE);
 #pragma unroll
       for (int j = 0; j < KC / 16; ++j) {
-        uint32_t ar[4], ai[4], an[4], xr[NT][2], xi[NT][2];
-        ldsm4<false>(ar, st + a_off + 32u * j);
-        ldsm4<false>(ai, st + a_off + 2u * L::A_TILE + 32u * j);
+        uint32_t ar[4], ai[4], aii[4], ari[4], xr[NT][2], xi[NT][2];
+        ldsm4<TRANS>(ar, st + a_off + 2u * L::STEP * j);
+        ldsm4<TRANS>(ai, st + a_off + 2u * (L::A_TILE + L::STEP * j));
 #pragma unroll
-        for (int e = 0; e < 4; ++e) an[e] = neg2(ai[e]);
+        for (int e = 0; e < 4; ++e) {
+          aii[e] = ai[e] ^ flip_ii;
+          ari[e] = ai[e] ^ flip_ri;
+        }
         const uint32_t xa = st + x_off + 2u * 16 * j * L::XLD;
         if constexpr (NT == 1) {
           ldsm2t(xr[0], xa);
@@ -270,9 +313,9 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
 #pragma unroll
         for (int v = 0; v < NT; ++v) {
           mma16816(acc[0][v], ar, xr[v][0], xr[v][1]);
-          mma16816(acc[0][v], an, xi[v][0], xi[v][1]);
+          mma16816(acc[0][v], aii, xi[v][0], xi[v][1]);
           mma16816(acc[1][v], ar, xi[v][0], xi[v][1]);
-          mma16816(acc[1][v], ai, xr[v][0], xr[v][1]);
+          mma16816(acc[1][v], ari, xr[v][0], xr[v][1]);
         }
       }
     }
@@ -285,7 +328,7 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
           for (int e = 0; e < 4; ++e) {
             const int row = 16 * warp + g + 8 * (e >> 1), col = 8 * v + 2 * t + (e & 1);
             if (row < w.rv && col < w.sv)
-              (p ? Yi : Yr)[(w.b * m + w.r0 + row) * S + w.s0 + col] =
+              (p ? Yi : Yr)[(w.b * M + w.r0 + row) * S + w.s0 + col] =
                   Store<O>::from(acc[p][v][e]);
             acc[p][v][e] = 0.f;
           }
@@ -518,50 +561,34 @@ zgram_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
   }
 }
 
-// Launch a persistent kernel of kThreads threads and `bytes` of dynamic
-// shared memory: as many blocks as fit on the card at once, at most one an
-// item.
-template <typename Kernel, typename... Args>
-int launch_persistent(Kernel kernel, int bytes, int64_t items, int device,
-                      cudaStream_t s, Args... args) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  int sms = 0, per_sm = 0;
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)min64(items, (int64_t)sms * per_sm), kThreads, bytes, s>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-// Y (B, m, S) = A (B, m, n) X (B, n, S) on bf16 planes, passes of 8, 16 or
-// 32 columns.
-template <typename O>
-int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
-             void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, int device,
-             cudaStream_t s) {
-  if (n == 0) {                              // an empty sum: Y = 0
-    const size_t bytes = (size_t)(B * m * S) * sizeof(O);
+// Y (B, m, S) = A (B, m, n) X (B, n, S), or TRANS: Y (B, n, S) = A^T X
+// (A^H X with conj), X (B, m, S), on bf16 planes, passes of 8, 16 or 32
+// columns.
+template <typename O, bool TRANS>
+int launch_gemm(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
+                void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, int conj,
+                int device, cudaStream_t s) {
+  const int64_t M = TRANS ? n : m;
+  if ((TRANS ? m : n) == 0) {                // an empty sum: Y = 0
+    const size_t bytes = (size_t)(B * M * S) * sizeof(O);
     cudaError_t e = cudaMemsetAsync(Yr, 0, bytes, s);
     if (e == cudaSuccess) e = cudaMemsetAsync(Yi, 0, bytes, s);
     return (int)e;
   }
   const int vec_a = n % 8 == 0 && aligned16(Ar) && aligned16(Ai);
   const int vec_x = S % 8 == 0 && aligned16(Xr) && aligned16(Xi);
-  const int64_t rts = (m + kRows - 1) / kRows;
+  const int64_t rts = (M + kRows - 1) / kRows;
   auto go = [&](auto kernel, int nt, int bytes) {
-    return launch_persistent(kernel, bytes, B * rts * ((S + 8 * nt - 1) / (8 * nt)), device,
-                             s, static_cast<const bf16*>(Ar), static_cast<const bf16*>(Ai),
+    return launch_persistent(kernel, kThreads, bytes,
+                             B * rts * ((S + 8 * nt - 1) / (8 * nt)), device, s,
+                             static_cast<const bf16*>(Ar), static_cast<const bf16*>(Ai),
                              static_cast<const bf16*>(Xr), static_cast<const bf16*>(Xi),
-                             static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, vec_a,
-                             vec_x);
+                             static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj,
+                             vec_a, vec_x);
   };
-  if (S <= 8) return go(zgemm_bf16_kernel<O, 1>, 1, NLayout<1>::BYTES);
-  if (S <= 16) return go(zgemm_bf16_kernel<O, 2>, 2, NLayout<2>::BYTES);
-  return go(zgemm_bf16_kernel<O, 4>, 4, NLayout<4>::BYTES);
+  if (S <= 8) return go(zgemm_bf16_kernel<O, 1, TRANS>, 1, ZLayout<1, TRANS>::BYTES);
+  if (S <= 16) return go(zgemm_bf16_kernel<O, 2, TRANS>, 2, ZLayout<2, TRANS>::BYTES);
+  return go(zgemm_bf16_kernel<O, 4, TRANS>, 4, ZLayout<4, TRANS>::BYTES);
 }
 
 // G = A^H A, (B, n, n), or with data != 0 G = A A^H, (B, m, m), on bf16
@@ -580,7 +607,7 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B, i
   const int vec = n % 8 == 0 && aligned16(Ar) && aligned16(Ai);
   const int64_t T = (P + kRows - 1) / kRows;
   auto go = [&](auto kernel, int bytes) {
-    return launch_persistent(kernel, bytes, B * T * T, device, s,
+    return launch_persistent(kernel, kThreads, bytes, B * T * T, device, s,
                              static_cast<const bf16*>(Ar), static_cast<const bf16*>(Ai),
                              static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, vec);
   };

@@ -10,7 +10,9 @@ data is carried as split re/im planes, each A element read once for both
 output planes.  Their multi-RHS twins (SBGEMM, S right-hand sides on a
 trailing axis) and the per-bin Gram blocks G = A^H A live in
 ``csrc/sbgemm.cu``; there each A element also serves every column of a
-pass, and f64 planes run on the FP64 tensor cores.
+pass, f64 planes run on the FP64 tensor cores, the untiled complex bf16
+products (N, T/H, Gram) on the bf16 tensor cores, and the untiled complex
+f32 N in a staged FP32 kernel.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version beside it for CPU tensors.  Sums accumulate in f64 for f64 planes

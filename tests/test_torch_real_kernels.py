@@ -310,9 +310,10 @@ def test_real_entries_are_declared_as_their_sources_define(source):
 @pytest.mark.parametrize("source, want", [
     ("pad_cast", ["common.cuh", "pad_cast.cu"]),
     ("sbgemv", ["common.cuh", "sbgemv.cu"]),
-    ("sbgemm", ["common.cuh", "sbgemm.cu", "sbgemm_bf16.cuh"]),
+    ("sbgemm", ["common.cuh", "sbgemm.cu", "sbgemm_bf16.cuh",
+                "sbgemm_f32.cuh"]),
     ("sbgemm_real", ["common.cuh", "sbgemm.cu", "sbgemm_bf16.cuh",
-                     "sbgemm_real.cu"]),
+                     "sbgemm_f32.cuh", "sbgemm_real.cu"]),
 ])
 def test_each_library_hashes_only_its_own_sources(source, want):
     """A library's build name covers its source and what it includes, so

@@ -101,6 +101,33 @@ def test_sbgemm_plain_matches_pallas_interpret(B, m, n, S, dt, mode):
                                    atol=tol * n / 64)
 
 
+# The edges of the card's bf16 T/H kernel (k = m across its 16-deep
+# k-steps and past its 112-wide k-chunk, n around its 112-row items) and
+# of its f32 N kernel (m around its 20-row warp bands and 100-row items, S
+# past its 8- and 32-column passes): the plain versions those kernels are
+# held against on the card, against interpret-mode Pallas.
+EDGE_CASES = (
+    [pytest.param(mode, 2, m, n, 8, torch.bfloat16, id=f"{mode}-bf16-{m}x{n}")
+     for mode in "TH" for m in (15, 17, 100) for n in (111, 112, 113)]
+    + [pytest.param("N", 2, m, 130, S, torch.float32, id=f"N-f32-{m}-S{S}")
+       for m in (25, 100) for S in (9, 33)])
+
+
+@pytest.mark.parametrize("mode,B,m,n,S,dt", EDGE_CASES)
+def test_sbgemm_plain_matches_pallas_interpret_at_kernel_edges(mode, B, m, n,
+                                                               S, dt):
+    jp, tp = _gemm_planes(B, m, n, S, mode, dt, seed=B * m + n + S)
+    want = jops.sbgemm(*jp, mode, block_s=8, out_dtype=jnp.float32,
+                       **PALLAS)
+    got = _plain(tp, mode, torch.float32)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert g.shape == (B, m if mode == "N" else n, S)
+        np.testing.assert_allclose(_np(g), _np(w), rtol=tol,
+                                   atol=tol * n / 64)
+
+
 @pytest.mark.parametrize("mode", ["N", "T", "H"])
 @pytest.mark.parametrize("force", [None, "torch", "ref"])
 def test_sbgemm_equals_columnwise_sbgemv(mode, force):
