@@ -110,14 +110,20 @@ CUDA toolkit.  It:
    setup (against ``torch-ref`` at the h tolerance) are timed beside the
    plain path, and the bf16 Gram's library call once more with its re/im
    combine (reported, not gated);
-10. the staged f32 N kernel (FFMA on the vector units): its ``ptxas``
-   registers and spill bytes, and ragged shapes (m = 15 .. 129 around its
-   100-row items, n = 40 .. 5000 with odd n and n % 4 != 0, S = 1 .. 40):
-   the f32 output against its plain version at the s tolerance, the bf16
-   and f64 outputs bit for bit the f32 output cast.  The bf16 Gram, N and
-   T/H (mode H) and the f32 N are also built without their products and
-   without their copies and timed at the paper shape, so the side that
-   bounds each is measured (reported, not gated).
+10. the staged f32 kernels (FFMA on the vector units: N, T/H and the
+   Gram): their ``ptxas`` registers and spill bytes, and ragged shapes (N:
+   m = 15 .. 129 around its 100-row items, n = 40 .. 5000 with odd n and n
+   % 4 != 0; T/H in modes T and H: m = 1 .. 129 across its 16- and 20-wide
+   k-chunks, n = 40 .. 133 around its 128-row items; both at S = 1 .. 40;
+   the Gram at P = 1 .. 300 around its 100-row tiles, in both spaces, K =
+   1 .. 264): the f32 output against its plain version at the s
+   tolerance, the bf16 and f64 outputs bit for bit the f32 output cast.
+   The bf16 and the f32 Gram (data space), N and T/H (mode H) are also
+   built without their products and without their copies and timed at the
+   paper shape, so the side that bounds each is measured (reported, not
+   gated); the ``dssdd`` circulant G_hat setup runs through the f32 Gram
+   (one launch, against ``torch-ref`` at the s tolerance), timed beside the
+   plain path.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -551,58 +557,94 @@ def check_bf16_tensor_core_kernels(dev):
           f"versions", flush=True)
 
 
-def check_f32_n_kernel(dev):
-    """The staged f32 N kernel at ragged shapes across its edges: m around
-    its 20-row warp bands and 100-row items, n shorter than one 32-wide
-    k-chunk, odd and n % 4 != 0 (element copies) and the paper's 5000, S
-    across the 8/16/32 passes and past 32.  The f32 output against the
-    plain version at the s tolerance; the bf16 and f64 outputs bit for bit
-    the f32 output cast (the sums do not depend on the output dtype), and
-    against the plain version within one rounding of their dtype."""
+def _check_f32_outputs(what, kernel, plain) -> int:
+    """One staged f32 kernel call against its plain version: the f32 output
+    at the s tolerance; the bf16 and f64 outputs bit for bit the f32 output
+    cast (the sums do not depend on the output dtype), and against the
+    plain version within one rounding of their dtype.  ``kernel`` and
+    ``plain`` take the output dtype; returns the calls made."""
+    dt = torch.float32
+    got = kernel(dt)
+    check_planes(what, got, plain(dt), dt)
+    for od in (torch.bfloat16, torch.float64):
+        cast = kernel(od)
+        if not same_bits(cast, [g.to(od) for g in got]):
+            fail(f"{what} -> {name(od)} differs from the f32 output cast")
+        check_planes(f"{what} -> {name(od)}", cast, plain(od), dt,
+                     max(TOL["s"], 2.0 ** -8 if od == torch.bfloat16
+                         else 0.0))
+    return 3
+
+
+def check_f32_kernels(dev):
+    """The staged f32 kernels at ragged shapes across their edges, each
+    output checked by ``_check_f32_outputs``.  N: m around its 20-row warp
+    bands and 100-row items, n shorter than one 32-wide k-chunk, odd and n
+    % 4 != 0 (element copies) and the paper's 5000, S across the 8/16/32
+    passes and past 32.  T/H, modes T and H: k = m from 1 past one 16- or
+    20-wide k-chunk and past 100, n around the 32-row warp bands and the
+    128-row items, odd and n % 4 != 0, the same S.  The Gram, both spaces:
+    P around the 25-quad tile (99 .. 103, and its multiples past 100, which
+    take the two-panel items), P % 4 != 0 (element stores), K from 1 past
+    one 64-wide k-chunk."""
     from repro_torch.kernels import sbgemv as sk
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     dt = torch.float32
+    S_list = (1, 8, 9, 16, 17, 32, 33, 40)
 
     def planes(*shape):
         return [torch.randn(shape, generator=gen, device=dev,
                             dtype=torch.float64).to(dt) for _ in range(2)]
 
-    calls = 0
+    n_n = n_t = n_g = 0
     for m in (15, 16, 17, 25, 100, 129):
         for n in (40, 130, 133, 264, 5000):
             A = planes(2, m, n)
-            for S in (1, 8, 9, 16, 17, 32, 33, 40):
+            for S in S_list:
                 X = planes(2, n, S)
-                what = f"sbgemm_n_complex f32 at {(2, m, n, S)}"
-                got = sk.sbgemm_n_complex(*A, *X)
-                check_planes(what, got, sk.sbgemm_n_complex_plain(*A, *X, dt),
-                             dt)
-                for od in (torch.bfloat16, torch.float64):
-                    cast = sk.sbgemm_n_complex(*A, *X, out_dtype=od)
-                    if not same_bits(cast, [g.to(od) for g in got]):
-                        fail(f"{what} -> {name(od)} differs from the f32 "
-                             f"output cast")
-                    check_planes(f"{what} -> {name(od)}", cast,
-                                 sk.sbgemm_n_complex_plain(*A, *X, od), dt,
-                                 max(TOL["s"], 2.0 ** -8
-                                     if od == torch.bfloat16 else 0.0))
-                calls += 3
+                n_n += _check_f32_outputs(
+                    f"sbgemm_n_complex f32 at {(2, m, n, S)}",
+                    lambda od: sk.sbgemm_n_complex(*A, *X, out_dtype=od),
+                    lambda od: sk.sbgemm_n_complex_plain(*A, *X, od))
+    for m in (1, 7, 16, 17, 20, 21, 100, 129):
+        for n in (40, 127, 128, 129, 130, 133):
+            A = planes(2, m, n)
+            for S in S_list:
+                X = planes(2, m, S)
+                for conj in (False, True):
+                    n_t += _check_f32_outputs(
+                        f"sbgemm_th_complex mode {'H' if conj else 'T'} f32 "
+                        f"at {(2, m, n, S)}",
+                        lambda od: sk.sbgemm_th_complex(*A, *X, conj=conj,
+                                                        out_dtype=od),
+                        lambda od: sk.sbgemm_th_complex_plain(*A, *X, conj,
+                                                              od))
+    for P in (1, 4, 31, 99, 100, 101, 103, 200, 201, 300):
+        for space in ("data", "parameter"):
+            data = space == "data"
+            for K in (1, 7, 64, 65, 264):
+                A = planes(2, *((P, K) if data else (K, P)))
+                n_g += _check_f32_outputs(
+                    f"sbgemm_gram_complex {space} f32 at {tuple(A[0].shape)}",
+                    lambda od: sk.sbgemm_gram_complex(*A, data=data,
+                                                      out_dtype=od),
+                    lambda od: sk.sbgemm_gram_complex_plain(*A, data, od))
     sync(dev)
-    print(f"f32 N kernel: {calls} calls at ragged shapes within "
-          f"{TOL['s']:g} of its plain version (bf16 / f64 outputs: the f32 "
-          f"output cast, bit for bit)", flush=True)
+    print(f"f32 staged kernels: {n_n} N, {n_t} T/H and {n_g} Gram calls at "
+          f"ragged shapes within {TOL['s']:g} of their plain versions (bf16 "
+          f"/ f64 outputs: the f32 output cast, bit for bit)", flush=True)
 
 
 # measurement builds of csrc/sbgemm.cu: the bf16 tensor-core kernels and
-# the f32 N kernel with one side compiled out (csrc/sbgemm_bf16.cuh,
+# the staged f32 kernels with one side compiled out (csrc/sbgemm_bf16.cuh,
 # csrc/sbgemm_f32.cuh)
 BOUND_PROBES = {"no_products_ms": ("SBGEMM_BF16_NO_MMA", "SBGEMM_F32_NO_FMA"),
                 "no_copy_ms": ("SBGEMM_BF16_NO_COPY", "SBGEMM_F32_NO_COPY")}
 
 
 def probe_bounds(dev, B, m, n, time_fn):
-    """The bf16 tensor-core kernels (the data-space Gram, N and mode H at S
-    = 8 and 32) and the f32 N kernel (S = 8 and 32) at the paper shape,
+    """The bf16 tensor-core kernels and the staged f32 kernels (each: the
+    data-space Gram, N and mode H at S = 8 and 32) at the paper shape,
     each built as the wrappers load it, without its products (the copy
     pipeline alone, with the bf16 fragment loads) and without its copies
     (the products alone, on whatever shared memory holds): the slower
@@ -619,21 +661,18 @@ def probe_bounds(dev, B, m, n, time_fn):
     out = {}
     for dt in (torch.bfloat16, torch.float32):
         A = planes(dt, B, m, n)
-        cases = {}
-        if dt == torch.bfloat16:
-            cases["sbgemm_gram_complex data"] = (
-                "sbgemm_gram_complex", (*A, *planes(dt, B, m, m, fill=False)),
-                (B, m, n), (1,))
+        cases = {"sbgemm_gram_complex data": (
+            "sbgemm_gram_complex", (*A, *planes(dt, B, m, m, fill=False)),
+            (B, m, n), (1,))}
         for S in (S_BLOCK, S_WIDE):
             cases[f"sbgemm_n_complex S={S}"] = (
                 "sbgemm_n_complex", (*A, *planes(dt, B, n, S),
                                      *planes(dt, B, m, S, fill=False)),
                 (B, m, n, S), ())
-            if dt == torch.bfloat16:
-                cases[f"sbgemm_th_complex H S={S}"] = (
-                    "sbgemm_th_complex", (*A, *planes(dt, B, m, S),
-                                          *planes(dt, B, n, S, fill=False)),
-                    (B, m, n, S), (1,))
+            cases[f"sbgemm_th_complex H S={S}"] = (
+                "sbgemm_th_complex", (*A, *planes(dt, B, m, S),
+                                      *planes(dt, B, n, S, fill=False)),
+                (B, m, n, S), (1,))
         code = _build.DTYPE_CODES[dt]
         for what, (entry, tensors, sizes, ints) in cases.items():
             ptrs = [t.data_ptr() for t in tensors]
@@ -1194,35 +1233,41 @@ def drive_circulant(dev, op_d, timed, time_fn, report):
               f"{out['setup_ratio_to_plain_path']:.3f}x), action "
               f"{out['apply_ms']:.3f} ms", flush=True)
 
-    # hhhhh: G_hat from bf16 F_hat through the bf16 tensor-core Gram
-    from repro_torch.core import TPU_FAST
-    op_h = op_d.with_precision(TPU_FAST)
-    _build.reset_launch_counts()
-    circ_h = GramOperator.from_matvec(op_h, space="data", mode="circulant")
-    sync(dev)
-    check_launches(dict(_build.launch_counts), {"sbgemm_gram_complex": 1})
-    ref_h = GramOperator.from_matvec(op_h.with_backend("torch-ref"),
-                                     space="data", mode="circulant")
-    e_h = max(rel(circ_h.G_hat_re, ref_h.G_hat_re),
-              rel(circ_h.G_hat_im, ref_h.G_hat_im))
-    hh = out["hhhhh"] = {"G_hat_vs_ref": e_h}
-    print(f"circulant G_hat hhhhh: vs torch-ref {e_h:.3e} (<= {TOL['h']:g})",
-          flush=True)
-    if not e_h <= TOL["h"]:
-        fail(f"hhhhh circulant G_hat vs torch-ref {e_h:.3e} > {TOL['h']:g}")
-    del circ_h, ref_h
-    if timed:
-        hh["setup_ms"] = time_fn(
-            lambda _: GramOperator.from_matvec(op_h, space="data",
-                                               mode="circulant"), None)
-        hh["setup_plain_path_ms"] = time_fn(
-            lambda _: GramOperator.from_matvec(plain_path(op_h), space="data",
-                                               mode="circulant"), None)
-        hh["setup_ratio_to_plain_path"] = (hh["setup_ms"]
-                                           / hh["setup_plain_path_ms"])
-        print(f"  hhhhh G_hat setup {hh['setup_ms']:.3f} ms (plain path "
-              f"{hh['setup_plain_path_ms']:.3f}: "
-              f"{hh['setup_ratio_to_plain_path']:.3f}x)", flush=True)
+    # hhhhh: G_hat from bf16 F_hat through the bf16 tensor-core Gram;
+    # dssdd: from f32 F_hat through the staged f32 Gram
+    from repro_torch.core.precision import PrecisionConfig
+    for cfg, level in (("hhhhh", "h"), ("dssdd", "s")):
+        op_c = op_d.with_precision(PrecisionConfig.from_string(cfg))
+        _build.reset_launch_counts()
+        circ_c = GramOperator.from_matvec(op_c, space="data",
+                                          mode="circulant")
+        sync(dev)
+        check_launches(dict(_build.launch_counts), {"sbgemm_gram_complex": 1})
+        ref_c = GramOperator.from_matvec(op_c.with_backend("torch-ref"),
+                                         space="data", mode="circulant")
+        e_c = max(rel(circ_c.G_hat_re, ref_c.G_hat_re),
+                  rel(circ_c.G_hat_im, ref_c.G_hat_im))
+        row = out[cfg] = {"G_hat_vs_ref": e_c}
+        print(f"circulant G_hat {cfg}: vs torch-ref {e_c:.3e} (<= "
+              f"{TOL[level]:g})", flush=True)
+        if not e_c <= TOL[level]:
+            fail(f"{cfg} circulant G_hat vs torch-ref {e_c:.3e} > "
+                 f"{TOL[level]:g}")
+        del circ_c, ref_c
+        if timed:
+            row["setup_ms"] = time_fn(
+                lambda _: GramOperator.from_matvec(op_c, space="data",
+                                                   mode="circulant"), None)
+            row["setup_plain_path_ms"] = time_fn(
+                lambda _: GramOperator.from_matvec(plain_path(op_c),
+                                                   space="data",
+                                                   mode="circulant"), None)
+            row["setup_ratio_to_plain_path"] = (row["setup_ms"]
+                                                / row["setup_plain_path_ms"])
+            print(f"  {cfg} G_hat setup {row['setup_ms']:.3f} ms (plain path "
+                  f"{row['setup_plain_path_ms']:.3f}: "
+                  f"{row['setup_ratio_to_plain_path']:.3f}x)", flush=True)
+        del op_c
 
 
 def drive_solvers(dev, op_d, timed, time_fn, report):
@@ -2193,9 +2238,9 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
                   (2, 129, 66), (2, 33, 129)):
         check_gram_kernel(dev, *shape, ("parameter", "data"), False, results,
                           time_fn)
-    # the bf16 tensor-core kernels' and the f32 N kernel's edges
+    # the bf16 tensor-core kernels' and the staged f32 kernels' edges
     check_bf16_tensor_core_kernels(dev)
-    check_f32_n_kernel(dev)
+    check_f32_kernels(dev)
     # parameter-space G_hat at the paper shape is (1001, 5000, 5000) a
     # plane: only the data space is held there
     check_gram_kernel(dev, N_t + 1, N_d, N_m, ("data",), timed, results,
@@ -2271,7 +2316,8 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
 
 
 STAGED = ("zgemm_f64_kernel", "zgram_f64_kernel", "zgemm_bf16_kernel",
-          "zgram_bf16_kernel", "zgemm_f32_kernel")
+          "zgram_bf16_kernel", "zgemm_f32_kernel", "zgemm_th_f32_kernel",
+          "zgram_f32_kernel")
 
 
 def staged_ptxas(logs) -> dict:

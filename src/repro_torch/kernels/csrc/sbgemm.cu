@@ -11,11 +11,11 @@
 // f64 planes run on the FP64 tensor cores (67 TFLOP/s against 34 for the
 // FP64 vector units), in the staged kernels of the f64 section below.  The
 // untiled complex N, T/H and Gram of bf16 planes run on the bf16 tensor
-// cores with f32 sums (sbgemm_bf16.cuh), and the complex N of f32 planes,
-// untiled and tiled, in a staged FP32 kernel (sbgemm_f32.cuh).  The other
-// bf16 and f32 builds (f32 sums: the complex T/H and Gram of f32 planes,
-// the other tiled builds and every real build) run on the vector units, in
-// the kernels described here.  Bounds and designs:
+// cores with f32 sums (sbgemm_bf16.cuh), and the complex N, T/H and Gram of
+// f32 planes, untiled and tiled, in staged FP32 kernels (sbgemm_f32.cuh).
+// The other builds (f32 sums: the tiled bf16 builds and every real build)
+// run on the vector units, in the kernels described here.  Bounds and
+// designs:
 //
 //   N (sum over the long n), bytes-bound at S = 8 (8 S flops per complex
 //     A element: S flop per byte at f32, 2 S at bf16), the f32 product
@@ -405,8 +405,8 @@ sbgemm_gram_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
 // As DISPATCH_DTYPE, for the plane types of the vector-unit kernels: bf16
 // where BF16 holds and f32 where F32 holds (f64 planes go to the FP64
 // tensor-core kernels, the bf16 planes of the untiled complex N, T/H and
-// Gram to the bf16 ones, the f32 planes of the complex N to the staged f32
-// kernel, and their vector builds are not compiled).
+// Gram to the bf16 ones, the f32 planes of the complex N, T/H and Gram to
+// the staged f32 kernels, and their vector builds are not compiled).
 #define DISPATCH_NARROW(code, BF16, F32, T, ...)                           \
   switch (code) {                                                          \
     case DT_BF16:                                                          \
@@ -1095,6 +1095,14 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
                                                    conj, tg, device, s);
     )
   }
+  if constexpr (!REAL) {
+    if (dt_in == DT_F32) {
+      DISPATCH_DTYPE(dt_out, O,
+        return f32simt::launch_th<O, TILED>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj, tg,
+                                            device, s);
+      )
+    }
+  }
   if constexpr (!TILED && !REAL) {
     if (dt_in == DT_BF16) {
       DISPATCH_DTYPE(dt_out, O,
@@ -1102,23 +1110,25 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
                                             device, s);
       )
     }
+    return (int)cudaErrorInvalidValue;
+  } else {   // the tiled bf16 and the real builds
+    const int64_t bx = (n + kThreads - 1) / kThreads;
+    if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)bx, batch_grid(B));
+    DISPATCH_NARROW(dt_in, true, REAL, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
+      sbgemm_th_kernel<T, O, SC, TILED, REAL><<<grid, kThreads, 0, s>>>(
+          static_cast<const T*>(Ar), static_cast<const T*>(Ai),
+          static_cast<const T*>(Xr), static_cast<const T*>(Xi),
+          static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj, tg);
+    )))
+    return (int)cudaGetLastError();
   }
-  const int64_t bx = (n + kThreads - 1) / kThreads;
-  if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)bx, batch_grid(B));
-  DISPATCH_NARROW(dt_in, TILED || REAL, true, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
-    sbgemm_th_kernel<T, O, SC, TILED, REAL><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(Ar), static_cast<const T*>(Ai),
-        static_cast<const T*>(Xr), static_cast<const T*>(Xi),
-        static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj, tg);
-  )))
-  return (int)cudaGetLastError();
 }
 
 // G = A^H A, (B, n, n), or with data != 0 G = A A^H, (B, m, m).  The tiles
 // below the diagonal are the conjugates of those above; the vector kernel's
-// diagonal tiles, and the f64 and bf16 kernels' diagonal entries, are not
-// symmetrized (ops.sbgemm_gram does that).
+// diagonal tiles, and the f64, bf16 and f32 kernels' diagonal entries, are
+// not symmetrized (ops.sbgemm_gram does that).
 template <bool TILED>
 int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
                 int64_t m, int64_t n, int data, const TileGrid& tg, int dt_in,
@@ -1133,22 +1143,29 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
       return launch_gram_f64<O, TILED>(Ar, Ai, Gr, Gi, B, m, n, data, tg, s);
     )
   }
+  if (dt_in == DT_F32) {
+    DISPATCH_DTYPE(dt_out, O,
+      return f32simt::launch_gram<O, TILED>(Ar, Ai, Gr, Gi, B, m, n, data, tg, device, s);
+    )
+  }
   if constexpr (!TILED) {
     if (dt_in == DT_BF16) {
       DISPATCH_DTYPE(dt_out, O,
         return bf16tc::launch_gram<O>(Ar, Ai, Gr, Gi, B, m, n, data, device, s);
       )
     }
+    return (int)cudaErrorInvalidValue;
+  } else {   // the tiled bf16 build
+    const int64_t tiles = (P + kTile - 1) / kTile;
+    if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)tiles, (unsigned)tiles, batch_grid(B));
+    DISPATCH_NARROW(dt_in, true, false, T, DISPATCH_DTYPE(dt_out, O,
+      sbgemm_gram_kernel<T, O, TILED><<<grid, kGramThreads, 0, s>>>(
+          static_cast<const T*>(Ar), static_cast<const T*>(Ai),
+          static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, data, tg);
+    ))
+    return (int)cudaGetLastError();
   }
-  const int64_t tiles = (P + kTile - 1) / kTile;
-  if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)tiles, (unsigned)tiles, batch_grid(B));
-  DISPATCH_NARROW(dt_in, TILED, true, T, DISPATCH_DTYPE(dt_out, O,
-    sbgemm_gram_kernel<T, O, TILED><<<grid, kGramThreads, 0, s>>>(
-        static_cast<const T*>(Ar), static_cast<const T*>(Ai),
-        static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, data, tg);
-  ))
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -102,15 +102,20 @@ def test_sbgemm_plain_matches_pallas_interpret(B, m, n, S, dt, mode):
 
 
 # The edges of the card's bf16 T/H kernel (k = m across its 16-deep
-# k-steps and past its 112-wide k-chunk, n around its 112-row items) and
-# of its f32 N kernel (m around its 20-row warp bands and 100-row items, S
-# past its 8- and 32-column passes): the plain versions those kernels are
-# held against on the card, against interpret-mode Pallas.
+# k-steps and past its 112-wide k-chunk, n around its 112-row items), of
+# its f32 N kernel (m around its 20-row warp bands and 100-row items, S
+# past its 8- and 32-column passes) and of its f32 T/H kernel (k = m past
+# its 16- and 20-wide k-chunks, n around its 128-row items, S past the
+# 8- and 32-column passes): the plain versions those kernels are held
+# against on the card, against interpret-mode Pallas.
 EDGE_CASES = (
     [pytest.param(mode, 2, m, n, 8, torch.bfloat16, id=f"{mode}-bf16-{m}x{n}")
      for mode in "TH" for m in (15, 17, 100) for n in (111, 112, 113)]
     + [pytest.param("N", 2, m, 130, S, torch.float32, id=f"N-f32-{m}-S{S}")
-       for m in (25, 100) for S in (9, 33)])
+       for m in (25, 100) for S in (9, 33)]
+    + [pytest.param(mode, 2, m, n, S, torch.float32,
+                    id=f"{mode}-f32-{m}x{n}-S{S}")
+       for mode in "TH" for m, n in ((21, 127), (100, 129)) for S in (9, 33)])
 
 
 @pytest.mark.parametrize("mode,B,m,n,S,dt", EDGE_CASES)
@@ -172,10 +177,14 @@ def test_sbgemm_out_dtype_casts_from_the_accumulator():
 # ---------------------------------------------------------------------------
 
 GRAM_SHAPES = [(3, 4, 16), (1, 2, 40), (2, 8, 8)]
+# the f32 Gram kernel's edges on the card: P around its 100-row tile (one
+# item a bin up to 100, two-panel items past it), in both spaces (data P =
+# m, parameter P = n), K short and past one 64-wide k-chunk
+GRAM_F32_EDGES = [(1, 101, 99), (2, 100, 7), (1, 3, 101)]
 # f32 cases keep the shape as their id; bf16 cases (the planes the bf16
 # tensor-core kernel takes on the card) add "-bf16"
 GRAM_CASES = ([pytest.param(*s, torch.float32, id="-".join(map(str, s)))
-               for s in GRAM_SHAPES]
+               for s in GRAM_SHAPES + GRAM_F32_EDGES]
               + [pytest.param(*s, torch.bfloat16,
                               id="-".join(map(str, s)) + "-bf16")
                  for s in GRAM_SHAPES])
