@@ -124,6 +124,21 @@ CUDA toolkit.  It:
    gated); the ``dssdd`` circulant G_hat setup runs through the f32 Gram
    (one launch, against ``torch-ref`` at the s tolerance), timed beside the
    plain path.
+11. the wgmma kernels (Hopper's warpgroup products, ``csrc/wgmma.cuh``):
+   the bf16 flash attention at Dh 64 and 128 (``flash_attention_bh_wgmma``)
+   and the data-space Gram of bf16 planes at P <= 128
+   (``sbgemm_gram_complex_wgmma``): their ``ptxas`` registers and spill
+   bytes, and ragged shapes against their plain versions (flash: Sq and
+   Skv around the 64-row blocks, the 64-key tiles and 128, causal and not
+   with Sq != Skv, the 4-D entry with key-head groups of 1, 2 and 8, within
+   FLASH_TOL; the Gram: P = 31 .. 128 with odd n, n % 8 != 0 and n over
+   several k-chunks, bf16 and f32 outputs, within the h tolerance and
+   exactly Hermitian off the diagonal), each call shown by its launch
+   count to have run the wgmma kernel.  The serve prefill (24 launches a
+   batch) and the ``hhhhh`` G_hat setup (one launch) run them; the f32
+   flash (the ``FULL_F32`` check) and the parameter-space bf16 Gram keep
+   the general kernels.  Both are built without their products and
+   without their copies for the bound probe.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -469,7 +484,8 @@ def check_gram_kernel(dev, B, m, n, spaces, timed, results, time_fn):
             flops = 4 * B * P * (P + 1) * K
             b_ms, b_by = bound_ms(nbytes, flops, name(dt))
             lib = _library_gram(Ar, Ai, data)
-            row = results["sbgemm_gram_complex"][f"{name(dt)} {space}"] = {
+            entry = sk.gram_kernel_for(dt, data, P)
+            row = results[entry][f"{name(dt)} {space}"] = {
                 "shape": [B, m, n], "space": space, "max_abs_err": err,
                 "ms": time_fn(kfn, None), "plain_ms": time_fn(pfn, None),
                 "library_ms": time_fn(lib, None),
@@ -635,6 +651,89 @@ def check_f32_kernels(dev):
           f"/ f64 outputs: the f32 output cast, bit for bit)", flush=True)
 
 
+def check_wgmma_kernels(dev):
+    """The wgmma kernels at ragged shapes, each call's launch counted.
+    Flash (bf16, Dh 64 and 128): Sq and Skv around the 64-row blocks, the
+    64-key tiles and 128, causal and not, Sq != Skv both ways, on folded
+    heads; the 4-D entry with 2 key heads in groups of 1, 2 and 8 against
+    the plain version of the repeated heads; within FLASH_TOL.  The Gram
+    (data space, bf16 planes): P = 31 .. 128 around the two 64-row
+    warpgroups, n odd (element copies), n % 8 != 0, one k-chunk and
+    several with a ragged last one (16-byte copies), bf16 and f32 outputs
+    within the h tolerance, and on the card exactly Hermitian off the
+    diagonal (Gr symmetric, Gi antisymmetric bit for bit)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    dt = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dt)
+
+    def counted(entry, fn):
+        _build.reset_launch_counts()
+        out = fn()
+        check_launches(dict(_build.launch_counts), {entry: 1})
+        return out
+
+    n_f = n_g = 0
+    worst = 0.0
+    lengths = ((1, 1), (63, 63), (64, 64), (65, 65), (127, 127), (128, 128),
+               (129, 129), (200, 77), (77, 200), (64, 130), (130, 64),
+               (1, 300), (300, 1))
+    for Dh in (64, 128):
+        for Sq, Skv in lengths:
+            for causal in (True, False):
+                q, k, v = randn(3, Sq, Dh), randn(3, Skv, Dh), randn(3, Skv, Dh)
+                got = counted("flash_attention_bh_wgmma",
+                              lambda: fa.flash_attention_bh(q, k, v,
+                                                            causal=causal))
+                want = fa.flash_attention_bh_plain(q, k, v, causal=causal)
+                err = max_abs(got, want)
+                if got.dtype != dt or not err <= FLASH_TOL[dt]:
+                    fail(f"flash_attention_bh_wgmma at {(3, Sq, Skv, Dh)} "
+                         f"causal={causal}: {got.dtype}, max abs err "
+                         f"{err:.3e} > {FLASH_TOL[dt]:g}")
+                worst, n_f = max(worst, err), n_f + 1
+        for G in (1, 2, 8):
+            B, S, Hkv = 2, 150, 2
+            q, k, v = randn(B, S, Hkv * G, Dh), randn(B, S, Hkv, Dh), \
+                randn(B, S, Hkv, Dh)
+            got = counted("flash_attention_bh_wgmma",
+                          lambda: fa.flash_attention(q, k, v, causal=True))
+            fold = lambda x: x.transpose(1, 2).reshape(-1, S, Dh)  # noqa: E731
+            kr, vr = (x.repeat_interleave(G, dim=2) for x in (k, v))
+            want = fa.flash_attention_bh_plain(fold(q), fold(kr), fold(vr),
+                                               causal=True)
+            err = max_abs(fold(got), want)
+            if not err <= FLASH_TOL[dt]:
+                fail(f"flash_attention_bh_wgmma GQA group {G} Dh {Dh}: max "
+                     f"abs err {err:.3e} > {FLASH_TOL[dt]:g}")
+            worst, n_f = max(worst, err), n_f + 1
+    for P in (31, 63, 64, 65, 100, 127, 128):
+        for K in (1, 7, 77, 130, 264, 5000):
+            A = [randn(3, P, K) for _ in range(2)]
+            for od in (dt, torch.float32):
+                what = f"sbgemm_gram_complex_wgmma bf16 -> {name(od)} at {(3, P, K)}"
+                got = counted("sbgemm_gram_complex_wgmma",
+                              lambda: sk.sbgemm_gram_complex(*A, data=True,
+                                                             out_dtype=od))
+                check_planes(what, got, sk.sbgemm_gram_complex_plain(*A, True,
+                                                                     od), dt)
+                off = ~torch.eye(P, dtype=torch.bool, device=dev)
+                if dev.type == "cuda" and not (
+                        torch.equal(got[0], got[0].mT) and torch.equal(
+                            got[1][:, off], -got[1].mT[:, off])):
+                    fail(f"{what}: not exactly Hermitian off the diagonal")
+                n_g += 1
+    sync(dev)
+    print(f"wgmma kernels: {n_f} flash calls within {FLASH_TOL[dt]:g} (worst "
+          f"{worst:.3e}) and {n_g} Gram calls within {TOL['h']:g} of their "
+          f"plain versions, each one launch of its wgmma kernel", flush=True)
+
+
 # measurement builds of csrc/sbgemm.cu: the bf16 tensor-core kernels and
 # the staged f32 kernels with one side compiled out (csrc/sbgemm_bf16.cuh,
 # csrc/sbgemm_f32.cuh)
@@ -664,6 +763,10 @@ def probe_bounds(dev, B, m, n, time_fn):
         cases = {"sbgemm_gram_complex data": (
             "sbgemm_gram_complex", (*A, *planes(dt, B, m, m, fill=False)),
             (B, m, n), (1,))}
+        if dt == torch.bfloat16:     # the wgmma Gram beside the mma.sync one
+            cases["sbgemm_gram_complex_wgmma data"] = (
+                "sbgemm_gram_complex_wgmma",
+                (*A, *planes(dt, B, m, m, fill=False)), (B, m, n), (1,))
         for S in (S_BLOCK, S_WIDE):
             cases[f"sbgemm_n_complex S={S}"] = (
                 "sbgemm_n_complex", (*A, *planes(dt, B, n, S),
@@ -692,6 +795,47 @@ def probe_bounds(dev, B, m, n, time_fn):
                   f"{row['bound_side']}", flush=True)
         del A, cases
         free(dev)
+    return out
+
+
+# measurement builds of csrc/flash_attention.cu: the wgmma kernel without
+# its products (wgmma.cuh) and without its K/V and Q copies
+FLASH_PROBES = {"no_products_ms": ("WGMMA_NO_MMA",),
+                "no_copy_ms": ("FLASH_NO_COPY",)}
+
+
+def probe_flash_bounds(dev, shapes, time_fn):
+    """The bf16 wgmma flash kernel at each causal (BH, S, S, Dh) of
+    ``shapes``, built as the wrapper loads it, without its products and
+    without its copies; the slower one-sided build names the side that
+    bounds it.  Called through the C entry: no launch is counted.
+    Reported, not gated."""
+    from repro_torch.kernels import _build
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    out = {}
+    for BH, S, _, Dh, causal in shapes:
+        q, k, v = (torch.randn((BH, S, Dh), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        o = torch.empty_like(q)
+        st = (S * Dh, 0, Dh)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH,
+                1, 1, S, S, Dh, *st, *st, *st, *st, int(causal),
+                _build.DTYPE_CODES[q.dtype], dev.index, _build.stream_of(q))
+        row = out[f"flash_attention_bh_wgmma {(BH, S, S, Dh)}"] = {}
+        for label, defines in (("ms", ()), *FLASH_PROBES.items()):
+            fn = _build.library("flash_attention",
+                                defines).flash_attention_bh_wgmma
+
+            def call(_, fn=fn):
+                _build.check(fn(*args), "flash_attention_bh_wgmma")
+            row[label] = time_fn(call, None)
+        row["bound_side"] = ("products" if row["no_copy_ms"]
+                             > row["no_products_ms"] else "copies")
+        print(f"flash_attention_bh_wgmma {(BH, S, S, Dh)}: {row['ms']:.4f} "
+              f"ms; without products {row['no_products_ms']:.4f}, without "
+              f"copies {row['no_copy_ms']:.4f}: bound by the "
+              f"{row['bound_side']}", flush=True)
+        del q, k, v, o
     return out
 
 
@@ -859,6 +1003,7 @@ def check_block_dispatch_on_card(dev):
     every shape: short-wide and tall blocks, one column and more than a
     pass of 32, every mode, space and dtype."""
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.sbgemv import gram_kernel_for
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     for B, m, n, S in ((3, 3, 77, 5), (2, 300, 50, 33), (2, 4, 9, 1)):
         for dt in DTYPES:
@@ -876,11 +1021,14 @@ def check_block_dispatch_on_card(dev):
                     fail(f"ops.sbgemm mode {mode} {name(dt)} at "
                          f"{(B, m, n, S)} did not launch {kname}")
             for space in ("parameter", "data"):
-                before = _build.launch_counts["sbgemm_gram_complex"]
+                # the general Gram, or the wgmma one (bf16, data, P <= 128)
+                kname = gram_kernel_for(dt, space == "data",
+                                        m if space == "data" else n)
+                before = _build.launch_counts[kname]
                 ops.sbgemm_gram(*A, space=space)
-                if _build.launch_counts["sbgemm_gram_complex"] != before + 1:
+                if _build.launch_counts[kname] != before + 1:
                     fail(f"ops.sbgemm_gram {space} {name(dt)} at {(B, m, n)}"
-                         f" did not launch sbgemm_gram_complex")
+                         f" did not launch {kname}")
     print("ops.sbgemm and ops.sbgemm_gram on the card launched their kernels "
           "at (3, 3, 77, 5), (2, 300, 50, 33) and (2, 4, 9, 1) for every "
           "mode, space and dtype", flush=True)
@@ -1233,21 +1381,29 @@ def drive_circulant(dev, op_d, timed, time_fn, report):
               f"{out['setup_ratio_to_plain_path']:.3f}x), action "
               f"{out['apply_ms']:.3f} ms", flush=True)
 
-    # hhhhh: G_hat from bf16 F_hat through the bf16 tensor-core Gram;
+    # hhhhh: G_hat from bf16 F_hat through the wgmma Gram (P = N_d <= 128);
     # dssdd: from f32 F_hat through the staged f32 Gram
     from repro_torch.core.precision import PrecisionConfig
-    for cfg, level in (("hhhhh", "h"), ("dssdd", "s")):
+    for cfg, level, kernel in (("hhhhh", "h", "sbgemm_gram_complex_wgmma"),
+                               ("dssdd", "s", "sbgemm_gram_complex")):
         op_c = op_d.with_precision(PrecisionConfig.from_string(cfg))
         _build.reset_launch_counts()
         circ_c = GramOperator.from_matvec(op_c, space="data",
                                           mode="circulant")
         sync(dev)
-        check_launches(dict(_build.launch_counts), {"sbgemm_gram_complex": 1})
+        counts_c = dict(_build.launch_counts)
+        check_launches(counts_c, {kernel: 1})
+        check_launches(counts_c, {k: 0 for k in ("sbgemm_gram_complex",
+                                                 "sbgemm_gram_complex_wgmma")
+                                  if k != kernel})
+        if not (torch.equal(circ_c.G_hat_re, circ_c.G_hat_re.mT)
+                and torch.equal(circ_c.G_hat_im, -circ_c.G_hat_im.mT)):
+            fail(f"{cfg} circulant G_hat is not exactly Hermitian")
         ref_c = GramOperator.from_matvec(op_c.with_backend("torch-ref"),
                                          space="data", mode="circulant")
         e_c = max(rel(circ_c.G_hat_re, ref_c.G_hat_re),
                   rel(circ_c.G_hat_im, ref_c.G_hat_im))
-        row = out[cfg] = {"G_hat_vs_ref": e_c}
+        row = out[cfg] = {"G_hat_vs_ref": e_c, "launches": counts_c}
         print(f"circulant G_hat {cfg}: vs torch-ref {e_c:.3e} (<= "
               f"{TOL[level]:g})", flush=True)
         if not e_c <= TOL[level]:
@@ -1366,9 +1522,12 @@ def drive_example(dev, report):
     bad = example.check(out)
     if bad:
         fail("inverse-problem example: " + "; ".join(bad))
+    # the example's kernels: not the tiled, real or flash ones, nor the
+    # wgmma Gram (its planes are f64 and f32)
     check_launched(counts, [k for k in REPLACES
                             if not k.endswith("_tiled") and "_real" not in k
-                            and k != "flash_attention_bh"])
+                            and not k.startswith("flash_attention")
+                            and k != "sbgemm_gram_complex_wgmma"])
 
 
 def drive_tiled_configs(dev, N_t, N_d, N_m, timed, time_fn, report):
@@ -1792,7 +1951,10 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
     test tolerances).  The shapes named in ``timed_keys`` are timed: the
     kernel, its plain version and one ``scaled_dot_product_attention`` on
     (1, BH, S, Dh) views of the same tensors, beside the bound (each of
-    q, k, v, o moved once; 4 Dh flops a key-query pair)."""
+    q, k, v, o moved once; 4 Dh flops a key-query pair).  The kernel is
+    timed through its C entry (``ms``) and through the wrapper
+    (``wrapper_ms``, with the wrapper's host time)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     for shape in shapes:
@@ -1820,17 +1982,35 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
             b_ms, b_by = bound_ms(nbytes, flops, name(dt))
             q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            results["flash_attention_bh"][f"{name(dt)} {key}"] = {
+            entry = fa.kernel_for(dt, Dh, True)     # contiguous, aligned
+            # the kernel through its C entry (a launch, no Python around
+            # it: the wrapper's host time, which hides the device's at
+            # small shapes, is wrapper_ms)
+            wrapper = lambda _: fa.flash_attention_bh(  # noqa: E731
+                q, k, v, causal=causal)
+            launch = wrapper                        # the CPU rehearsal
+            if dev.type == "cuda":
+                o = torch.empty_like(q)
+                st = (Sq * Dh, 0, Dh)
+                args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), BH, 1, 1, Sq, Skv, Dh, *st, Skv * Dh, 0,
+                        Dh, Skv * Dh, 0, Dh, *st, int(causal),
+                        _build.DTYPE_CODES[dt], dev.index, _build.stream_of(q))
+                fn = getattr(_build.library("flash_attention"), entry)
+
+                def launch(_, fn=fn, args=args, o=o):
+                    _build.check(fn(*args), entry)
+            results[entry][f"{name(dt)} {key}"] = {
                 "shape": list(shape), "max_abs_err": err,
-                "ms": time_fn(lambda _: fa.flash_attention_bh(
-                    q, k, v, causal=causal), None),
+                "ms": time_fn(launch, None),
+                "wrapper_ms": time_fn(wrapper, None),
                 "plain_ms": time_fn(lambda _: fa.flash_attention_bh_plain(
                     q, k, v, causal=causal), None),
                 "library_ms": time_fn(lambda _: sdpa(
                     q4, k4, v4, is_causal=causal), None),
                 "bytes": nbytes, "flops": flops, "bound_ms": b_ms,
                 "bound_by": b_by}
-            del q4, k4, v4
+            del q4, k4, v4, launch
         del q, k, v
 
 
@@ -1851,11 +2031,12 @@ class _PhaseClock:
 
     def __call__(self, *args):
         from repro_torch.kernels import _build
-        n0 = _build.launch_counts["flash_attention_bh"]
+        from repro_torch.kernels.flash_attention import KERNELS
+        n0 = sum(_build.launch_counts[k] for k in KERNELS)
         t0 = self._mark()
         out = self.fn(*args)
         self.marks.append((t0, self._mark()))
-        self.launches += _build.launch_counts["flash_attention_bh"] - n0
+        self.launches += sum(_build.launch_counts[k] for k in KERNELS) - n0
         return out
 
     def ms(self) -> list:
@@ -2029,11 +2210,13 @@ def drive_serve(dev, full, time_fn, report):
           f"median {run_f['decode_ms_per_step'][len(run_f['decode_ms_per_step']) // 2]:.3f}; "
           f"launches {counts} (prefill {run_f['prefill_launches']}, decode "
           f"{run_f['decode_launches']})", flush=True)
-    check_launches(counts, {"flash_attention_bh": cfg.n_layers * n_batches})
-    check_launches({"flash_attention_bh": run_f["prefill_launches"]},
-                   {"flash_attention_bh": cfg.n_layers * n_batches})
-    check_launches({"flash_attention_bh": run_f["decode_launches"]},
-                   {"flash_attention_bh": 0})
+    # bf16 heads of Dh 64 on aligned rows: every launch is the wgmma kernel
+    check_launches(counts, {"flash_attention_bh_wgmma":
+                            cfg.n_layers * n_batches,
+                            "flash_attention_bh": 0})
+    check_launches({"flash": run_f["prefill_launches"]},
+                   {"flash": cfg.n_layers * n_batches})
+    check_launches({"flash": run_f["decode_launches"]}, {"flash": 0})
     if len(res_f) != len(reqs) or any(
             len(r.tokens) != q.max_new_tokens or r.tokens.min() < 0
             or r.tokens.max() >= cfg.vocab for r, q in zip(res_f, reqs)):
@@ -2084,9 +2267,15 @@ def drive_serve(dev, full, time_fn, report):
     big, steps = reqs[4:], reqs[0].max_new_tokens
     out["check_default"] = compare_paths(dev, cfg, model, big, max_seq, steps,
                                          LOGIT_TOL["default"], "default policy")
+    # FULL_F32 runs the f32 flash: the general kernel, once a layer
+    _build.reset_launch_counts()
     out["check_full_f32"] = compare_paths(
         dev, cfg.replace(policy=FULL_F32), model, big, max_seq, steps,
         LOGIT_TOL["full_f32"], "FULL_F32")
+    out["full_f32_launches"] = dict(_build.launch_counts)
+    check_launches(out["full_f32_launches"],
+                   {"flash_attention_bh": cfg.n_layers,
+                    "flash_attention_bh_wgmma": 0})
     out["seconds"] = time.perf_counter() - t_start
     del model
 
@@ -2167,10 +2356,18 @@ REPLACES = {
     "sbgemm_n_real_tiled": ("src/repro_torch/kernels/csrc/sbgemm.cu",
                             "src/repro/kernels/sbgemv.py:624",
                             f"float64 S={S_BLOCK} 2x2"),
-    # the LM serving path: bf16 at the serve phase's longer prefill batch
+    # the LM serving path at the serve phase's longer prefill batch: bf16
+    # heads of Dh 64 on the wgmma kernel, f32 (FULL_F32) on the general one
     "flash_attention_bh": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                            "src/repro/kernels/flash_attention.py:70",
-                           "bfloat16 serve"),
+                           "float32 serve"),
+    "flash_attention_bh_wgmma": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:70", "bfloat16 serve"),
+    # the data-space Gram of bf16 planes (the hhhhh G_hat) on wgmma
+    "sbgemm_gram_complex_wgmma": ("src/repro_torch/kernels/csrc/sbgemm.cu",
+                                  "src/repro/kernels/sbgemv.py:342",
+                                  "bfloat16 data"),
 }
 
 
@@ -2241,6 +2438,7 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     # the bf16 tensor-core kernels' and the staged f32 kernels' edges
     check_bf16_tensor_core_kernels(dev)
     check_f32_kernels(dev)
+    check_wgmma_kernels(dev)
     # parameter-space G_hat at the paper shape is (1001, 5000, 5000) a
     # plane: only the data space is held there
     check_gram_kernel(dev, N_t + 1, N_d, N_m, ("data",), timed, results,
@@ -2310,6 +2508,10 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
                        {serve_shape: "serve", long_shape: f"S={FLASH_LONG}"}
                        if timed else {}, results, time_fn)
     free(dev)
+    if timed and dev.type == "cuda":
+        report["bound_probe"].update(probe_flash_bounds(
+            dev, (serve_shape, long_shape), time_fn))
+        free(dev)
     drive_serve(dev, full, time_fn, report)
     free(dev)
     return results, report
@@ -2317,7 +2519,7 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
 
 STAGED = ("zgemm_f64_kernel", "zgram_f64_kernel", "zgemm_bf16_kernel",
           "zgram_bf16_kernel", "zgemm_f32_kernel", "zgemm_th_f32_kernel",
-          "zgram_f32_kernel")
+          "zgram_f32_kernel", "zgram_wgmma_kernel", "flash_wgmma_kernel")
 
 
 def staged_ptxas(logs) -> dict:
@@ -2373,7 +2575,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build(variants=[("sbgemm", d)
-                                  for d in BOUND_PROBES.values()])
+                                  for d in BOUND_PROBES.values()]
+                        + [("flash_attention", d)
+                           for d in FLASH_PROBES.values()])
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.1f} s", flush=True)
     for src, log in logs.items():
@@ -2419,9 +2623,16 @@ def main() -> int:
                 # all six; the Fig. 1 sweep's own counts are kept apart
                 **{k: report["real_dispatch_launches"].get(k, 0)
                    for k in REPLACES if "_real" in k},
-                # the flash kernel: the counted serve call
-                "flash_attention_bh":
-                    report["serve"]["launches"].get("flash_attention_bh", 0)}
+                # the wgmma Gram: the hhhhh G_hat setup
+                "sbgemm_gram_complex_wgmma":
+                    report["circulant"]["hhhhh"]["launches"]
+                    ["sbgemm_gram_complex_wgmma"],
+                # flash: the counted serve call (bf16, the wgmma kernel) and
+                # its FULL_F32 check (f32, the general kernel)
+                "flash_attention_bh_wgmma": report["serve"]["launches"].get(
+                    "flash_attention_bh_wgmma", 0),
+                "flash_attention_bh": report["serve"]["full_f32_launches"]
+                    .get("flash_attention_bh", 0)}
     line = kernel_line(results, launches, {"fig1": report["fig1"]["launches"]})
 
     out_dir = ROOT / "chiprun_out"

@@ -40,6 +40,7 @@ ENTRIES = {
                "sbgemv_n_real": (3, 3, 3), "sbgemv_th_real": (3, 3, 3)},
     "sbgemm": {"sbgemm_n_complex": (6, 4, 3), "sbgemm_th_complex": (6, 4, 4),
                "sbgemm_gram_complex": (4, 3, 4),
+               "sbgemm_gram_complex_wgmma": (4, 3, 4),
                "sbgemm_n_complex_tiled": (7, 4, 5),
                "sbgemm_th_complex_tiled": (7, 4, 6),
                "sbgemm_gram_tiled": (5, 3, 6)},
@@ -48,7 +49,8 @@ ENTRIES = {
                     "sbgemm_th_real_tiled": (4, 4, 5)},
     # q, k, v, o; B, Hq, Hkv, Sq, Skv, Dh and (batch, head, row) strides of
     # each; causal, dtype, device
-    "flash_attention": {"flash_attention_bh": (4, 18, 3)},
+    "flash_attention": {"flash_attention_bh": (4, 18, 3),
+                        "flash_attention_bh_wgmma": (4, 18, 3)},
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -169,8 +171,15 @@ def _declare(fn, n_ptrs: int, n_sizes: int, n_ints: int) -> None:
     fn.restype = ctypes.c_int
 
 
+# PyTorch's raw current-stream handle (CUDA builds): no Stream object is
+# made, a few microseconds a call that small kernels would wait on
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on ``t``'s device."""
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -13,8 +13,42 @@
 // from a few hundred rows up (989 TFLOP/s on the tensor cores); the f32
 // path runs on the FP32 units (67 TFLOP/s).
 //
-// Design (right and simple first; wgmma, TMA and warp specialisation are
-// later work): a block of 4 warps takes 64 query rows of one head, 16 rows
+// Two kernels, chosen by the wrapper from (dtype, Dh, alignment):
+// flash_wgmma_kernel for bf16 with Dh 64 or 128 and 16-byte-aligned rows
+// (every full config's heads), flash_kernel for everything else.
+//
+// flash_wgmma_kernel (bf16, Dh 64 / 128): operations-bound from a few
+// hundred rows up, so its products run on wgmma, Hopper's full-rate bf16
+// path (wgmma.cuh).  A block is one consumer warpgroup of 64 query rows
+// and one producer warp.  One producer thread loads the Q tile once and
+// then each 64-key tile of K and V with TMA (tensor maps of the heads made
+// on the host; keys past Skv read as zeros) into a 2-deep ring of
+// 128-byte-swizzled stages, each stage's full barrier completed by the
+// copies' bytes; the consumer releases a stage on its empty barrier once
+// its products have read it, so the copies of the next tile overlap the
+// work on this one.  Per tile: S = Q K^T is Dh / 16 wgmma m64n64k16 with
+// both operands in shared memory; the online softmax runs in the
+// accumulator layout on the scores in place: the mask (-1e30: zero-filled
+// keys score 0 and must still be masked) only on the tiles that cross the
+// diagonal or Skv's end, the max on the raw scores, then p = exp2(s
+// scale log2(e) - m) as one FFMA and exp2f; p is packed to bf16 in
+// registers (the reference rounds p to v's dtype) and O += P V is 4 x
+// Dh / 64 wgmma m64n64k16 with P as the register operand and V read from
+// shared memory through the transpose bit.  Row max and sum: the
+// thread's 16 values of a row as a tree, then the fixed butterfly over
+// the 4 lanes of the row; no atomics.  With causal masking the query
+// blocks are launched longest walk first (grid.y counts down the rows),
+// so the short walks fill the card's tail.  m, l and the accumulator stay
+// f32; the output is acc / max(l, 1e-30) in bf16.
+// Measured on the card (PERF.md): the softmax's vector instructions and
+// the blocks an SM bound it, not L2 or the tensor cores: two or three
+// consumer warpgroups sharing a block's K/V tiles, issuing the next
+// tile's scores beside this tile's P V (more registers, fewer blocks), or
+// a third stage (three blocks an SM at Dh 64) were slower.  Measurement
+// builds: WGMMA_NO_MMA drops the products, FLASH_NO_COPY the TMA copies.
+//
+// flash_kernel (f32; bf16 at any other Dh or unaligned rows), right and
+// simple first: a block of 4 warps takes 64 query rows of one head, 16 rows
 // a warp, and walks the key axis in 64-key tiles that all its warps share
 // from shared memory.  The TPU kernel's sequential k grid axis and its VMEM
 // scratch become this loop and registers: each thread holds its rows'
@@ -38,6 +72,7 @@
 #include <cmath>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -354,6 +389,299 @@ int launch_dh(const Params& p, int64_t BH, cudaStream_t s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// flash_wgmma_kernel: bf16, Dh = 64 or 128, rows 16-byte aligned
+// ---------------------------------------------------------------------------
+
+namespace fwg {
+
+constexpr int kWgRows = 64;                // query rows a block: one warpgroup
+constexpr int kKeys = 64;                  // keys a tile
+constexpr int kThreads = 128 + 32;         // the consumer warpgroup, the producer warp
+static_assert(kWgRows == kKeys, "Q, K and V tiles share one layout");
+
+// Shared memory: the Q tile, the K ring, the V ring (each tile 64 rows x
+// DH bf16 as DH / 64 swizzled atoms of 8 KB), then the barriers.  With a
+// 2-deep ring and ~95 / 127 registers a thread, four blocks fit an SM at
+// Dh 64 (40 KB each) and two at Dh 128 (80 KB).
+template <int DH>
+struct Layout {
+  static constexpr int STAGES = 2;
+  static constexpr int ATOMS = DH / 64;
+  static constexpr int ATOM = kKeys * wg::kAtomBytes;          // 8 KB
+  static constexpr int TILE = ATOMS * ATOM;
+  static constexpr int Q = 0, K = TILE, V = K + STAGES * TILE;
+  static constexpr int BARS = V + STAGES * TILE;               // full, empty, q
+  static constexpr int BYTES = BARS + 8 * (2 * STAGES + 1);
+};
+
+// tq, tk, tv: tensor maps of q, k and v as (Dh, S, heads, batch) in boxes
+// of 64 x 64 x 1 x 1 (one swizzled atom; rows past S read as zeros).
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv) {
+  using L = Layout<DH>;
+  constexpr int kStages = L::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzle needs 1024-byte-aligned atoms
+  unsigned char* smem = smem_raw + ((wg::kSwizzleBytes - wg::smem_u32(smem_raw) %
+                                     wg::kSwizzleBytes) % wg::kSwizzleBytes);
+  const uint32_t base = wg::smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+  const int64_t bh = blockIdx.x, b = bh / p.Hq, h = bh % p.Hq, hk = h / p.group;
+  const int64_t nqb = (p.Sq + kWgRows - 1) / kWgRows;
+  const int64_t q0 = (p.causal ? nqb - 1 - blockIdx.y : blockIdx.y) * kWgRows;
+  const int64_t nt = n_tiles(p, q0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      wg::bar_init(&full[i], 1);           // the producer, expecting the bytes
+      wg::bar_init(&empty[i], 4);          // the consumer's warps
+    }
+    wg::bar_init(qbar, 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer, one thread: the Q tile once, then tile t's K and V into
+    // stage t % kStages once the consumer has released the tile kStages
+    // before it
+    if (lane != 0) return;
+#ifndef FLASH_NO_COPY
+    const int qh = (int)h, kh = (int)hk, bb = (int)b;
+    wg::bar_arrive_tx(qbar, L::TILE);
+#pragma unroll
+    for (int a = 0; a < DH / 64; ++a)
+      wg::tma_load_4d(base + L::Q + a * L::ATOM, &tq, qbar, 64 * a, (int)q0, qh, bb);
+#else
+    wg::bar_arrive(qbar);
+#endif
+    for (int64_t t = 0; t < nt; ++t) {
+      const int st = (int)(t % kStages);
+      if (t >= kStages) wg::bar_wait(&empty[st], (uint32_t)((t / kStages - 1) & 1));
+#ifndef FLASH_NO_COPY
+      wg::bar_arrive_tx(&full[st], 2 * L::TILE);
+#pragma unroll
+      for (int a = 0; a < DH / 64; ++a) {
+        const uint32_t off = st * L::TILE + a * L::ATOM;
+        wg::tma_load_4d(base + L::K + off, &tk, &full[st], 64 * a, (int)(t * kKeys), kh, bb);
+        wg::tma_load_4d(base + L::V + off, &tv, &full[st], 64 * a, (int)(t * kKeys), kh, bb);
+      }
+#else
+      wg::bar_arrive(&full[st]);
+#endif
+    }
+    return;
+  }
+
+  // consumer warpgroup: rows q0 + 16 warp + g and + 8 of the accumulators
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = (int)q0 + 16 * warp + g;
+  const uint32_t qt = base + L::Q;
+  const float sl2 = p.scale * 1.4426950408889634f;   // scale log2(e)
+  float o[DH / 64][32], s[32];
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int a = 0; a < DH / 64; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  // S = Q K^T of the tile in stage st: k16 step kk is 32 bytes into atom
+  // kk / 4 of both tiles
+  auto scores = [&](int st) {
+    const uint32_t kt = base + L::K + st * L::TILE;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * L::ATOM + 32 * (kk & 3);
+      wg::mma_ss_n64(s, wg::desc(qt + off), wg::desc(kt + off), kk > 0);
+    }
+  };
+  // O += P V of the tile in stage st: keys 16 kk .. 16 kk + 15 are the n8
+  // blocks 2 kk and 2 kk + 1 of the scores, in bf16 pairs the register A
+  // fragment
+  auto values = [&](int st, const uint32_t (&pa)[4][4]) {
+    const uint32_t vt = base + L::V + st * L::TILE;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int a = 0; a < DH / 64; ++a)
+        wg::mma_rs_n64_tb(o[a], pa[kk], wg::desc(vt + a * L::ATOM + kk * 16 * wg::kAtomBytes),
+                          1);
+  };
+  // The online softmax of tile t's scores, in the accumulator layout: the
+  // mask (-1e30) only where the tile crosses the diagonal or Skv's end;
+  // the max on the raw scores (scale > 0 commutes with it), then p =
+  // exp2(s scale log2(e) - m) as one FFMA and exp2f, packed to bf16 into
+  // pa; m and l move on and alpha is the factor that rescales O.  Row max
+  // and sum: the thread's 16 values of a row as a tree, then the fixed
+  // butterfly over the 4 lanes of the row.  No product is in flight: the
+  // scores are overwritten in place.
+  auto softmax = [&](int64_t t, uint32_t (&pa)[4][4], float (&alpha)[2]) {
+    const int kbase = (int)(t * kKeys);
+    if (kbase + kKeys > p.Skv || (p.causal && kbase + kKeys - 1 > q0)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kbase + 8 * j + 2 * t4 + (e & 1), row = row0 + 8 * (e >> 1);
+          if (key >= p.Skv || (p.causal && key > row)) s[4 * j + e] = kMasked;
+        }
+    }
+    float mn[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx[j] = fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+#pragma unroll
+      for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+        for (int j = 0; j < w; ++j) mx[j] = fmaxf(mx[j], mx[j + w]);
+      float mc = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], 1));
+      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+      mn[r] = fmaxf(m[r], mc * sl2);
+      alpha[r] = exp2f(m[r] - mn[r]);
+      m[r] = mn[r];
+    }
+    float ps[2][8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float p0 = exp2f(fmaf(s[4 * j + 2 * r], sl2, -mn[r]));
+        const float p1 = exp2f(fmaf(s[4 * j + 2 * r + 1], sl2, -mn[r]));
+        ps[r][j] = p0 + p1;
+        // n8 block j, row half r: register r + 2 (j % 2) of k16 step j / 2
+        pa[j >> 1][r + 2 * (j & 1)] = pack(p0, p1);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+        for (int j = 0; j < w; ++j) ps[r][j] += ps[r][j + w];
+      const float sum = ps[r][0] + __shfl_xor_sync(0xffffffffu, ps[r][0], 1);
+      l[r] = l[r] * alpha[r] + sum + __shfl_xor_sync(0xffffffffu, sum, 2);
+    }
+  };
+  auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int a = 0; a < DH / 64; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[a][4 * j + e] *= alpha[e >> 1];
+  };
+  uint32_t pa[4][4];
+  float alpha[2];
+  wg::bar_wait(qbar, 0);
+  // tile t: S, its softmax and the rescale of O, then P V; the stage goes
+  // back to the producer once P V has read it
+  for (int64_t t = 0; t < nt; ++t) {
+    const int st = (int)(t % kStages);
+    wg::bar_wait(&full[st], (uint32_t)((t / kStages) & 1));
+    wg::fence();
+    scores(st);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(s);
+    softmax(t, pa, alpha);
+    rescale(alpha);
+    wg::fence();
+    values(st, pa);
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int a = 0; a < DH / 64; ++a) wg::fence_regs(o[a]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::fence_regs(pa[kk]);
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(&empty[st]);
+  }
+  auto* out = static_cast<__nv_bfloat16*>(p.o) + b * p.os[0] + h * p.os[1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t row = row0 + 8 * r;
+    if (row >= p.Sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int a = 0; a < DH / 64; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * a + 8 * j + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(out + row * p.os[2] + c) =
+            __floats2bfloat162_rn(o[a][4 * j + 2 * r] / den, o[a][4 * j + 2 * r + 1] / den);
+      }
+  }
+}
+
+// The tensor map of a (B, S, H, Dh) head tensor given by its (batch,
+// head, row) element strides: dims (Dh, S, H, B), 64 x 64 boxes.  A
+// stride of a dim of one element (the folded layout's heads) is never
+// stepped, and is given as the next one in to keep the map valid.
+inline int head_map(CUtensorMap* map, const void* base, int64_t Dh, int64_t S, int64_t H,
+                    int64_t B, const int64_t (&st)[3]) {
+  const uint64_t dims[4] = {(uint64_t)Dh, (uint64_t)S, (uint64_t)H, (uint64_t)B};
+  uint64_t strides[4] = {2, 2 * (uint64_t)st[2], 2 * (uint64_t)st[1], 2 * (uint64_t)st[0]};
+  for (int i = 2; i < 4; ++i)
+    if (dims[i] == 1) strides[i] = strides[i - 1] * dims[i - 1];
+  const uint32_t box[4] = {64, (uint32_t)kKeys, 1, 1};
+  return wg::make_tensor_map(map, base, 4, dims, strides, box);
+}
+
+template <int DH>
+int launch(const Params& p, int64_t B, int64_t Hkv, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  int err = head_map(&tq, p.q, DH, p.Sq, p.Hq, B, p.qs);
+  if (err == 0) err = head_map(&tk, p.k, DH, p.Skv, Hkv, B, p.ks);
+  if (err == 0) err = head_map(&tv, p.v, DH, p.Skv, Hkv, B, p.vs);
+  if (err != 0) return err;
+  const int bytes = Layout<DH>::BYTES + wg::kSwizzleBytes;   // + the base's alignment
+  static bool sized[64] = {};              // the attribute, set once a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev >= 64 || !sized[dev])) {
+    e = cudaFuncSetAttribute(flash_wgmma_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess && dev < 64) sized[dev] = true;
+  }
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)(B * p.Hq), (unsigned)((p.Sq + kWgRows - 1) / kWgRows));
+  flash_wgmma_kernel<DH><<<grid, kThreads, bytes, s>>>(p, tq, tk, tv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwg
+
+// The Params of a call, from the C entries' arguments; vec: q, k and v
+// 16-byte aligned with every stride a multiple of 16 bytes.
+Params make_params(const void* q, const void* k, const void* v, void* o, int64_t Hq,
+                   int64_t Hkv, int64_t Sq, int64_t Skv, int64_t Dh, const int64_t (&qs)[3],
+                   const int64_t (&ks)[3], const int64_t (&vs)[3], const int64_t (&os)[3],
+                   int causal, int esize) {
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.Hq = Hq; p.group = Hq / Hkv; p.Sq = Sq; p.Skv = Skv;
+  p.Dh = (int)Dh; p.causal = causal;
+  p.scale = (float)(1.0 / sqrt((double)Dh));
+  for (int i = 0; i < 3; ++i) {
+    p.qs[i] = qs[i]; p.ks[i] = ks[i]; p.vs[i] = vs[i]; p.os[i] = os[i];
+  }
+  const int64_t ve = 16 / esize;
+  const bool aligned = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
+                       ((uintptr_t)q % 16 == 0);
+  p.vec = aligned && Dh % ve == 0;
+  for (int i = 0; i < 3; ++i)
+    p.vec = p.vec && qs[i] % ve == 0 && ks[i] % ve == 0 && vs[i] % ve == 0;
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
@@ -374,27 +702,40 @@ int flash_attention_bh(const void* q, const void* k, const void* v, void* o,
   if (Dh < 1 || Dh > 128 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 ||
       B * Hq > 65535 || (Sq + kRows - 1) / kRows > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.Hq = Hq; p.group = Hq / Hkv; p.Sq = Sq; p.Skv = Skv;
-  p.Dh = (int)Dh; p.causal = causal;
-  p.scale = (float)(1.0 / sqrt((double)Dh));
-  const int64_t qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
-                vs[3] = {v_sb, v_sh, v_ss}, os[3] = {o_sb, o_sh, o_ss};
-  for (int i = 0; i < 3; ++i) {
-    p.qs[i] = qs[i]; p.ks[i] = ks[i]; p.vs[i] = vs[i]; p.os[i] = os[i];
-  }
+  const Params p = make_params(q, k, v, o, Hq, Hkv, Sq, Skv, Dh, {q_sb, q_sh, q_ss},
+                               {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss},
+                               causal, dtype == DT_BF16 ? 2 : 4);
   auto s = static_cast<cudaStream_t>(stream);
-  const int esize = dtype == DT_BF16 ? 2 : 4;
-  const int64_t ve = 16 / esize;
-  const bool aligned = ((uintptr_t)k % 16 == 0) && ((uintptr_t)v % 16 == 0) &&
-                       ((uintptr_t)q % 16 == 0);
-  p.vec = aligned && Dh % ve == 0 && k_ss % ve == 0 && k_sb % ve == 0 &&
-          k_sh % ve == 0 && v_ss % ve == 0 && v_sb % ve == 0 && v_sh % ve == 0 &&
-          q_ss % ve == 0 && q_sb % ve == 0 && q_sh % ve == 0;
   if (dtype == DT_BF16) return launch_dh<__nv_bfloat16>(p, B * Hq, s);
   if (dtype == DT_F32) return launch_dh<float>(p, B * Hq, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The same function on flash_wgmma_kernel: bf16 only, Dh 64 or 128, q, k,
+// v and o 16-byte aligned with every stride a multiple of 8 elements.
+// Anything else is refused (the wrapper sends it to flash_attention_bh).
+int flash_attention_bh_wgmma(const void* q, const void* k, const void* v, void* o,
+                             int64_t B, int64_t Hq, int64_t Hkv, int64_t Sq, int64_t Skv,
+                             int64_t Dh, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                             int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
+                             int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
+                             int64_t o_ss, int causal, int dtype, int device,
+                             void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (B * Hq == 0 || Sq == 0) return 0;
+  if (dtype != DT_BF16 || (Dh != 64 && Dh != 128) || Skv < 1 || Hkv < 1 ||
+      Hq % Hkv != 0 || B * Hq > INT32_MAX || Sq > INT32_MAX || Skv > INT32_MAX ||
+      (Sq + fwg::kWgRows - 1) / fwg::kWgRows > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Params p = make_params(q, k, v, o, Hq, Hkv, Sq, Skv, Dh, {q_sb, q_sh, q_ss},
+                               {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss},
+                               causal, 2);
+  const bool o_vec = (uintptr_t)o % 16 == 0 && o_sb % 8 == 0 && o_sh % 8 == 0 &&
+                     o_ss % 8 == 0;
+  if (!p.vec || !o_vec) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return Dh == 64 ? fwg::launch<64>(p, B, Hkv, s) : fwg::launch<128>(p, B, Hkv, s);
 }
 
 }  // extern "C"

@@ -76,6 +76,10 @@
 // SBGEMM_REAL_ENTRIES), so the complex and the real instantiations compile
 // in parallel.
 #include "common.cuh"
+#if defined(SBGEMM_BF16_NO_MMA) && !defined(WGMMA_NO_MMA)
+#define WGMMA_NO_MMA   // the bound probe's build without products: wgmma's too
+#endif
+#include "wgmma.cuh"
 
 namespace {
 
@@ -1193,6 +1197,23 @@ int sbgemm_gram_complex(const void* Ar, const void* Ai, void* Gr, void* Gi,
                         int dt_in, int dt_out, int device, void* stream) {
   return launch_gram<false>(Ar, Ai, Gr, Gi, B, m, n, data, TileGrid{}, dt_in, dt_out,
                             device, stream);
+}
+
+// The data-space Gram of bf16 planes with P = m <= 128 on Hopper's wgmma
+// (bf16tc::zgram_wgmma_kernel); any other call is refused (the wrapper
+// sends it to sbgemm_gram_complex).
+int sbgemm_gram_complex_wgmma(const void* Ar, const void* Ai, void* Gr, void* Gi,
+                              int64_t B, int64_t m, int64_t n, int data, int dt_in,
+                              int dt_out, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (!data || dt_in != DT_BF16 || m < 1 || m > 128) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  DISPATCH_DTYPE(dt_out, O,
+    return bf16tc::launch_gram_wgmma<O>(Ar, Ai, Gr, Gi, B, m, n, device, s);
+  )
+  return (int)cudaErrorInvalidValue;
 }
 
 // The tiled builds: A rounded per tile-map cell; levels is a host array of

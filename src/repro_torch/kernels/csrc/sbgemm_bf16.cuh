@@ -60,9 +60,10 @@
 //     items without a division.
 //   Gram, G = U U^H per bin with U's rows the P indices (data space: A's
 //     rows, k over n; parameter space: A's columns, k over m, read through
-//     ldmatrix.trans): zgram_bf16_kernel.  Items are (bin, a 112 x 112
-//     output tile on the diagonal or half of one above it); at the paper's
-//     data space (P = 100) a bin is one tile, read from HBM once, in
+//     ldmatrix.trans): zgram_bf16_kernel, except the data space with P <=
+//     128, which zgram_wgmma_kernel (at the end of this file) takes.  Items
+//     are (bin, a 112 x 112 output tile on the diagonal or half of one
+//     above it); at P <= 112 a bin is one tile, read from HBM once, in
 //     128-wide k-chunks 3 deep (one panel a stage; 64-wide, 3 deep with two
 //     panels; 32-wide in parameter space, where K = m is short).  The
 //     fragment of a 16-row tile of U serves as the A operand and, in
@@ -81,10 +82,10 @@
 //     of sub-tiles), but the busiest SM sub-partition carries 2 warps x 32
 //     mma a k-step (7 warps on 4 sub-partitions), and measured it lands on
 //     the tensor-core side: built without its copies it takes longer than
-//     built without its products (PERF.md).  wgmma is the next step.  Each
-//     entry on or above the diagonal is written, and its conjugate below
-//     it; the diagonal's imaginary parts are not zeroed (ops.sbgemm_gram
-//     symmetrizes).
+//     built without its products (PERF.md); zgram_wgmma_kernel moves the
+//     one-tile data space onto wgmma.  Each entry on or above the diagonal
+//     is written, and its conjugate below it; the diagonal's imaginary
+//     parts are not zeroed (ops.sbgemm_gram symmetrizes).
 
 namespace bf16tc {
 
@@ -616,6 +617,214 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B, i
                 : go(zgram_bf16_kernel<O, false, 1>, GLayout<false, 1>::BYTES);
   return data ? go(zgram_bf16_kernel<O, true, 2>, GLayout<true, 2>::BYTES)
               : go(zgram_bf16_kernel<O, false, 2>, GLayout<false, 2>::BYTES);
+}
+
+// ---------------------------------------------------------------------------
+// zgram_wgmma_kernel: the data-space Gram of bf16 planes for P <= 128 (a
+// bin one tile), on wgmma (wgmma.cuh).  G = U U^H with U = A's P rows,
+// k over n: Gr = [Ur Ui] [Ur Ui]^T and Gi = [Ui -Ur] [Ur Ui]^T over K =
+// 2n, two real wgmma chains that share their B operands; the sign is the
+// instruction's scale on A (exact).  Rows of U past P are zero.
+// Bytes-bound on paper (the paper shape moves 2.04 GB for ~0.37 TFLOP of
+// trimmed tiles), so the design streams A through a deep ring and keeps
+// the products' shared-memory reads under the copies.  Blocks are
+// persistent over bins, one an SM.  A producer warp feeds each 64-wide
+// k-chunk of both planes (rows of 128 bytes, 128-byte swizzle) into a ring
+// 4 deep: with rows 16-byte aligned (n % 8 == 0) one thread
+// issues two TMA copies a chunk (rows past P and k past n zero-filled by
+// the tensor map); otherwise the warp copies element by element (rows
+// past P stay zero from the start).
+// Consumer warpgroup 0 takes rows 0-63 against columns 0 .. N0 - 1;
+// warpgroup 1 (when P > 64) takes rows 64-127 against columns 64 .. 63 +
+// N1 only (Hermitian symmetry).  N0 and N1 cover P in multiples of 8: 104
+// and 40 up to P = 104 (the paper's P = 100), 128 and 64 above, N0 = 64
+// alone up to P = 64.  Each chunk's 16 wgmmas are issued behind the last
+// chunk's, whose stage is released once they complete (wait_group 1).
+// Every output sums its k in chunk order and each chunk in the tensor
+// cores' fixed order: the same on every run.  Entries on and above the
+// diagonal are written with their conjugates below, so Gr is symmetric
+// and Gi antisymmetric bit for bit off the diagonal; the diagonal's
+// imaginary parts are not zeroed (ops.sbgemm_gram symmetrizes).
+// Measured (PERF.md): bound by its copies, the tensor-core side well
+// under them; 128-wide chunks (64 KB stages) or a ring 3, 5 or 6 deep
+// were no faster.  Measurement builds: SBGEMM_BF16_NO_MMA (via
+// WGMMA_NO_MMA) drops the products, SBGEMM_BF16_NO_COPY the producer's
+// copies.
+
+constexpr int kGwChunk = 64;               // k a stage: one swizzled atom
+constexpr int kGwStages = 4;
+
+template <int WGS>
+struct GwLayout {
+  static constexpr int ROWS = 64 * WGS;                     // U's rows staged
+  static constexpr int PLANE = ROWS * wg::kAtomBytes;
+  static constexpr int STAGE = 2 * PLANE;                   // Ur, Ui
+  static constexpr int BARS = kGwStages * STAGE;            // full, empty
+  static constexpr int BYTES = BARS + 8 * 2 * kGwStages + wg::kSwizzleBytes;
+  static constexpr int THREADS = 128 * WGS + 32;
+};
+
+// One consumer warpgroup's chain: rows r0 .. r0 + 63 of U against the N
+// rows from c0, over every chunk of its block's bins.
+template <typename O, int WGS, int N>
+__device__ __forceinline__ void gw_consume(uint32_t base, uint64_t* full, uint64_t* empty,
+                                           O* __restrict__ Gr, O* __restrict__ Gi,
+                                           int64_t B, int P, int64_t nch, int r0, int c0) {
+  using L = GwLayout<WGS>;
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  float cr[N / 2], ci[N / 2];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) cr[e] = ci[e] = 0.f;
+  int64_t i = 0;                           // the block's chunk stream
+  for (int64_t b = blockIdx.x; b < B; b += gridDim.x) {
+    for (int64_t c = 0; c < nch; ++c, ++i) {
+      const int st = (int)(i % kGwStages);
+      wg::bar_wait(&full[st], (uint32_t)((i / kGwStages) & 1));
+      const uint32_t ur = base + st * L::STAGE, ui = ur + L::PLANE;
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < kGwChunk / 16; ++kk) {
+        const uint32_t a = r0 * wg::kAtomBytes + 32 * kk, bo = c0 * wg::kAtomBytes + 32 * kk;
+        const uint64_t ar = wg::desc(ur + a), ai = wg::desc(ui + a);
+        const uint64_t br = wg::desc(ur + bo), bi = wg::desc(ui + bo);
+        const int acc = c > 0 || kk > 0;
+        wg::mma_ss<N>(cr, ar, br, acc);          // Ur Ur^T
+        wg::mma_ss<N>(cr, ai, bi, 1);            // + Ui Ui^T
+        wg::mma_ss<N>(ci, ai, br, acc);          // Ui Ur^T
+        wg::mma_ss<N, -1>(ci, ar, bi, 1);        // - Ur Ui^T
+      }
+      wg::commit();
+      wg::wait<1>();                       // the last chunk's products are done
+      if (i > 0) {
+        __syncwarp();
+        if (lane == 0) wg::bar_arrive(&empty[(i - 1) % kGwStages]);
+      }
+    }
+    wg::wait<0>();
+    wg::fence_regs(cr);
+    wg::fence_regs(ci);
+    O* gr = Gr + b * P * P;
+    O* gi = Gi + b * P * P;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 16 * wq + g + 8 * (e >> 1), q = c0 + 8 * j + 2 * t + (e & 1);
+        if (r >= P || q >= P || r > q) continue;
+        const float vr = cr[4 * j + e], vi = ci[4 * j + e];
+        gr[r * P + q] = Store<O>::from(vr);
+        gi[r * P + q] = Store<O>::from(vi);
+        if (r != q) {
+          gr[q * P + r] = Store<O>::from(vr);
+          gi[q * P + r] = Store<O>::from(-vi);
+        }
+      }
+  }
+}
+
+// tr, ti: tensor maps of the planes as (n, m, B) in boxes of 64 x ROWS x 1
+// (read only when tma; element copies otherwise).
+template <typename O, int WGS, int N0, int N1>
+__global__ void __launch_bounds__(GwLayout<WGS>::THREADS, 1)
+zgram_wgmma_kernel(const __grid_constant__ CUtensorMap tr, const __grid_constant__ CUtensorMap ti,
+                   const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
+                   O* __restrict__ Gr, O* __restrict__ Gi, int64_t B, int64_t m, int64_t n,
+                   int tma) {
+  using L = GwLayout<WGS>;
+  extern __shared__ __align__(16) unsigned char gw_raw[];
+  unsigned char* smem = gw_raw + ((wg::kSwizzleBytes - wg::smem_u32(gw_raw) %
+                                   wg::kSwizzleBytes) % wg::kSwizzleBytes);
+  const uint32_t base = wg::smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + kGwStages;
+  const int P = (int)m;
+  const int64_t nch = (n + kGwChunk - 1) / kGwChunk;
+  if (!tma) {
+    // element copies never write the rows of U past P: zero them once
+    for (int e = threadIdx.x; e < L::BARS / 16; e += blockDim.x)
+      reinterpret_cast<uint4*>(smem)[e] = make_uint4(0, 0, 0, 0);
+    wg::proxy_fence();
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGwStages; ++s) {
+      wg::bar_init(&full[s], tma ? 1 : 32);    // TMA: the thread that expects the bytes
+      wg::bar_init(&empty[s], 4 * WGS);        // the consumers' warps
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 4 * WGS) {                   // producer
+    if (tma && lane != 0) return;
+    int64_t i = 0;
+    for (int64_t b = blockIdx.x; b < B; b += gridDim.x)
+      for (int64_t c = 0; c < nch; ++c, ++i) {
+        const int st = (int)(i % kGwStages);
+        if (i >= kGwStages) wg::bar_wait(&empty[st], (uint32_t)((i / kGwStages - 1) & 1));
+        const uint32_t dst = base + st * L::STAGE;
+        if (tma) {
+#ifndef SBGEMM_BF16_NO_COPY
+          const int64_t k0 = c * kGwChunk;
+          wg::bar_arrive_tx(&full[st], L::STAGE);
+          wg::tma_load_3d(dst, &tr, &full[st], (int)k0, 0, (int)b);
+          wg::tma_load_3d(dst + L::PLANE, &ti, &full[st], (int)k0, 0, (int)b);
+#else
+          wg::bar_arrive(&full[st]);
+#endif
+          continue;
+        }
+#ifndef SBGEMM_BF16_NO_COPY
+        const int64_t k0 = c * kGwChunk;
+        const int kv = (int)min64(kGwChunk, n - k0);
+        wg::copy_rows(dst, Ar + b * m * n + k0, n, P, kv, lane);
+        wg::copy_rows(dst + L::PLANE, Ai + b * m * n + k0, n, P, kv, lane);
+#endif
+        wg::proxy_fence();
+        wg::bar_arrive(&full[st]);
+      }
+    return;
+  }
+  if (warp < 4)
+    gw_consume<O, WGS, N0>(base, full, empty, Gr, Gi, B, P, nch, 0, 0);
+  else if constexpr (WGS == 2)
+    gw_consume<O, WGS, N1>(base, full, empty, Gr, Gi, B, P, nch, 64, 64);
+}
+
+// The data-space G = A A^H of bf16 planes with P = m <= 128 on
+// zgram_wgmma_kernel: one consumer warpgroup for P <= 64, two above; TMA
+// where A's rows are 16-byte aligned (n % 8 == 0 and aligned planes).
+template <typename O>
+int launch_gram_wgmma(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
+                      int64_t m, int64_t n, int device, cudaStream_t s) {
+  if (m < 1 || m > 128 || n >= INT32_MAX || B >= INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (n == 0) {                              // an empty sum: G = 0
+    const size_t bytes = (size_t)(B * m * m) * sizeof(O);
+    cudaError_t e = cudaMemsetAsync(Gr, 0, bytes, s);
+    if (e == cudaSuccess) e = cudaMemsetAsync(Gi, 0, bytes, s);
+    return (int)e;
+  }
+  const int wgs = m <= 64 ? 1 : 2;
+  const int tma = n % 8 == 0 && aligned16(Ar) && aligned16(Ai);
+  CUtensorMap tr{}, ti{};
+  if (tma) {
+    const uint64_t dims[3] = {(uint64_t)n, (uint64_t)m, (uint64_t)B};
+    const uint64_t strides[3] = {2, 2 * (uint64_t)n, 2 * (uint64_t)(m * n)};
+    const uint32_t box[3] = {(uint32_t)kGwChunk, (uint32_t)(64 * wgs), 1};
+    int e = wg::make_tensor_map(&tr, Ar, 3, dims, strides, box);
+    if (e == 0) e = wg::make_tensor_map(&ti, Ai, 3, dims, strides, box);
+    if (e != 0) return e;
+  }
+  auto go = [&](auto kernel, int threads, int bytes) {
+    return launch_persistent(kernel, threads, bytes, B, device, s, tr, ti,
+                             static_cast<const bf16*>(Ar), static_cast<const bf16*>(Ai),
+                             static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, tma);
+  };
+  if (m <= 64)
+    return go(zgram_wgmma_kernel<O, 1, 64, 64>, GwLayout<1>::THREADS, GwLayout<1>::BYTES);
+  if (m <= 104)
+    return go(zgram_wgmma_kernel<O, 2, 104, 40>, GwLayout<2>::THREADS, GwLayout<2>::BYTES);
+  return go(zgram_wgmma_kernel<O, 2, 128, 64>, GwLayout<2>::THREADS, GwLayout<2>::BYTES);
 }
 
 }  // namespace bf16tc

@@ -10,8 +10,13 @@ softmax step by step in PyTorch, for CPU tensors.
 The kernel addresses heads by strides, so ``flash_attention`` hands it the
 (B, S, H, Dh) tensors as they are: no head fold, no grouped-query repeat,
 no padding (ragged lengths are masked in the kernel).  ``q_block`` and
-``kv_block`` are the reference's tile sizes; the kernel takes 64 by 64
+``kv_block`` are the reference's tile sizes; the kernels take 64 by 64
 tiles whatever they say, which changes only the order of the sums.
+
+Two kernels sit behind the wrapper, chosen by :func:`kernel_for` from the
+dtype, the head dim and the alignment alone: ``flash_attention_bh_wgmma``
+(bf16, Dh 64 or 128, 16-byte-aligned rows: Hopper's wgmma) and
+``flash_attention_bh`` (everything else).  Each counts its own launches.
 """
 
 from __future__ import annotations
@@ -25,6 +30,20 @@ F32 = torch.float32
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+WGMMA_HEAD_DIMS = (64, 128)
+# the C entries of csrc/flash_attention.cu, one launch counter each
+KERNELS = ("flash_attention_bh", "flash_attention_bh_wgmma")
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int, aligned: bool) -> str:
+    """The C entry that takes a call on the card: the wgmma kernel for bf16
+    at Dh 64 or 128 when q, k, v and o start on 16-byte boundaries and
+    every (batch, head, row) stride is a multiple of 16 bytes, nonzero
+    where its axis is longer than one (``aligned``: the kernel's TMA
+    copies need both), else the general kernel."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and aligned:
+        return "flash_attention_bh_wgmma"
+    return "flash_attention_bh"
 
 
 def flash_attention_bh_plain(q, k, v, *, causal: bool = True,
@@ -78,9 +97,10 @@ def _check(q, k, v, ndim: int, what: str) -> None:
                                    f"{MAX_HEAD_DIM}")
     if k.shape[1] < 1:
         raise ValueError(f"{what}: no keys")
-    if len({q.device, k.device, v.device}) != 1:
+    dev = q.device
+    if k.device != dev or v.device != dev:
         raise ValueError(f"{what}: q, k, v on different devices")
-    if q.device.type == "cuda":
+    if dev.type == "cuda":
         if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype \
                 or v.dtype != q.dtype:
             raise UnsupportedOnBackend(
@@ -88,19 +108,27 @@ def _check(q, k, v, ndim: int, what: str) -> None:
                 f"got {q.dtype}, {k.dtype}, {v.dtype}")
         if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
             raise ValueError(f"{what}: the head dim must be unit-stride")
-    elif q.device.type != "cpu":
-        raise ValueError(f"{what}: unsupported device {q.device}")
+    elif dev.type != "cpu":
+        raise ValueError(f"{what}: unsupported device {dev}")
 
 
 def _launch(q, k, v, o, B, Hq, Hkv, qs, ks, vs, os, causal: bool) -> None:
-    """Launch the C entry on (batch, head, row) strides; counts it."""
+    """Launch the C entry that :func:`kernel_for` names on (batch, head,
+    row) strides; counts it."""
     Sq, Skv, Dh = q.shape[1], k.shape[1], q.shape[-1]
-    fn = _build.library("flash_attention").flash_attention_bh
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             B, Hq, Hkv, Sq, Skv, Dh, *qs, *ks, *vs, *os, int(bool(causal)),
-             _build.DTYPE_CODES[q.dtype], q.device.index, _build.stream_of(q))
-    _build.check(err, "flash_attention_bh")
-    _build.launch_counts["flash_attention_bh"] += 1
+    # 16-byte aligned starts and strides, none 0 on an axis of more than one
+    # element (a tensor map steps each axis by its stride)
+    es, sts = q.element_size(), (*qs, *ks, *vs, *os)
+    aligned = ((q.data_ptr() | k.data_ptr() | v.data_ptr() | o.data_ptr()) % 16 == 0
+               and all(st * es % 16 == 0 and (st or n == 1) for st, n in zip(
+                   sts, (B, Hq, Sq, B, Hkv, Skv, B, Hkv, Skv, B, Hq, Sq))))
+    entry = kernel_for(q.dtype, Dh, aligned)
+    err = getattr(_build.library("flash_attention"), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq, Hkv, Sq,
+        Skv, Dh, *sts, int(bool(causal)), _build.DTYPE_CODES[q.dtype],
+        q.device.index, _build.stream_of(q))
+    _build.check(err, entry)
+    _build.launch_counts[entry] += 1
 
 
 def flash_attention_bh(q, k, v, *, causal: bool = True, q_block: int = 256,
@@ -112,8 +140,10 @@ def flash_attention_bh(q, k, v, *, causal: bool = True, q_block: int = 256,
         return flash_attention_bh_plain(q, k, v, causal=causal,
                                         q_block=q_block, kv_block=kv_block)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    st = lambda t: (t.stride(0), 0, t.stride(1))      # noqa: E731
-    _launch(q, k, v, o, q.shape[0], 1, 1, st(q), st(k), st(v), st(o), causal)
+    (qb, qr, _), (kb, kr, _), (vb, vr, _), (ob, orow, _) = (
+        q.stride(), k.stride(), v.stride(), o.stride())
+    _launch(q, k, v, o, q.shape[0], 1, 1, (qb, 0, qr), (kb, 0, kr), (vb, 0, vr),
+            (ob, 0, orow), causal)
     return o
 
 

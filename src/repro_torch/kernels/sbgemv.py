@@ -11,8 +11,9 @@ output planes.  Their multi-RHS twins (SBGEMM, S right-hand sides on a
 trailing axis) and the per-bin Gram blocks G = A^H A live in
 ``csrc/sbgemm.cu``; there each A element also serves every column of a
 pass, f64 planes run on the FP64 tensor cores, the untiled complex bf16
-products (N, T/H, Gram) on the bf16 tensor cores, and the untiled complex
-f32 N in a staged FP32 kernel.
+products (N, T/H, Gram) on the bf16 tensor cores (the data-space Gram of
+P <= 128 on wgmma, its own entry), and the complex f32 products in staged
+FP32 kernels.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version beside it for CPU tensors.  Sums accumulate in f64 for f64 planes
@@ -45,6 +46,7 @@ from .ref import (LADDER_INDEX, cast, complex_contract, gram_contract,
                   quantize_tile_cells, real_contract, tile_levels)
 
 MAX_TILES = 8          # csrc/common.cuh:kMaxTiles
+WGMMA_GRAM_MAX_P = 128  # csrc/sbgemm_bf16.cuh: two 64-row warpgroups
 
 
 def _check_planes(planes, out_dtype, what: str) -> None:
@@ -255,21 +257,32 @@ def sbgemm_th_complex(A_re, A_im, X_re, X_im, *, conj: bool,
                    (B, n, S), out_dtype, (B, m, n, S), int(bool(conj)))
 
 
+def gram_kernel_for(dtype: torch.dtype, data: bool, P: int) -> str:
+    """The C entry that takes a Gram on the card: the wgmma kernel for the
+    data space of bf16 planes with 1 <= P <= WGMMA_GRAM_MAX_P (a bin one
+    tile: the paper's P = N_d = 100), else the general entry."""
+    if dtype == torch.bfloat16 and data and 1 <= P <= WGMMA_GRAM_MAX_P:
+        return "sbgemm_gram_complex_wgmma"
+    return "sbgemm_gram_complex"
+
+
 def sbgemm_gram_complex(A_re, A_im, *, data: bool = False,
                         out_dtype: Optional[torch.dtype] = None):
     """Per-batch Gram blocks on split planes: G = A^H A (B, n, n), or with
     ``data`` G = A A^H (B, m, m), read from A in its stored layout.  The
     kernel computes the tiles on and above the diagonal and writes their
     conjugates below it; neither it nor the plain version symmetrizes
-    the diagonal tiles (``ops.sbgemm_gram`` does)."""
+    the diagonal tiles (``ops.sbgemm_gram`` does).  On the card the entry
+    is :func:`gram_kernel_for`'s, each counted under its own name."""
     out_dtype = out_dtype or A_re.dtype
     _check_gram(A_re, A_im, out_dtype, "sbgemm_gram_complex")
     B, m, n = A_re.shape
     if A_re.device.type == "cpu":
         return sbgemm_gram_complex_plain(A_re, A_im, data, out_dtype)
     P = m if data else n
-    return _launch("sbgemm", "sbgemm_gram_complex", (A_re, A_im), (B, P, P),
-                   out_dtype, (B, m, n), int(bool(data)))
+    return _launch("sbgemm", gram_kernel_for(A_re.dtype, data, P),
+                   (A_re, A_im), (B, P, P), out_dtype, (B, m, n),
+                   int(bool(data)))
 
 
 def sbgemm_n_complex_tiled_plain(A_re, A_im, X_re, X_im, levels, out_dtype):

@@ -130,3 +130,43 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
                            torch.zeros((1, 4, 2, 16)))
     with pytest.raises(ValueError, match="query heads"):
         fa.flash_attention(torch.zeros((1, 4, 3, 8)), q, q)
+
+
+@pytest.mark.parametrize("dtype,head_dim,aligned,entry", [
+    (torch.bfloat16, 64, True, "flash_attention_bh_wgmma"),
+    (torch.bfloat16, 128, True, "flash_attention_bh_wgmma"),
+    (torch.bfloat16, 64, False, "flash_attention_bh"),      # unaligned rows
+    (torch.bfloat16, 96, True, "flash_attention_bh"),       # other head dims
+    (torch.bfloat16, 32, True, "flash_attention_bh"),
+    (torch.bfloat16, 12, True, "flash_attention_bh"),
+    (torch.float32, 64, True, "flash_attention_bh"),        # f32: FMA kernel
+    (torch.float32, 128, True, "flash_attention_bh"),
+])
+def test_kernel_choice_is_a_pure_function_of_dtype_head_dim_alignment(
+        dtype, head_dim, aligned, entry):
+    """The wrapper names the C entry from (dtype, Dh, alignment) alone, and
+    each entry has its own launch counter."""
+    assert fa.kernel_for(dtype, head_dim, aligned) == entry
+    assert entry in fa.KERNELS
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 8])
+def test_cpu_path_matches_jax_at_the_wgmma_head_dims(Dh, G):
+    """The head dims the wgmma kernel takes on the card, with key-head
+    groups of 1, 2 and 8: on the CPU the wrapper is still the plain
+    version, and it matches the JAX kernel (interpret mode) and oracle at
+    the bf16 tolerance."""
+    tdt, jdt, tol = DTYPES["bfloat16"]
+    (q, k, v), (jq, jk, jv) = _both(_inputs(4, 1, 64, 64, 2 * G, 2, Dh),
+                                    tdt, jdt)
+    _build.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=True, q_block=32, kv_block=32)
+    assert not any(_build.launch_counts[e] for e in fa.KERNELS)
+    want = jax_flash(jq, jk, jv, causal=True, q_block=32, kv_block=32,
+                     interpret=True)
+    assert got.dtype == tdt and tuple(got.shape) == (1, 64, 2 * G, Dh)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(got), _np(jax_ref(jq, jk, jv,
+                                                     causal=True)),
+                               rtol=tol, atol=tol)

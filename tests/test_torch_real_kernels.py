@@ -311,9 +311,10 @@ def test_real_entries_are_declared_as_their_sources_define(source):
     ("pad_cast", ["common.cuh", "pad_cast.cu"]),
     ("sbgemv", ["common.cuh", "sbgemv.cu"]),
     ("sbgemm", ["common.cuh", "sbgemm.cu", "sbgemm_bf16.cuh",
-                "sbgemm_f32.cuh"]),
+                "sbgemm_f32.cuh", "wgmma.cuh"]),
     ("sbgemm_real", ["common.cuh", "sbgemm.cu", "sbgemm_bf16.cuh",
-                     "sbgemm_f32.cuh", "sbgemm_real.cu"]),
+                     "sbgemm_f32.cuh", "sbgemm_real.cu", "wgmma.cuh"]),
+    ("flash_attention", ["common.cuh", "flash_attention.cu", "wgmma.cuh"]),
 ])
 def test_each_library_hashes_only_its_own_sources(source, want):
     """A library's build name covers its source and what it includes, so

@@ -236,6 +236,39 @@ def test_sbgemm_gram_is_exactly_hermitian_and_matches_oracle(space, dt,
                                    atol=TOL[dt] * 10)
 
 
+@pytest.mark.parametrize("dt,data,P,entry", [
+    (torch.bfloat16, True, 1, "sbgemm_gram_complex_wgmma"),
+    (torch.bfloat16, True, 100, "sbgemm_gram_complex_wgmma"),   # N_d
+    (torch.bfloat16, True, 128, "sbgemm_gram_complex_wgmma"),
+    (torch.bfloat16, True, 129, "sbgemm_gram_complex"),    # two tiles a bin
+    (torch.bfloat16, False, 100, "sbgemm_gram_complex"),   # parameter space
+    (torch.bfloat16, True, 0, "sbgemm_gram_complex"),
+    (torch.float32, True, 100, "sbgemm_gram_complex"),
+    (torch.float64, True, 100, "sbgemm_gram_complex"),
+])
+def test_gram_kernel_choice_is_a_pure_function_of_dtype_space_and_P(
+        dt, data, P, entry):
+    """The Gram wrapper names its C entry from (dtype, space, P) alone: the
+    wgmma kernel takes the data space of bf16 planes at P <= 128."""
+    assert tsb.gram_kernel_for(dt, data, P) == entry
+
+
+@pytest.mark.parametrize("B,m,n", [(1, 65, 77), (1, 100, 130), (2, 128, 7)])
+def test_bf16_data_gram_at_the_wgmma_edges_matches_pallas_interpret(B, m, n):
+    """The data-space bf16 Gram at the wgmma kernel's edges (P across its
+    two 64-row warpgroups, n odd, ragged against its 64-wide k-chunks): on
+    the CPU the wrapper is its plain version, which matches the reference
+    kernel (interpret mode) at the h tolerance and counts no launch."""
+    jp, tp = _gram_planes(B, m, n, torch.bfloat16, seed=m + n)
+    want = jops.sbgemm_gram(*jp, space="data", **PALLAS)
+    _build.reset_launch_counts()
+    raw = tsb.sbgemm_gram_complex(*tp, data=True, out_dtype=torch.float32)
+    assert not _build.launch_counts
+    for g, w in zip(raw, want):
+        assert g.shape == (B, m, m) and g.dtype == torch.float32
+        np.testing.assert_allclose(_np(g), _np(w), rtol=2e-2, atol=2e-2)
+
+
 def test_gram_plain_reads_data_space_in_stored_layout():
     """The kernel's data flag computes A A^H from A as stored; its plain
     version equals the reference's route through the conjugate-transposed
