@@ -170,6 +170,7 @@ TOL = {"d": 1e-12, "s": 1e-5, "h": 2e-2}
 LEVEL_OF = {torch.float64: "d", torch.float32: "s", torch.bfloat16: "h"}
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 REPEATS = 20
+FLASH_REPEATS = 200     # the flash kernels' queued timings (tens of us a call)
 SEED = 0
 S_BLOCK = 8          # the main path's block of right-hand sides
 S_WIDE = 32          # a wider block, for the per-column trend
@@ -461,6 +462,7 @@ def check_sbgemm_kernels(dev, B, m, n, S_list, timed, results, time_fn):
 
 
 def check_gram_kernel(dev, B, m, n, spaces, timed, results, time_fn):
+    from repro_torch.kernels import _build
     from repro_torch.kernels import sbgemv as sk
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     A64 = [torch.randn((B, m, n), generator=gen, device=dev,
@@ -473,18 +475,25 @@ def check_gram_kernel(dev, B, m, n, spaces, timed, results, time_fn):
             pfn = lambda _: sk.sbgemm_gram_complex_plain(Ar, Ai, data, dt)
             what = (f"sbgemm_gram_complex {space} {name(dt)} at "
                     f"{(B, m, n)}")
+            P, K = (m, n) if data else (n, m)
+            # the entry that must take it: the wgmma Gram for bf16 planes
+            # in data space at P <= 128, the general one for the rest
+            entry = ("sbgemm_gram_complex_wgmma" if dt == torch.bfloat16
+                     and data and P <= 128 else "sbgemm_gram_complex")
+            before = _build.launch_counts[entry]
             err = check_planes(what, kfn(None), pfn(None), dt)
+            if dev.type == "cuda" and \
+                    _build.launch_counts[entry] != before + 1:
+                fail(f"{what}: did not launch {entry}")
             print(f"{what}: max abs err vs plain {err:.3e}", flush=True)
             if not timed:
                 continue
-            P, K = (m, n) if data else (n, m)
             nbytes = 2 * dt.itemsize * (B * m * n + B * P * P)
             # G is Hermitian: the P (P + 1) / 2 entries on and above the
             # diagonal are the work, 8 K real flops each
             flops = 4 * B * P * (P + 1) * K
             b_ms, b_by = bound_ms(nbytes, flops, name(dt))
             lib = _library_gram(Ar, Ai, data)
-            entry = sk.gram_kernel_for(dt, data, P)
             row = results[entry][f"{name(dt)} {space}"] = {
                 "shape": [B, m, n], "space": space, "max_abs_err": err,
                 "ms": time_fn(kfn, None), "plain_ms": time_fn(pfn, None),
@@ -728,6 +737,20 @@ def check_wgmma_kernels(dev):
                             got[1][:, off], -got[1].mT[:, off])):
                     fail(f"{what}: not exactly Hermitian off the diagonal")
                 n_g += 1
+    if dev.type == "cuda":
+        # one kernel a shape: the general entry refuses bf16 data-space
+        # calls at P <= 128 and takes P = 129
+        lib, code = _build.library("sbgemm"), _build.DTYPE_CODES[dt]
+        for P in (1, 100, 128, 129):
+            A = [randn(1, P, 77) for _ in range(2)]
+            G = [torch.empty((1, P, P), device=dev, dtype=dt)
+                 for _ in range(2)]
+            rc = lib.sbgemm_gram_complex(*(t.data_ptr() for t in (*A, *G)),
+                                         1, P, 77, 1, code, code, dev.index,
+                                         _build.stream_of(A[0]))
+            if (rc != 0) != (P <= 128):
+                fail(f"sbgemm_gram_complex bf16 data space at P = {P} "
+                     f"returned {rc}: it must refuse P <= 128 and take more")
     sync(dev)
     print(f"wgmma kernels: {n_f} flash calls within {FLASH_TOL[dt]:g} (worst "
           f"{worst:.3e}) and {n_g} Gram calls within {TOL['h']:g} of their "
@@ -741,13 +764,33 @@ BOUND_PROBES = {"no_products_ms": ("SBGEMM_BF16_NO_MMA", "SBGEMM_F32_NO_FMA"),
                 "no_copy_ms": ("SBGEMM_BF16_NO_COPY", "SBGEMM_F32_NO_COPY")}
 
 
+def bound_side(time_fn, call_whole, calls_one_sided) -> dict:
+    """The whole build timed before and after its one-sided builds (the
+    run's spread: the two readings' difference, at least 2 % of the
+    first), and the side that bounds it: neither when no one-sided build
+    beats the whole by more than the spread (something else binds), else
+    the side left in the slower one-sided build."""
+    row = {"ms": time_fn(call_whole, None)}
+    for label, call in calls_one_sided.items():
+        row[label] = time_fn(call, None)
+    row["ms_again"] = time_fn(call_whole, None)
+    spread = max(abs(row["ms_again"] - row["ms"]), 0.02 * row["ms"])
+    whole = min(row["ms"], row["ms_again"])
+    if min(row["no_products_ms"], row["no_copy_ms"]) >= whole - spread:
+        row["bound_side"] = "neither"
+    else:
+        row["bound_side"] = ("products" if row["no_copy_ms"]
+                             > row["no_products_ms"] else "copies")
+    return row
+
+
 def probe_bounds(dev, B, m, n, time_fn):
     """The bf16 tensor-core kernels and the staged f32 kernels (each: the
     data-space Gram, N and mode H at S = 8 and 32) at the paper shape,
     each built as the wrappers load it, without its products (the copy
     pipeline alone, with the bf16 fragment loads) and without its copies
-    (the products alone, on whatever shared memory holds): the slower
-    one-sided build names the side that bounds the kernel.  Called through
+    (the products alone, on whatever shared memory holds): ``bound_side``
+    names the side that bounds the kernel, or neither.  Called through
     the C entries, so no launch is counted.  Reported, not gated."""
     from repro_torch.kernels import _build
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
@@ -760,13 +803,12 @@ def probe_bounds(dev, B, m, n, time_fn):
     out = {}
     for dt in (torch.bfloat16, torch.float32):
         A = planes(dt, B, m, n)
-        cases = {"sbgemm_gram_complex data": (
-            "sbgemm_gram_complex", (*A, *planes(dt, B, m, m, fill=False)),
-            (B, m, n), (1,))}
-        if dt == torch.bfloat16:     # the wgmma Gram beside the mma.sync one
-            cases["sbgemm_gram_complex_wgmma data"] = (
-                "sbgemm_gram_complex_wgmma",
-                (*A, *planes(dt, B, m, m, fill=False)), (B, m, n), (1,))
+        # the data-space Gram: bf16 planes at P = m <= 128 take the wgmma
+        # entry alone
+        gram = ("sbgemm_gram_complex_wgmma" if dt == torch.bfloat16
+                else "sbgemm_gram_complex")
+        cases = {f"{gram} data": (
+            gram, (*A, *planes(dt, B, m, m, fill=False)), (B, m, n), (1,))}
         for S in (S_BLOCK, S_WIDE):
             cases[f"sbgemm_n_complex S={S}"] = (
                 "sbgemm_n_complex", (*A, *planes(dt, B, n, S),
@@ -779,19 +821,21 @@ def probe_bounds(dev, B, m, n, time_fn):
         code = _build.DTYPE_CODES[dt]
         for what, (entry, tensors, sizes, ints) in cases.items():
             ptrs = [t.data_ptr() for t in tensors]
-            row = out[f"{what} {name(dt)}"] = {}
-            for label, defines in (("ms", ()), *BOUND_PROBES.items()):
+
+            def call_of(defines, entry=entry, ptrs=ptrs, sizes=sizes,
+                        ints=ints):
                 fn = getattr(_build.library("sbgemm", defines), entry)
 
-                def call(_, fn=fn):
+                def call(_):
                     _build.check(fn(*ptrs, *sizes, *ints, code, code,
                                     dev.index, _build.stream_of(A[0])), entry)
-                row[label] = time_fn(call, None)
-            row["bound_side"] = ("products" if row["no_copy_ms"]
-                                 > row["no_products_ms"] else "copies")
-            print(f"{what} {name(dt)}: {row['ms']:.4f} ms; without products "
-                  f"{row['no_products_ms']:.4f}, without copies "
-                  f"{row['no_copy_ms']:.4f}: bound by the "
+                return call
+            row = out[f"{what} {name(dt)}"] = bound_side(
+                time_fn, call_of(()),
+                {label: call_of(d) for label, d in BOUND_PROBES.items()})
+            print(f"{what} {name(dt)}: {row['ms']:.4f} / {row['ms_again']:.4f}"
+                  f" ms; without products {row['no_products_ms']:.4f}, "
+                  f"without copies {row['no_copy_ms']:.4f}: bound by "
                   f"{row['bound_side']}", flush=True)
         del A, cases
         free(dev)
@@ -807,8 +851,8 @@ FLASH_PROBES = {"no_products_ms": ("WGMMA_NO_MMA",),
 def probe_flash_bounds(dev, shapes, time_fn):
     """The bf16 wgmma flash kernel at each causal (BH, S, S, Dh) of
     ``shapes``, built as the wrapper loads it, without its products and
-    without its copies; the slower one-sided build names the side that
-    bounds it.  Called through the C entry: no launch is counted.
+    without its copies; ``bound_side`` names the side that bounds it, or
+    neither.  Called through the C entry: no launch is counted.
     Reported, not gated."""
     from repro_torch.kernels import _build
     gen = torch.Generator(device=dev).manual_seed(SEED + 32)
@@ -821,20 +865,22 @@ def probe_flash_bounds(dev, shapes, time_fn):
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH,
                 1, 1, S, S, Dh, *st, *st, *st, *st, int(causal),
                 _build.DTYPE_CODES[q.dtype], dev.index, _build.stream_of(q))
-        row = out[f"flash_attention_bh_wgmma {(BH, S, S, Dh)}"] = {}
-        for label, defines in (("ms", ()), *FLASH_PROBES.items()):
+
+        def call_of(defines, args=args):
             fn = _build.library("flash_attention",
                                 defines).flash_attention_bh_wgmma
 
-            def call(_, fn=fn):
+            def call(_):
                 _build.check(fn(*args), "flash_attention_bh_wgmma")
-            row[label] = time_fn(call, None)
-        row["bound_side"] = ("products" if row["no_copy_ms"]
-                             > row["no_products_ms"] else "copies")
-        print(f"flash_attention_bh_wgmma {(BH, S, S, Dh)}: {row['ms']:.4f} "
-              f"ms; without products {row['no_products_ms']:.4f}, without "
-              f"copies {row['no_copy_ms']:.4f}: bound by the "
-              f"{row['bound_side']}", flush=True)
+            return call
+        row = out[f"flash_attention_bh_wgmma {(BH, S, S, Dh)}"] = bound_side(
+            time_fn, call_of(()),
+            {label: call_of(d) for label, d in FLASH_PROBES.items()})
+        print(f"flash_attention_bh_wgmma {(BH, S, S, Dh)}: {row['ms']:.4f} / "
+              f"{row['ms_again']:.4f} ms; without products "
+              f"{row['no_products_ms']:.4f}, without copies "
+              f"{row['no_copy_ms']:.4f}: bound by {row['bound_side']}",
+              flush=True)
         del q, k, v, o
     return out
 
@@ -1003,9 +1049,10 @@ def check_block_dispatch_on_card(dev):
     every shape: short-wide and tall blocks, one column and more than a
     pass of 32, every mode, space and dtype."""
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.sbgemv import gram_kernel_for
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
-    for B, m, n, S in ((3, 3, 77, 5), (2, 300, 50, 33), (2, 4, 9, 1)):
+    # the last flag: bf16 data space goes to the wgmma Gram (P = m <= 128)
+    for B, m, n, S, wgmma in ((3, 3, 77, 5, True), (2, 300, 50, 33, False),
+                              (2, 4, 9, 1, True)):
         for dt in DTYPES:
             A = [torch.randn((B, m, n), generator=gen, device=dev).to(dt)
                  for _ in range(2)]
@@ -1021,9 +1068,9 @@ def check_block_dispatch_on_card(dev):
                     fail(f"ops.sbgemm mode {mode} {name(dt)} at "
                          f"{(B, m, n, S)} did not launch {kname}")
             for space in ("parameter", "data"):
-                # the general Gram, or the wgmma one (bf16, data, P <= 128)
-                kname = gram_kernel_for(dt, space == "data",
-                                        m if space == "data" else n)
+                kname = ("sbgemm_gram_complex_wgmma" if wgmma and space ==
+                         "data" and dt == torch.bfloat16
+                         else "sbgemm_gram_complex")
                 before = _build.launch_counts[kname]
                 ops.sbgemm_gram(*A, space=space)
                 if _build.launch_counts[kname] != before + 1:
@@ -1952,8 +1999,13 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
     kernel, its plain version and one ``scaled_dot_product_attention`` on
     (1, BH, S, Dh) views of the same tensors, beside the bound (each of
     q, k, v, o moved once; 4 Dh flops a key-query pair).  The kernel is
-    timed through its C entry (``ms``) and through the wrapper
-    (``wrapper_ms``, with the wrapper's host time)."""
+    timed through its C entry (``ms``, and again last as ``ms_again``: the
+    run's spread) and through the wrapper (``wrapper_ms``, with the
+    wrapper's host time).  Where the wgmma kernel takes bf16, the general
+    kernel, the one that took bf16 before it, is timed through its own C
+    entry beside it on the same inputs (``general_ms``, ``general_ms_again``).
+    The C entries and SDPA are timed queued (FLASH_REPEATS calls, the
+    median), so the host's launch time stays out of their device time."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
@@ -1988,29 +2040,50 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
             # small shapes, is wrapper_ms)
             wrapper = lambda _: fa.flash_attention_bh(  # noqa: E731
                 q, k, v, causal=causal)
-            launch = wrapper                        # the CPU rehearsal
-            if dev.type == "cuda":
-                o = torch.empty_like(q)
-                st = (Sq * Dh, 0, Dh)
+            o = torch.empty_like(q)
+            st = (Sq * Dh, 0, Dh)
+
+            def entry_call(kname, o=o):
+                if dev.type != "cuda":
+                    return wrapper                  # the CPU rehearsal
+                fn = getattr(_build.library("flash_attention"), kname)
                 args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), BH, 1, 1, Sq, Skv, Dh, *st, Skv * Dh, 0,
                         Dh, Skv * Dh, 0, Dh, *st, int(causal),
                         _build.DTYPE_CODES[dt], dev.index, _build.stream_of(q))
-                fn = getattr(_build.library("flash_attention"), entry)
 
-                def launch(_, fn=fn, args=args, o=o):
-                    _build.check(fn(*args), entry)
-            results[entry][f"{name(dt)} {key}"] = {
+                def call(_):
+                    _build.check(fn(*args), kname)
+                return call
+
+            def queued(fn):
+                return time_fn(fn, None, repeats=FLASH_REPEATS, mode="queued")
+            launch = entry_call(entry)
+            general = (entry_call("flash_attention_bh")
+                       if entry != "flash_attention_bh" else None)
+            row = results[entry][f"{name(dt)} {key}"] = {
                 "shape": list(shape), "max_abs_err": err,
-                "ms": time_fn(launch, None),
+                "ms": queued(launch)}
+            if general is not None:
+                row["general_ms"] = queued(general)
+            row["library_ms"] = queued(lambda _: sdpa(q4, k4, v4,
+                                                      is_causal=causal))
+            if general is not None:
+                row["general_ms_again"] = queued(general)
+            row["ms_again"] = queued(launch)
+            row.update({
                 "wrapper_ms": time_fn(wrapper, None),
                 "plain_ms": time_fn(lambda _: fa.flash_attention_bh_plain(
                     q, k, v, causal=causal), None),
-                "library_ms": time_fn(lambda _: sdpa(
-                    q4, k4, v4, is_causal=causal), None),
                 "bytes": nbytes, "flops": flops, "bound_ms": b_ms,
-                "bound_by": b_by}
-            del q4, k4, v4, launch
+                "bound_by": b_by})
+            print(f"{entry} {name(dt)} {key}: {row['ms']:.4f} / "
+                  f"{row['ms_again']:.4f} ms" + (
+                      f", general kernel {row['general_ms']:.4f} / "
+                      f"{row['general_ms_again']:.4f}" if general else "")
+                  + f", SDPA {row['library_ms']:.4f} (queued); through "
+                  f"the wrapper {row['wrapper_ms']:.4f}", flush=True)
+            del q4, k4, v4, o, launch, general
         del q, k, v
 
 
@@ -2595,8 +2668,9 @@ def main() -> int:
         print(f"  {fn}: {info['registers']} registers, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
-    def time_fn(fn, arg, repeats=REPEATS, warmup=3):
-        return time_callable(fn, arg, repeats=repeats, warmup=warmup)
+    def time_fn(fn, arg, repeats=REPEATS, warmup=3, mode="median"):
+        return time_callable(fn, arg, repeats=repeats, warmup=warmup,
+                             mode=mode)
 
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats(dev)

@@ -18,12 +18,16 @@ from __future__ import annotations
 
 import dataclasses
 import statistics
+import time
 from typing import Callable, Optional
 
 import torch
 
 VARIANTS = ("matvec", "rmatvec", "matmat", "rmatmat", "gram")
-MODES = ("median", "throughput", "latency")
+MODES = ("median", "throughput", "latency", "queued")
+# An upper bound on the SM clock (H100: 1.98 GHz), so that a spin of
+# seconds * SPIN_HZ cycles lasts at least that long.
+SPIN_HZ = 2.0e9
 
 
 def time_callable(fn: Callable, arg, repeats: int = 20, warmup: int = 3,
@@ -35,7 +39,12 @@ def time_callable(fn: Callable, arg, repeats: int = 20, warmup: int = 3,
     median.  ``"throughput"`` (the paper's protocol): ``repeats`` calls
     back to back between one event pair, the mean, so launches overlap as
     in a sustained loop.  ``"latency"``: an event pair around each call,
-    the minimum.  Raises when no CUDA device is present.
+    the minimum.  ``"queued"``: as ``"median"``, with the stream held by a
+    device-side spin twice as long as the host took to issue ``repeats``
+    calls, so every call is queued before the device reaches it and each
+    event pair times device work alone, not the host's launch of a call
+    that is shorter than its host time.  Raises when no CUDA device is
+    present.
     """
     if repeats < 1:
         raise ValueError(f"repeats must be >= 1, got {repeats}")
@@ -47,6 +56,13 @@ def time_callable(fn: Callable, arg, repeats: int = 20, warmup: int = 3,
     for _ in range(warmup):
         fn(arg)
     torch.cuda.synchronize()
+    if mode == "queued":
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            fn(arg)
+        issue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2 * issue_s * SPIN_HZ) + 1)
     if mode == "throughput":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

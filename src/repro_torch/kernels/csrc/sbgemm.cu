@@ -1200,14 +1200,15 @@ int sbgemm_gram_complex(const void* Ar, const void* Ai, void* Gr, void* Gi,
 }
 
 // The data-space Gram of bf16 planes with P = m <= 128 on Hopper's wgmma
-// (bf16tc::zgram_wgmma_kernel); any other call is refused (the wrapper
-// sends it to sbgemm_gram_complex).
+// (bf16tc::zgram_wgmma_kernel), which sbgemm_gram_complex refuses; any
+// other call is refused here (the wrapper sends it to sbgemm_gram_complex).
 int sbgemm_gram_complex_wgmma(const void* Ar, const void* Ai, void* Gr, void* Gi,
                               int64_t B, int64_t m, int64_t n, int data, int dt_in,
                               int dt_out, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (!data || dt_in != DT_BF16 || m < 1 || m > 128) return (int)cudaErrorInvalidValue;
+  if (!data || dt_in != DT_BF16 || m < 1 || m > bf16tc::kWgmmaGramMaxP)
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   DISPATCH_DTYPE(dt_out, O,

@@ -61,11 +61,12 @@
 //   Gram, G = U U^H per bin with U's rows the P indices (data space: A's
 //     rows, k over n; parameter space: A's columns, k over m, read through
 //     ldmatrix.trans): zgram_bf16_kernel, except the data space with P <=
-//     128, which zgram_wgmma_kernel (at the end of this file) takes.  Items
-//     are (bin, a 112 x 112 output tile on the diagonal or half of one
-//     above it); at P <= 112 a bin is one tile, read from HBM once, in
-//     128-wide k-chunks 3 deep (one panel a stage; 64-wide, 3 deep with two
-//     panels; 32-wide in parameter space, where K = m is short).  The
+//     128, which zgram_wgmma_kernel (at the end of this file) takes alone
+//     (launch_gram refuses it).  Items are (bin, a 112 x 112 output tile
+//     on the diagonal or half of one above it); at P <= 112 (parameter
+//     space) a bin is one tile, read from HBM once.  k-chunks: 64-wide in
+//     data space, 32-wide in parameter space, where K = m is short; 3 deep
+//     with two panels a stage, 4 with one.  The
 //     fragment of a 16-row tile of U serves as the A operand and, in
 //     halves, as the B operands of two n8 column tiles, so a warp loads
 //     each of its row tiles once a k-step.
@@ -78,14 +79,12 @@
 //     64 or 48 of the q rows; warp w takes row tile w of the p rows against
 //     the q item's 4 or 3 tiles, so every warp holds at most 4 pairs of
 //     accumulators (with 7, ptxas spilled).  Sub-tiles past P are skipped.
-//     On paper bytes-bound at the paper shape (2.04 GB against ~0.25 TFLOP
-//     of sub-tiles), but the busiest SM sub-partition carries 2 warps x 32
-//     mma a k-step (7 warps on 4 sub-partitions), and measured it lands on
-//     the tensor-core side: built without its copies it takes longer than
-//     built without its products (PERF.md); zgram_wgmma_kernel moves the
-//     one-tile data space onto wgmma.  Each entry on or above the diagonal
-//     is written, and its conjugate below it; the diagonal's imaginary
-//     parts are not zeroed (ops.sbgemm_gram symmetrizes).
+//     The busiest SM sub-partition carries 2 warps x 32 mma a k-step (7
+//     warps on 4 sub-partitions): at the paper shape's one-tile data space
+//     this kernel was bound by its tensor-core side (PERF.md), which is
+//     why zgram_wgmma_kernel took that space over.  Each entry on or above
+//     the diagonal is written, and its conjugate below it; the diagonal's
+//     imaginary parts are not zeroed (ops.sbgemm_gram symmetrizes).
 
 namespace bf16tc {
 
@@ -96,6 +95,7 @@ constexpr int kRows = 16 * kWarps;        // rows of an item (N) or tile (Gram)
 constexpr int kThreads = 32 * kWarps;
 constexpr int kPadE = 8;                  // bf16 of padding a staged row
 constexpr int kHalf = 64;                 // Gram: q rows of an off-diagonal item
+constexpr int kWgmmaGramMaxP = 128;       // the data-space Gram's P on wgmma
 
 // Flip the sign bits of both bf16 halves: exact negation.
 __device__ __forceinline__ uint32_t neg2(uint32_t v) { return v ^ 0x80008000u; }
@@ -340,11 +340,13 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
 // Shared-memory layout of a Gram stage: PANELS panels (the p rows, and on
 // an off-diagonal item the q rows) of both planes, each kRows rows of U x
 // KC k (data space: rows of A along n) or KC k x kRows (parameter space:
-// rows of A along n = p).  One panel when a bin is one tile (P <= 112).
+// rows of A along n = p).  One panel when a bin is one tile (parameter
+// space, P <= 112); data space is always two (P > 128).
 template <bool DATA, int PANELS>
 struct GLayout {
-  static constexpr int KC = !DATA ? 32 : PANELS == 1 ? 128 : 64;
-  static constexpr int NS = DATA || PANELS == 2 ? 3 : 4;
+  static_assert(!DATA || PANELS == 2, "zgram_wgmma_kernel takes the data space at P <= 128");
+  static constexpr int KC = DATA ? 64 : 32;
+  static constexpr int NS = PANELS == 2 ? 3 : 4;
   static constexpr int LD = DATA ? KC + kPadE : kRows + kPadE;   // 272, 144 / 240 bytes
   static constexpr int PANEL = DATA ? kRows * LD : KC * LD;
   static constexpr int STAGE = PANELS * 2 * PANEL;
@@ -593,12 +595,14 @@ int launch_gemm(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
 }
 
 // G = A^H A, (B, n, n), or with data != 0 G = A A^H, (B, m, m), on bf16
-// planes: one panel a stage when a bin is one tile (P <= 112).
+// planes: one panel a stage when a bin is one tile (P <= 112).  The data
+// space at P <= kWgmmaGramMaxP is launch_gram_wgmma's and refused here.
 template <typename O>
 int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B, int64_t m,
                 int64_t n, int data, int device, cudaStream_t s) {
   const int64_t P = data ? m : n;
   if (P * P > 0x7fffffff) return (int)cudaErrorInvalidValue;   // a bin's G: int offsets
+  if (data && P <= kWgmmaGramMaxP) return (int)cudaErrorInvalidValue;
   if ((data ? n : m) == 0) {                 // an empty sum: G = 0
     const size_t bytes = (size_t)(B * P * P) * sizeof(O);
     cudaError_t e = cudaMemsetAsync(Gr, 0, bytes, s);
@@ -612,9 +616,7 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B, i
                              static_cast<const bf16*>(Ar), static_cast<const bf16*>(Ai),
                              static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, vec);
   };
-  if (T == 1)
-    return data ? go(zgram_bf16_kernel<O, true, 1>, GLayout<true, 1>::BYTES)
-                : go(zgram_bf16_kernel<O, false, 1>, GLayout<false, 1>::BYTES);
+  if (T == 1) return go(zgram_bf16_kernel<O, false, 1>, GLayout<false, 1>::BYTES);
   return data ? go(zgram_bf16_kernel<O, true, 2>, GLayout<true, 2>::BYTES)
               : go(zgram_bf16_kernel<O, false, 2>, GLayout<false, 2>::BYTES);
 }
@@ -797,7 +799,8 @@ zgram_wgmma_kernel(const __grid_constant__ CUtensorMap tr, const __grid_constant
 template <typename O>
 int launch_gram_wgmma(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
                       int64_t m, int64_t n, int device, cudaStream_t s) {
-  if (m < 1 || m > 128 || n >= INT32_MAX || B >= INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > kWgmmaGramMaxP || n >= INT32_MAX || B >= INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) {                              // an empty sum: G = 0
     const size_t bytes = (size_t)(B * m * m) * sizeof(O);
     cudaError_t e = cudaMemsetAsync(Gr, 0, bytes, s);

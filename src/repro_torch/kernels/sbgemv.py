@@ -260,7 +260,8 @@ def sbgemm_th_complex(A_re, A_im, X_re, X_im, *, conj: bool,
 def gram_kernel_for(dtype: torch.dtype, data: bool, P: int) -> str:
     """The C entry that takes a Gram on the card: the wgmma kernel for the
     data space of bf16 planes with 1 <= P <= WGMMA_GRAM_MAX_P (a bin one
-    tile: the paper's P = N_d = 100), else the general entry."""
+    tile: the paper's P = N_d = 100), else the general entry, which
+    refuses the wgmma kernel's calls."""
     if dtype == torch.bfloat16 and data and 1 <= P <= WGMMA_GRAM_MAX_P:
         return "sbgemm_gram_complex_wgmma"
     return "sbgemm_gram_complex"

@@ -223,3 +223,17 @@ def test_time_callable_and_harness_guards():
         TimingHarness(mode="fastest")
     with pytest.raises(ValueError, match="variant"):
         TimingHarness.callable_for(None, "solve")
+
+
+@pytest.mark.parametrize("mode", ["median", "throughput", "latency",
+                                  "queued"])
+def test_time_callable_modes_need_the_card(mode):
+    """Every timing mode, the queued one too, measures device time: on a
+    host without a card it raises before calling the function."""
+    calls = []
+    if torch.cuda.is_available():
+        assert time_callable(calls.append, 0, repeats=2, mode=mode) >= 0.0
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        time_callable(calls.append, 0, repeats=2, mode=mode)
+    assert calls == []
