@@ -2,6 +2,7 @@
 """Drive the PyTorch port of FFTMatvec on one NVIDIA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tree TREE   # a few readings of another checkout
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit.  It:
@@ -74,7 +75,7 @@ CUDA toolkit.  It:
       fig1_sbgemv``, batch 100): the hand kernels against the stock
       passes and the library call, with launch counts;
 7. the LM serving path:
-   a. the flash-attention kernel against its plain version, bf16 and
+   a. the flash-attention kernels against their plain version, bf16 and
       f32 (max abs <= 3e-2 / 2e-5), at ragged shapes, at the serve
       phase's longer prefill batch and at a 2048-token prefill, the last
       two timed beside the bound, the plain version and one
@@ -135,10 +136,22 @@ CUDA toolkit.  It:
    several k-chunks, bf16 and f32 outputs, within the h tolerance and
    exactly Hermitian off the diagonal), each call shown by its launch
    count to have run the wgmma kernel.  The serve prefill (24 launches a
-   batch) and the ``hhhhh`` G_hat setup (one launch) run them; the f32
-   flash (the ``FULL_F32`` check) and the parameter-space bf16 Gram keep
-   the general kernels.  Both are built without their products and
-   without their copies for the bound probe.
+   batch) and the ``hhhhh`` G_hat setup (one launch) run them; the
+   parameter-space bf16 Gram keeps the general kernel.  Both are built
+   without their products and without their copies for the bound probe.
+12. the f32 flash kernel (``flash_attention_bh_f32``, IEEE FFMA on the
+   FP32 units, every f32 call): its ``ptxas`` registers and spill bytes;
+   ragged shapes against the plain version within FLASH_TOL (Sq and Skv
+   around the 64-row blocks and tiles, causal and not, Dh = 12 .. 128,
+   16-byte-aligned rows and rows of Dh + 1 floats, the 4-D entry with
+   key-head groups of 1, 2 and 8), each call one launch of its entry, and
+   each flash entry refusing the other's dtype; timed through its C entry
+   at the serve shape and at 2048 tokens beside SDPA (queued) and built
+   without its products and without its copies for the bound probe; the
+   ``FULL_F32`` check launches it n_layers times and the general kernel
+   never, and its prefill of the longer batch is timed on the flash and
+   the chunked path.  pad_cast and unpad_cast are timed queued through
+   their C entries beside their one-call PyTorch versions.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -170,7 +183,7 @@ TOL = {"d": 1e-12, "s": 1e-5, "h": 2e-2}
 LEVEL_OF = {torch.float64: "d", torch.float32: "s", torch.bfloat16: "h"}
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 REPEATS = 20
-FLASH_REPEATS = 200     # the flash kernels' queued timings (tens of us a call)
+FLASH_REPEATS = 200     # queued timings of calls of tens of us (flash, casts)
 SEED = 0
 S_BLOCK = 8          # the main path's block of right-hand sides
 S_WIDE = 32          # a wider block, for the per-column trend
@@ -249,6 +262,15 @@ def bound_ms(bytes_moved: float, flops: float, flop_dtype: str):
 # ---------------------------------------------------------------------------
 
 def check_pad_kernels(dev, R, T, P, timed, results, time_fn):
+    """pad_cast / unpad_cast bit for bit their plain versions for all 9
+    dtype pairs, the pad reading a row-strided view, the unpad its rows and
+    a view of them one column in.  Timed (same-dtype pairs): each kernel
+    through its C entry and its one-call PyTorch version, both queued
+    (FLASH_REPEATS calls behind a device-side spin, so the host's launch
+    time stays out of a call of tens of us), each twice (``ms``,
+    ``ms_again``; ``library_ms``, ``library_ms_again``); the wrapper
+    (``wrapper_ms``) and the plain version by the median of events."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import pad_cast as pk
     gen = torch.Generator(device=dev).manual_seed(SEED)
     base = torch.randn((R, P), generator=gen, device=dev, dtype=torch.float64)
@@ -262,15 +284,33 @@ def check_pad_kernels(dev, R, T, P, timed, results, time_fn):
             if not torch.equal(bits(got), bits(want)):
                 fail(f"pad_cast {name(din)}->{name(dout)} at {(R, T, P)} "
                      f"differs from its plain version")
-            got_u = pk.unpad_cast(wide, T, dout)
-            want_u = pk.unpad_cast_plain(wide, T, dout)
-            if not torch.equal(bits(got_u), bits(want_u)):
-                fail(f"unpad_cast {name(din)}->{name(dout)} at {(R, P, T)} "
-                     f"differs from its plain version")
+            # unpad from rows whose starts allow vectors and from a view one
+            # column in (the element path)
+            for src, what in ((wide, ""), (wide[:, 1:], " one column in")):
+                got_u = pk.unpad_cast(src, T, dout)
+                want_u = pk.unpad_cast_plain(src, T, dout)
+                if not torch.equal(bits(got_u), bits(want_u)):
+                    fail(f"unpad_cast {name(din)}->{name(dout)} at "
+                         f"{(R, P, T)}{what} differs from its plain version")
             if not timed or din != dout:
                 continue
             xc = x.contiguous()
             s = din.itemsize
+            code = _build.DTYPE_CODES[din]
+            yp = torch.empty((R, P), device=dev, dtype=dout)
+            yu = torch.empty((R, T), device=dev, dtype=dout)
+
+            def entry_call(kname, yp=yp, yu=yu, xc=xc, wide=wide):
+                # the kernel through its C entry, no Python around it
+                fn = getattr(_build.library("pad_cast"), kname)
+                args = ((xc.data_ptr(), yp.data_ptr(), R, T, P, T)
+                        if kname == "pad_cast" else
+                        (wide.data_ptr(), yu.data_ptr(), R, T, P))
+
+                def call(_):
+                    _build.check(fn(*args, code, code, dev.index,
+                                    _build.stream_of(wide)), kname)
+                return call
             for kname, kfn, pfn, lfn, nbytes in (
                 ("pad_cast", lambda a: pk.pad_cast(a, P, dout),
                  lambda a: pk.pad_cast_plain(a, P, dout),
@@ -283,11 +323,25 @@ def check_pad_kernels(dev, R, T, P, timed, results, time_fn):
             ):
                 arg = xc if kname == "pad_cast" else wide
                 b_ms, b_by = bound_ms(nbytes, 0, "float32")
-                results[kname][name(din)] = {
+                launch = (entry_call(kname) if dev.type == "cuda"
+                          else lambda _, kfn=kfn, arg=arg: kfn(arg))
+
+                def queued(fn, arg=arg):
+                    return time_fn(fn, arg, repeats=FLASH_REPEATS,
+                                   mode="queued")
+                row = results[kname][name(din)] = {
                     "shape": [R, T, P], "max_abs_err": 0.0,
-                    "ms": time_fn(kfn, arg), "plain_ms": time_fn(pfn, arg),
-                    "library_ms": time_fn(lfn, arg), "bytes": nbytes,
-                    "bound_ms": b_ms, "bound_by": b_by}
+                    "ms": queued(launch), "library_ms": queued(lfn)}
+                row["library_ms_again"] = queued(lfn)
+                row["ms_again"] = queued(launch)
+                row.update({"wrapper_ms": time_fn(kfn, arg),
+                            "plain_ms": time_fn(pfn, arg), "bytes": nbytes,
+                            "bound_ms": b_ms, "bound_by": b_by})
+                print(f"{kname} {name(din)} at {(R, T, P)}: {row['ms']:.4f} / "
+                      f"{row['ms_again']:.4f} ms, one PyTorch call "
+                      f"{row['library_ms']:.4f} / {row['library_ms_again']:.4f}"
+                      f" (queued); bound {b_ms:.4f}; through the wrapper "
+                      f"{row['wrapper_ms']:.4f}", flush=True)
     print(f"pad_cast/unpad_cast at {(R, T, P)}: bitwise equal to the plain "
           f"versions for all 9 dtype pairs", flush=True)
 
@@ -842,46 +896,48 @@ def probe_bounds(dev, B, m, n, time_fn):
     return out
 
 
-# measurement builds of csrc/flash_attention.cu: the wgmma kernel without
-# its products (wgmma.cuh) and without its K/V and Q copies
-FLASH_PROBES = {"no_products_ms": ("WGMMA_NO_MMA",),
+# measurement builds of csrc/flash_attention.cu: the wgmma and the f32
+# kernels without their products (wgmma.cuh; the f32 kernel's FFMA loops)
+# and without their K/V and Q copies
+FLASH_PROBES = {"no_products_ms": ("WGMMA_NO_MMA", "FLASH_F32_NO_FMA"),
                 "no_copy_ms": ("FLASH_NO_COPY",)}
 
 
 def probe_flash_bounds(dev, shapes, time_fn):
-    """The bf16 wgmma flash kernel at each causal (BH, S, S, Dh) of
-    ``shapes``, built as the wrapper loads it, without its products and
-    without its copies; ``bound_side`` names the side that bounds it, or
-    neither.  Called through the C entry: no launch is counted.
-    Reported, not gated."""
+    """The bf16 wgmma flash kernel and the f32 flash kernel at each causal
+    (BH, S, S, Dh) of ``shapes``, built as the wrapper loads them, without
+    their products and without their copies; ``bound_side`` names the
+    side that bounds each, or neither.  Called through the C entries: no
+    launch is counted.  Reported, not gated."""
     from repro_torch.kernels import _build
     gen = torch.Generator(device=dev).manual_seed(SEED + 32)
     out = {}
-    for BH, S, _, Dh, causal in shapes:
-        q, k, v = (torch.randn((BH, S, Dh), generator=gen, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
-        o = torch.empty_like(q)
-        st = (S * Dh, 0, Dh)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH,
-                1, 1, S, S, Dh, *st, *st, *st, *st, int(causal),
-                _build.DTYPE_CODES[q.dtype], dev.index, _build.stream_of(q))
+    for dt, entry in ((torch.bfloat16, "flash_attention_bh_wgmma"),
+                      (torch.float32, "flash_attention_bh_f32")):
+        for BH, S, _, Dh, causal in shapes:
+            q, k, v = (torch.randn((BH, S, Dh), generator=gen, device=dev)
+                       .to(dt) for _ in range(3))
+            o = torch.empty_like(q)
+            st = (S * Dh, 0, Dh)
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    BH, 1, 1, S, S, Dh, *st, *st, *st, *st, int(causal),
+                    _build.DTYPE_CODES[dt], dev.index, _build.stream_of(q))
 
-        def call_of(defines, args=args):
-            fn = _build.library("flash_attention",
-                                defines).flash_attention_bh_wgmma
+            def call_of(defines, args=args, entry=entry):
+                fn = getattr(_build.library("flash_attention", defines), entry)
 
-            def call(_):
-                _build.check(fn(*args), "flash_attention_bh_wgmma")
-            return call
-        row = out[f"flash_attention_bh_wgmma {(BH, S, S, Dh)}"] = bound_side(
-            time_fn, call_of(()),
-            {label: call_of(d) for label, d in FLASH_PROBES.items()})
-        print(f"flash_attention_bh_wgmma {(BH, S, S, Dh)}: {row['ms']:.4f} / "
-              f"{row['ms_again']:.4f} ms; without products "
-              f"{row['no_products_ms']:.4f}, without copies "
-              f"{row['no_copy_ms']:.4f}: bound by {row['bound_side']}",
-              flush=True)
-        del q, k, v, o
+                def call(_):
+                    _build.check(fn(*args), entry)
+                return call
+            row = out[f"{entry} {(BH, S, S, Dh)}"] = bound_side(
+                time_fn, call_of(()),
+                {label: call_of(d) for label, d in FLASH_PROBES.items()})
+            print(f"{entry} {(BH, S, S, Dh)}: {row['ms']:.4f} / "
+                  f"{row['ms_again']:.4f} ms; without products "
+                  f"{row['no_products_ms']:.4f}, without copies "
+                  f"{row['no_copy_ms']:.4f}: bound by {row['bound_side']}",
+                  flush=True)
+            del q, k, v, o
     return out
 
 
@@ -1992,20 +2048,22 @@ def _attn_pairs(Sq: int, Skv: int, causal: bool) -> int:
 
 
 def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
-    """The flash kernel against its plain version on the card, bf16 and f32
-    at each (BH, Sq, Skv, Dh, causal) of ``shapes``: the dtype and shape,
-    and the largest absolute difference within FLASH_TOL (the reference's
-    test tolerances).  The shapes named in ``timed_keys`` are timed: the
-    kernel, its plain version and one ``scaled_dot_product_attention`` on
-    (1, BH, S, Dh) views of the same tensors, beside the bound (each of
-    q, k, v, o moved once; 4 Dh flops a key-query pair).  The kernel is
-    timed through its C entry (``ms``, and again last as ``ms_again``: the
-    run's spread) and through the wrapper (``wrapper_ms``, with the
-    wrapper's host time).  Where the wgmma kernel takes bf16, the general
-    kernel, the one that took bf16 before it, is timed through its own C
-    entry beside it on the same inputs (``general_ms``, ``general_ms_again``).
-    The C entries and SDPA are timed queued (FLASH_REPEATS calls, the
-    median), so the host's launch time stays out of their device time."""
+    """The flash kernels against their plain version on the card, bf16 and
+    f32 at each (BH, Sq, Skv, Dh, causal) of ``shapes``: the dtype and
+    shape, and the largest absolute difference within FLASH_TOL (the
+    reference's test tolerances).  The shapes named in ``timed_keys`` are
+    timed: the kernel the wrapper picks, its plain version and one
+    ``scaled_dot_product_attention`` on (1, BH, S, Dh) views of the same
+    tensors, beside the bound (each of q, k, v, o moved once; 4 Dh flops a
+    key-query pair).  The kernel is timed through its C entry (``ms``, and
+    again last as ``ms_again``: the run's spread) and through the wrapper
+    (``wrapper_ms``, with the wrapper's host time).  Where the wgmma kernel
+    takes bf16, the general bf16 kernel (the one for other head dims and
+    unaligned rows) is timed through its own C entry beside it on the same
+    inputs and checked against the same plain output; its row is
+    ``results["flash_attention_bh"]``.  The C entries and SDPA are timed
+    queued (FLASH_REPEATS calls, the median), so the host's launch time
+    stays out of their device time."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
@@ -2025,7 +2083,7 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
                 fail(f"{what}: max abs err vs plain {err:.3e} > "
                      f"{FLASH_TOL[dt]:g}")
             print(f"{what}: max abs err vs plain {err:.3e}", flush=True)
-            del got, want
+            del got
             key = timed_keys.get(shape)
             if key is None:
                 continue
@@ -2060,7 +2118,7 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
                 return time_fn(fn, None, repeats=FLASH_REPEATS, mode="queued")
             launch = entry_call(entry)
             general = (entry_call("flash_attention_bh")
-                       if entry != "flash_attention_bh" else None)
+                       if entry == "flash_attention_bh_wgmma" else None)
             row = results[entry][f"{name(dt)} {key}"] = {
                 "shape": list(shape), "max_abs_err": err,
                 "ms": queued(launch)}
@@ -2068,6 +2126,9 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
                 row["general_ms"] = queued(general)
             row["library_ms"] = queued(lambda _: sdpa(q4, k4, v4,
                                                       is_causal=causal))
+            if dev.type == "cuda":
+                row["library_kernels"] = profiled_kernels(
+                    lambda: sdpa(q4, k4, v4, is_causal=causal))
             if general is not None:
                 row["general_ms_again"] = queued(general)
             row["ms_again"] = queued(launch)
@@ -2077,14 +2138,125 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
                     q, k, v, causal=causal), None),
                 "bytes": nbytes, "flops": flops, "bound_ms": b_ms,
                 "bound_by": b_by})
+            if general is not None:
+                # the general kernel's own row: its output here against the
+                # same plain output, its queued readings, the same bound
+                sync(dev)
+                g_err = max_abs(o, want)
+                if not g_err <= FLASH_TOL[dt]:
+                    fail(f"flash_attention_bh (general) {name(dt)} at {shape}:"
+                         f" max abs err vs plain {g_err:.3e} > "
+                         f"{FLASH_TOL[dt]:g}")
+                results["flash_attention_bh"][f"{name(dt)} {key}"] = {
+                    **{k_: row[k_] for k_ in ("shape", "library_ms",
+                                              "plain_ms", "bytes", "flops",
+                                              "bound_ms", "bound_by")},
+                    "max_abs_err": g_err, "ms": row["general_ms"],
+                    "ms_again": row["general_ms_again"]}
+            print(f"SDPA {name(dt)} {key} ran {row.get('library_kernels')}",
+                  flush=True)
             print(f"{entry} {name(dt)} {key}: {row['ms']:.4f} / "
                   f"{row['ms_again']:.4f} ms" + (
                       f", general kernel {row['general_ms']:.4f} / "
                       f"{row['general_ms_again']:.4f}" if general else "")
-                  + f", SDPA {row['library_ms']:.4f} (queued); through "
-                  f"the wrapper {row['wrapper_ms']:.4f}", flush=True)
+                  + f", SDPA {row['library_ms']:.4f} (queued); bound "
+                  f"{b_ms:.4f} ({b_by}); through the wrapper "
+                  f"{row['wrapper_ms']:.4f}", flush=True)
             del q4, k4, v4, o, launch, general
-        del q, k, v
+        del q, k, v, want
+
+
+def profiled_kernels(fn) -> list:
+    """The names of the CUDA kernels one call of ``fn`` runs, from
+    ``torch.profiler`` (empty where it shows no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def check_f32_flash_kernel(dev):
+    """The f32 flash kernel (``flash_attention_bh_f32``) at ragged shapes,
+    each call's launch counted: Sq and Skv around the 64-row blocks, the
+    64-key tiles and 128, causal and not, Sq != Skv both ways, Dh = 12, 16,
+    32, 64, 96 and 128 (one to four 32-column passes), on rows 16-byte
+    aligned (16-byte copies) and on rows of Dh + 1 floats starting one
+    float in (4-byte copies); the 4-D entry with 2 key heads in groups of
+    1, 2 and 8; within FLASH_TOL of the plain version.  On the card, each
+    entry refuses the other's dtype."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    dt = torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dt)
+
+    def counted(fn):
+        _build.reset_launch_counts()
+        out = fn()
+        check_launches(dict(_build.launch_counts),
+                       {"flash_attention_bh_f32": 1, "flash_attention_bh": 0,
+                        "flash_attention_bh_wgmma": 0})
+        return out
+
+    n, worst = 0, 0.0
+    lengths = ((1, 1), (63, 63), (64, 64), (65, 65), (127, 127), (128, 128),
+               (129, 129), (200, 77), (77, 200), (64, 130), (130, 64),
+               (1, 300), (300, 1))
+    for Dh in (12, 16, 32, 64, 96, 128):
+        for Sq, Skv in lengths:
+            for causal in (True, False):
+                for aligned in (True, False):
+                    if aligned:
+                        q, k, v = (randn(3, s, Dh) for s in (Sq, Skv, Skv))
+                    else:
+                        q, k, v = (randn(3, s, Dh + 1)[..., 1:]
+                                   for s in (Sq, Skv, Skv))
+                    got = counted(lambda: fa.flash_attention_bh(
+                        q, k, v, causal=causal))
+                    want = fa.flash_attention_bh_plain(q, k, v, causal=causal)
+                    err = max_abs(got, want)
+                    if got.dtype != dt or not err <= FLASH_TOL[dt]:
+                        fail(f"flash_attention_bh_f32 at {(3, Sq, Skv, Dh)} "
+                             f"causal={causal} aligned={aligned}: {got.dtype}"
+                             f", max abs err {err:.3e} > {FLASH_TOL[dt]:g}")
+                    worst, n = max(worst, err), n + 1
+    for Dh in (64, 96):
+        for G in (1, 2, 8):
+            B, S, Hkv = 2, 150, 2
+            q, k, v = randn(B, S, Hkv * G, Dh), randn(B, S, Hkv, Dh), \
+                randn(B, S, Hkv, Dh)
+            got = counted(lambda: fa.flash_attention(q, k, v, causal=True))
+            fold = lambda x: x.transpose(1, 2).reshape(-1, S, Dh)  # noqa: E731
+            kr, vr = (x.repeat_interleave(G, dim=2) for x in (k, v))
+            want = fa.flash_attention_bh_plain(fold(q), fold(kr), fold(vr),
+                                               causal=True)
+            err = max_abs(fold(got), want)
+            if not err <= FLASH_TOL[dt]:
+                fail(f"flash_attention_bh_f32 GQA group {G} Dh {Dh}: max abs "
+                     f"err {err:.3e} > {FLASH_TOL[dt]:g}")
+            worst, n = max(worst, err), n + 1
+    if dev.type == "cuda":
+        lib = _build.library("flash_attention")
+        for entry, other in (("flash_attention_bh", torch.float32),
+                             ("flash_attention_bh_f32", torch.bfloat16)):
+            x = torch.zeros((1, 64, 64), device=dev, dtype=other)
+            st = (64 * 64, 0, 64)
+            rc = getattr(lib, entry)(*(x.data_ptr() for _ in range(4)), 1, 1,
+                                     1, 64, 64, 64, *st, *st, *st, *st, 1,
+                                     _build.DTYPE_CODES[other], dev.index,
+                                     _build.stream_of(x))
+            if rc == 0:
+                fail(f"{entry} took {name(other)}: each flash entry takes one "
+                     f"dtype")
+    sync(dev)
+    print(f"f32 flash kernel: {n} calls within {FLASH_TOL[dt]:g} of the plain "
+          f"version (worst {worst:.3e}), each one launch of "
+          f"flash_attention_bh_f32", flush=True)
 
 
 class _PhaseClock:
@@ -2286,7 +2458,8 @@ def drive_serve(dev, full, time_fn, report):
     # bf16 heads of Dh 64 on aligned rows: every launch is the wgmma kernel
     check_launches(counts, {"flash_attention_bh_wgmma":
                             cfg.n_layers * n_batches,
-                            "flash_attention_bh": 0})
+                            "flash_attention_bh": 0,
+                            "flash_attention_bh_f32": 0})
     check_launches({"flash": run_f["prefill_launches"]},
                    {"flash": cfg.n_layers * n_batches})
     check_launches({"flash": run_f["decode_launches"]}, {"flash": 0})
@@ -2340,17 +2513,85 @@ def drive_serve(dev, full, time_fn, report):
     big, steps = reqs[4:], reqs[0].max_new_tokens
     out["check_default"] = compare_paths(dev, cfg, model, big, max_seq, steps,
                                          LOGIT_TOL["default"], "default policy")
-    # FULL_F32 runs the f32 flash: the general kernel, once a layer
+    # FULL_F32 runs the f32 flash: the f32 kernel, once a layer
+    cfg32 = cfg.replace(policy=FULL_F32)
     _build.reset_launch_counts()
     out["check_full_f32"] = compare_paths(
-        dev, cfg.replace(policy=FULL_F32), model, big, max_seq, steps,
-        LOGIT_TOL["full_f32"], "FULL_F32")
+        dev, cfg32, model, big, max_seq, steps, LOGIT_TOL["full_f32"],
+        "FULL_F32")
     out["full_f32_launches"] = dict(_build.launch_counts)
     check_launches(out["full_f32_launches"],
-                   {"flash_attention_bh": cfg.n_layers,
-                    "flash_attention_bh_wgmma": 0})
+                   {"flash_attention_bh_f32": cfg.n_layers,
+                    "flash_attention_bh": 0, "flash_attention_bh_wgmma": 0})
+    if dev.type == "cuda":
+        out["full_f32_prefill_ms"] = time_full_f32_prefill(
+            dev, cfg, model, big, max_seq, time_fn)
     out["seconds"] = time.perf_counter() - t_start
     del model
+
+
+def time_full_f32_prefill(dev, cfg, model, reqs, max_seq, time_fn) -> dict:
+    """The ``FULL_F32`` prefill of ``reqs`` (left-padded into one batch) on
+    the flash and on the chunked path, CUDA events, the median of 5, with
+    the flash path's kernel launches of one call: the f32 flash kernel's
+    share of it is n_layers x its time at that shape."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.models.policy import FULL_F32
+    cfg32 = cfg.replace(policy=FULL_F32)
+    toks = torch.as_tensor(_left_padded(reqs), device=dev)
+
+    def prefill(c):
+        def call(_):
+            with torch.inference_mode():
+                api.prefill_step(c, model, {"tokens": toks}, max_seq)
+        return call
+    out = {"tokens": list(toks.shape),
+           "flash": time_fn(prefill(cfg32), None, repeats=5),
+           "chunked": time_fn(prefill(cfg32.replace(attn_impl="chunked")),
+                              None, repeats=5)}
+    _build.reset_launch_counts()
+    prefill(cfg32)(None)
+    out["flash_launches"] = {k: v for k, v in _build.launch_counts.items()
+                             if v}
+    print(f"FULL_F32 prefill of {out['tokens']} tokens: flash "
+          f"{out['flash']:.3f} ms ({out['flash_launches']}), chunked "
+          f"{out['chunked']:.3f} ms (median of 5)", flush=True)
+    return out
+
+
+def device_time(fn, arg, repeats=REPEATS, warmup=3, mode="median"):
+    """The card's time of ``fn(arg)`` in ms (``core.time_callable``)."""
+    from repro_torch.core import time_callable
+    return time_callable(fn, arg, repeats=repeats, warmup=warmup, mode=mode)
+
+
+def tree_readings(tree) -> int:
+    """``python3 chip_smoke.py --tree TREE``: only the cast kernels' queued
+    readings at the main path's shape (``check_pad_kernels``) and the
+    ``FULL_F32`` prefill of the serve plan's longer batch with the serve
+    phase's seeded weights (``time_full_f32_prefill``), taken by this
+    script of the package of the checkout at TREE, so another tree's
+    kernels are read like for like.  Prints one JSON line."""
+    tree = pathlib.Path(tree).resolve()
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.configs import PAPER_SINGLE as cfg_p
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    casts = {"pad_cast": {}, "unpad_cast": {}}
+    check_pad_kernels(dev, cfg_p.N_m, cfg_p.N_t, 2 * cfg_p.N_t, True, casts,
+                      device_time)
+    cfg, reqs, _, max_seq, _ = serve_plan(True)
+    model = api.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 29), device=dev)
+    prefill = time_full_f32_prefill(dev, cfg, model, reqs[4:], max_seq,
+                                    device_time)
+    print(json.dumps({"tree": str(tree),
+                      "device": torch.cuda.get_device_name(0),
+                      "casts": casts, "full_f32_prefill_ms": prefill}))
+    return 0
 
 
 def plain_path(op):
@@ -2430,13 +2671,19 @@ REPLACES = {
                             "src/repro/kernels/sbgemv.py:624",
                             f"float64 S={S_BLOCK} 2x2"),
     # the LM serving path at the serve phase's longer prefill batch: bf16
-    # heads of Dh 64 on the wgmma kernel, f32 (FULL_F32) on the general one
+    # heads of Dh 64 on the wgmma kernel, f32 (FULL_F32) on the f32 kernel;
+    # the general bf16 kernel (other head dims, unaligned rows) runs on no
+    # path of the serve phase and is timed through its C entry at the same
+    # bf16 shape
     "flash_attention_bh": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                            "src/repro/kernels/flash_attention.py:70",
-                           "float32 serve"),
+                           "bfloat16 serve"),
     "flash_attention_bh_wgmma": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:70", "bfloat16 serve"),
+    "flash_attention_bh_f32": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:70", "float32 serve"),
     # the data-space Gram of bf16 planes (the hhhhh G_hat) on wgmma
     "sbgemm_gram_complex_wgmma": ("src/repro_torch/kernels/csrc/sbgemm.cu",
                                   "src/repro/kernels/sbgemv.py:342",
@@ -2576,6 +2823,7 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     long_shape = (4 * cfg.n_heads, FLASH_LONG, FLASH_LONG, cfg.head_dim(),
                   True)
     check_flash_kernel(dev, FLASH_RAGGED, {}, results, time_fn)
+    check_f32_flash_kernel(dev)
     check_flash_kernel(dev, (serve_shape, long_shape) if full else
                        (serve_shape,),
                        {serve_shape: "serve", long_shape: f"S={FLASH_LONG}"}
@@ -2592,7 +2840,8 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
 
 STAGED = ("zgemm_f64_kernel", "zgram_f64_kernel", "zgemm_bf16_kernel",
           "zgram_bf16_kernel", "zgemm_f32_kernel", "zgemm_th_f32_kernel",
-          "zgram_f32_kernel", "zgram_wgmma_kernel", "flash_wgmma_kernel")
+          "zgram_f32_kernel", "zgram_wgmma_kernel", "flash_wgmma_kernel",
+          "flash_f32_kernel")
 
 
 def staged_ptxas(logs) -> dict:
@@ -2630,11 +2879,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tree"] and len(sys.argv) == 3:
+        return tree_readings(sys.argv[2])
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.backend import H100_HBM_BYTES_PER_S
     from repro_torch.configs import PAPER_SINGLE
-    from repro_torch.core import time_callable
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False   # "s" is IEEE f32
@@ -2668,10 +2918,7 @@ def main() -> int:
         print(f"  {fn}: {info['registers']} registers, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
-    def time_fn(fn, arg, repeats=REPEATS, warmup=3, mode="median"):
-        return time_callable(fn, arg, repeats=repeats, warmup=warmup,
-                             mode=mode)
-
+    time_fn = device_time
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = PAPER_SINGLE
@@ -2701,12 +2948,14 @@ def main() -> int:
                 "sbgemm_gram_complex_wgmma":
                     report["circulant"]["hhhhh"]["launches"]
                     ["sbgemm_gram_complex_wgmma"],
-                # flash: the counted serve call (bf16, the wgmma kernel) and
-                # its FULL_F32 check (f32, the general kernel)
-                "flash_attention_bh_wgmma": report["serve"]["launches"].get(
-                    "flash_attention_bh_wgmma", 0),
-                "flash_attention_bh": report["serve"]["full_f32_launches"]
-                    .get("flash_attention_bh", 0)}
+                # flash: the counted serve call (bf16, the wgmma kernel; the
+                # general bf16 kernel 0) and its FULL_F32 check (f32, the
+                # f32 kernel)
+                **{k: report["serve"]["launches"].get(k, 0)
+                   for k in ("flash_attention_bh_wgmma",
+                             "flash_attention_bh")},
+                "flash_attention_bh_f32": report["serve"]["full_f32_launches"]
+                    .get("flash_attention_bh_f32", 0)}
     line = kernel_line(results, launches, {"fig1": report["fig1"]["launches"]})
 
     out_dir = ROOT / "chiprun_out"

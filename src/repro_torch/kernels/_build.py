@@ -50,7 +50,8 @@ ENTRIES = {
     # q, k, v, o; B, Hq, Hkv, Sq, Skv, Dh and (batch, head, row) strides of
     # each; causal, dtype, device
     "flash_attention": {"flash_attention_bh": (4, 18, 3),
-                        "flash_attention_bh_wgmma": (4, 18, 3)},
+                        "flash_attention_bh_wgmma": (4, 18, 3),
+                        "flash_attention_bh_f32": (4, 18, 3)},
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

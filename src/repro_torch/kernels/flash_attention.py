@@ -13,10 +13,12 @@ no padding (ragged lengths are masked in the kernel).  ``q_block`` and
 ``kv_block`` are the reference's tile sizes; the kernels take 64 by 64
 tiles whatever they say, which changes only the order of the sums.
 
-Two kernels sit behind the wrapper, chosen by :func:`kernel_for` from the
-dtype, the head dim and the alignment alone: ``flash_attention_bh_wgmma``
-(bf16, Dh 64 or 128, 16-byte-aligned rows: Hopper's wgmma) and
-``flash_attention_bh`` (everything else).  Each counts its own launches.
+Three kernels sit behind the wrapper, chosen by :func:`kernel_for` from
+the dtype, the head dim and the alignment alone:
+``flash_attention_bh_wgmma`` (bf16, Dh 64 or 128, 16-byte-aligned rows:
+Hopper's wgmma), ``flash_attention_bh_f32`` (every f32 call: IEEE FFMA on
+the FP32 units) and ``flash_attention_bh`` (the other bf16 calls).  Each
+counts its own launches.
 """
 
 from __future__ import annotations
@@ -32,15 +34,19 @@ MAX_HEAD_DIM = 128
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 WGMMA_HEAD_DIMS = (64, 128)
 # the C entries of csrc/flash_attention.cu, one launch counter each
-KERNELS = ("flash_attention_bh", "flash_attention_bh_wgmma")
+KERNELS = ("flash_attention_bh", "flash_attention_bh_wgmma",
+           "flash_attention_bh_f32")
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int, aligned: bool) -> str:
-    """The C entry that takes a call on the card: the wgmma kernel for bf16
-    at Dh 64 or 128 when q, k, v and o start on 16-byte boundaries and
-    every (batch, head, row) stride is a multiple of 16 bytes, nonzero
-    where its axis is longer than one (``aligned``: the kernel's TMA
-    copies need both), else the general kernel."""
+    """The C entry that takes a call on the card: the f32 kernel for every
+    f32 call; for bf16 the wgmma kernel at Dh 64 or 128 when q, k, v and o
+    start on 16-byte boundaries and every (batch, head, row) stride is a
+    multiple of 16 bytes, nonzero where its axis is longer than one
+    (``aligned``: the kernel's TMA copies need both), else the general
+    kernel."""
+    if dtype == torch.float32:
+        return "flash_attention_bh_f32"
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and aligned:
         return "flash_attention_bh_wgmma"
     return "flash_attention_bh"

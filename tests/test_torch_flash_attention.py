@@ -139,8 +139,14 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
     (torch.bfloat16, 96, True, "flash_attention_bh"),       # other head dims
     (torch.bfloat16, 32, True, "flash_attention_bh"),
     (torch.bfloat16, 12, True, "flash_attention_bh"),
-    (torch.float32, 64, True, "flash_attention_bh"),        # f32: FMA kernel
-    (torch.float32, 128, True, "flash_attention_bh"),
+    (torch.float32, 64, True, "flash_attention_bh_f32"),    # f32: FFMA kernel
+    (torch.float32, 128, True, "flash_attention_bh_f32"),
+    (torch.float32, 12, True, "flash_attention_bh_f32"),
+    (torch.float32, 32, True, "flash_attention_bh_f32"),
+    (torch.float32, 96, True, "flash_attention_bh_f32"),
+    (torch.float32, 64, False, "flash_attention_bh_f32"),   # unaligned rows
+    (torch.float32, 12, False, "flash_attention_bh_f32"),
+    (torch.float32, 128, False, "flash_attention_bh_f32"),
 ])
 def test_kernel_choice_is_a_pure_function_of_dtype_head_dim_alignment(
         dtype, head_dim, aligned, entry):
@@ -148,6 +154,66 @@ def test_kernel_choice_is_a_pure_function_of_dtype_head_dim_alignment(
     each entry has its own launch counter."""
     assert fa.kernel_for(dtype, head_dim, aligned) == entry
     assert entry in fa.KERNELS
+
+
+def test_kernels_lists_every_c_entry_of_the_source():
+    """KERNELS names the three C entries of csrc/flash_attention.cu, each
+    declared for ctypes in the build table."""
+    assert set(fa.KERNELS) == {"flash_attention_bh", "flash_attention_bh_wgmma",
+                               "flash_attention_bh_f32"}
+    assert set(_build.ENTRIES["flash_attention"]) == set(fa.KERNELS)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cpu_calls_count_no_launch_on_any_entry(dtype):
+    """On CPU tensors both wrappers run the plain version and count no
+    launch on any of the three entries."""
+    tdt = DTYPES[dtype][0]
+    q, k, v = (torch.from_numpy(a).to(tdt)
+               for a in _inputs(5, 1, 40, 40, 4, 2, 64))
+    _build.reset_launch_counts()
+    fa.flash_attention(q, k, v, causal=True)
+    fold = lambda x: x.transpose(1, 2).reshape(-1, 40, 64)  # noqa: E731
+    kr, vr = (x.repeat_interleave(2, dim=2) for x in (k, v))
+    fa.flash_attention_bh(fold(q), fold(kr), fold(vr), causal=False)
+    assert all(_build.launch_counts[e] == 0 for e in fa.KERNELS)
+
+
+@pytest.mark.parametrize("Dh", [12, 32, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_cpu_path_matches_jax_at_other_head_dims(Dh, causal):
+    """f32 at the head dims the f32 kernel takes besides 64 and 128, with
+    ragged lengths (two key heads in groups of 2): on the CPU the wrapper
+    is the plain version, and it matches the JAX kernel (interpret mode)
+    and oracle at the f32 tolerance."""
+    tdt, jdt, tol = DTYPES["float32"]
+    Sq, Skv = (70, 70) if causal else (50, 90)
+    (q, k, v), (jq, jk, jv) = _both(_inputs(6, 1, Sq, Skv, 4, 2, Dh), tdt,
+                                    jdt)
+    got = fa.flash_attention(q, k, v, causal=causal, q_block=35, kv_block=10)
+    want = jax_flash(jq, jk, jv, causal=causal, q_block=35, kv_block=10,
+                     interpret=True)
+    assert got.dtype == tdt and tuple(got.shape) == (1, Sq, 4, Dh)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(got), _np(jax_ref(jq, jk, jv,
+                                                     causal=causal)),
+                               rtol=tol, atol=tol)
+
+
+def test_f32_plain_takes_unaligned_row_strides():
+    """The plain version reads strided views as the f32 kernel's 4-byte
+    path does on the card: rows of Dh + 1 floats, starting one element in,
+    give the same output as the contiguous copies."""
+    rng = np.random.default_rng(7)
+    buf = [torch.from_numpy(rng.standard_normal((3, 77, 13),
+                                                dtype=np.float32))
+           for _ in range(3)]
+    q, k, v = (b[..., 1:] for b in buf)
+    assert q.stride(1) % 4 != 0
+    got = fa.flash_attention_bh(q, k, v, causal=True)
+    want = fa.flash_attention_bh(*(x.contiguous() for x in (q, k, v)),
+                                 causal=True)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("Dh", [64, 128])
