@@ -2,7 +2,6 @@
 """Drive the PyTorch port of FFTMatvec on one NVIDIA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --tree TREE   # a few readings of another checkout
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit.  It:
@@ -2060,10 +2059,10 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
     (``wrapper_ms``, with the wrapper's host time).  Where the wgmma kernel
     takes bf16, the general bf16 kernel (the one for other head dims and
     unaligned rows) is timed through its own C entry beside it on the same
-    inputs and checked against the same plain output; its row is
-    ``results["flash_attention_bh"]``.  The C entries and SDPA are timed
-    queued (FLASH_REPEATS calls, the median), so the host's launch time
-    stays out of their device time."""
+    inputs, into an output of its own checked against the same plain
+    output; its row is ``results["flash_attention_bh"]``.  The C entries
+    and SDPA are timed queued (FLASH_REPEATS calls, the median), so the
+    host's launch time stays out of their device time."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
@@ -2117,8 +2116,11 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
             def queued(fn):
                 return time_fn(fn, None, repeats=FLASH_REPEATS, mode="queued")
             launch = entry_call(entry)
-            general = (entry_call("flash_attention_bh")
-                       if entry == "flash_attention_bh_wgmma" else None)
+            # the general kernel writes its own output, checked below
+            o_general = (torch.empty_like(q) if dev.type == "cuda"
+                         and entry == "flash_attention_bh_wgmma" else None)
+            general = (entry_call("flash_attention_bh", o=o_general)
+                       if o_general is not None else None)
             row = results[entry][f"{name(dt)} {key}"] = {
                 "shape": list(shape), "max_abs_err": err,
                 "ms": queued(launch)}
@@ -2142,7 +2144,7 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
                 # the general kernel's own row: its output here against the
                 # same plain output, its queued readings, the same bound
                 sync(dev)
-                g_err = max_abs(o, want)
+                g_err = max_abs(o_general, want)
                 if not g_err <= FLASH_TOL[dt]:
                     fail(f"flash_attention_bh (general) {name(dt)} at {shape}:"
                          f" max abs err vs plain {g_err:.3e} > "
@@ -2162,7 +2164,7 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
                   + f", SDPA {row['library_ms']:.4f} (queued); bound "
                   f"{b_ms:.4f} ({b_by}); through the wrapper "
                   f"{row['wrapper_ms']:.4f}", flush=True)
-            del q4, k4, v4, o, launch, general
+            del q4, k4, v4, o, o_general, launch, general
         del q, k, v, want
 
 
@@ -2178,68 +2180,87 @@ def profiled_kernels(fn) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def check_f32_flash_kernel(dev):
-    """The f32 flash kernel (``flash_attention_bh_f32``) at ragged shapes,
-    each call's launch counted: Sq and Skv around the 64-row blocks, the
-    64-key tiles and 128, causal and not, Sq != Skv both ways, Dh = 12, 16,
-    32, 64, 96 and 128 (one to four 32-column passes), on rows 16-byte
-    aligned (16-byte copies) and on rows of Dh + 1 floats starting one
-    float in (4-byte copies); the 4-D entry with 2 key heads in groups of
-    1, 2 and 8; within FLASH_TOL of the plain version.  On the card, each
-    entry refuses the other's dtype."""
+# The ragged checks of the flash entries other than wgmma: (entry, dtype,
+# head dims, row layouts).  Layout None: rows 16-byte aligned (the 16-byte
+# copies); an int n: rows of Dh + n elements starting one element in (the
+# 4-byte copies).  The bf16 head dims take every instantiation of the
+# general kernel (KD = ceil(Dh / 16) 1-8; 12 and 16 are FLASH_RAGGED's).
+FLASH_ENTRY_CASES = (
+    ("flash_attention_bh_f32", torch.float32, (12, 16, 32, 64, 96, 128),
+     (None, 1)),
+    ("flash_attention_bh", torch.bfloat16, (32, 48, 80, 96, 112), (None,)),
+    ("flash_attention_bh", torch.bfloat16, (64, 128), (8,)),
+)
+
+
+def check_flash_entries(dev):
+    """The f32 flash kernel (``flash_attention_bh_f32``) and the general
+    bf16 kernel (``flash_attention_bh``) at ragged shapes, each call's
+    launch counted as one of its entry: Sq and Skv around the 64-row
+    blocks, the 64-key tiles and 128, causal and not, Sq != Skv both ways,
+    at the head dims and row layouts of FLASH_ENTRY_CASES; f32 also through
+    the 4-D entry with 2 key heads in groups of 1, 2 and 8; within
+    FLASH_TOL of the plain version.  On the card, each entry refuses the
+    other's dtype."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(SEED + 37)
-    dt = torch.float32
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev, dtype=dt)
+    def randn(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dt)
 
-    def counted(fn):
+    def counted(entry, fn):
         _build.reset_launch_counts()
         out = fn()
         check_launches(dict(_build.launch_counts),
-                       {"flash_attention_bh_f32": 1, "flash_attention_bh": 0,
-                        "flash_attention_bh_wgmma": 0})
+                       {k: int(k == entry) for k in fa.KERNELS})
         return out
 
-    n, worst = 0, 0.0
+    n, worst = {}, {}
     lengths = ((1, 1), (63, 63), (64, 64), (65, 65), (127, 127), (128, 128),
                (129, 129), (200, 77), (77, 200), (64, 130), (130, 64),
                (1, 300), (300, 1))
-    for Dh in (12, 16, 32, 64, 96, 128):
-        for Sq, Skv in lengths:
-            for causal in (True, False):
-                for aligned in (True, False):
-                    if aligned:
-                        q, k, v = (randn(3, s, Dh) for s in (Sq, Skv, Skv))
-                    else:
-                        q, k, v = (randn(3, s, Dh + 1)[..., 1:]
-                                   for s in (Sq, Skv, Skv))
-                    got = counted(lambda: fa.flash_attention_bh(
-                        q, k, v, causal=causal))
-                    want = fa.flash_attention_bh_plain(q, k, v, causal=causal)
-                    err = max_abs(got, want)
-                    if got.dtype != dt or not err <= FLASH_TOL[dt]:
-                        fail(f"flash_attention_bh_f32 at {(3, Sq, Skv, Dh)} "
-                             f"causal={causal} aligned={aligned}: {got.dtype}"
-                             f", max abs err {err:.3e} > {FLASH_TOL[dt]:g}")
-                    worst, n = max(worst, err), n + 1
+    for entry, dt, dims, layouts in FLASH_ENTRY_CASES:
+        for Dh in dims:
+            for Sq, Skv in lengths:
+                for causal in (True, False):
+                    for pad in layouts:
+                        if pad is None:
+                            q, k, v = (randn(3, s, Dh, dt=dt)
+                                       for s in (Sq, Skv, Skv))
+                        else:
+                            q, k, v = (randn(3, s, Dh + pad, dt=dt)[
+                                ..., 1:Dh + 1] for s in (Sq, Skv, Skv))
+                        got = counted(entry, lambda: fa.flash_attention_bh(
+                            q, k, v, causal=causal))
+                        want = fa.flash_attention_bh_plain(q, k, v,
+                                                           causal=causal)
+                        err = max_abs(got, want)
+                        if got.dtype != dt or not err <= FLASH_TOL[dt]:
+                            fail(f"{entry} {name(dt)} at {(3, Sq, Skv, Dh)} "
+                                 f"causal={causal} row pad={pad}: "
+                                 f"{got.dtype}, max abs err {err:.3e} > "
+                                 f"{FLASH_TOL[dt]:g}")
+                        worst[entry] = max(worst.get(entry, 0.0), err)
+                        n[entry] = n.get(entry, 0) + 1
+    dt, entry = torch.float32, "flash_attention_bh_f32"
     for Dh in (64, 96):
         for G in (1, 2, 8):
             B, S, Hkv = 2, 150, 2
             q, k, v = randn(B, S, Hkv * G, Dh), randn(B, S, Hkv, Dh), \
                 randn(B, S, Hkv, Dh)
-            got = counted(lambda: fa.flash_attention(q, k, v, causal=True))
+            got = counted(entry, lambda: fa.flash_attention(q, k, v,
+                                                            causal=True))
             fold = lambda x: x.transpose(1, 2).reshape(-1, S, Dh)  # noqa: E731
             kr, vr = (x.repeat_interleave(G, dim=2) for x in (k, v))
             want = fa.flash_attention_bh_plain(fold(q), fold(kr), fold(vr),
                                                causal=True)
             err = max_abs(fold(got), want)
             if not err <= FLASH_TOL[dt]:
-                fail(f"flash_attention_bh_f32 GQA group {G} Dh {Dh}: max abs "
-                     f"err {err:.3e} > {FLASH_TOL[dt]:g}")
-            worst, n = max(worst, err), n + 1
+                fail(f"{entry} GQA group {G} Dh {Dh}: max abs err {err:.3e} "
+                     f"> {FLASH_TOL[dt]:g}")
+            worst[entry], n[entry] = max(worst[entry], err), n[entry] + 1
     if dev.type == "cuda":
         lib = _build.library("flash_attention")
         for entry, other in (("flash_attention_bh", torch.float32),
@@ -2254,9 +2275,11 @@ def check_f32_flash_kernel(dev):
                 fail(f"{entry} took {name(other)}: each flash entry takes one "
                      f"dtype")
     sync(dev)
-    print(f"f32 flash kernel: {n} calls within {FLASH_TOL[dt]:g} of the plain "
-          f"version (worst {worst:.3e}), each one launch of "
-          f"flash_attention_bh_f32", flush=True)
+    for entry, dt_ in (("flash_attention_bh_f32", torch.float32),
+                       ("flash_attention_bh", torch.bfloat16)):
+        print(f"{entry}: {n[entry]} ragged calls within {FLASH_TOL[dt_]:g} of "
+              f"the plain version (worst {worst[entry]:.3e}), each one launch "
+              f"of its entry", flush=True)
 
 
 class _PhaseClock:
@@ -2560,40 +2583,6 @@ def time_full_f32_prefill(dev, cfg, model, reqs, max_seq, time_fn) -> dict:
     return out
 
 
-def device_time(fn, arg, repeats=REPEATS, warmup=3, mode="median"):
-    """The card's time of ``fn(arg)`` in ms (``core.time_callable``)."""
-    from repro_torch.core import time_callable
-    return time_callable(fn, arg, repeats=repeats, warmup=warmup, mode=mode)
-
-
-def tree_readings(tree) -> int:
-    """``python3 chip_smoke.py --tree TREE``: only the cast kernels' queued
-    readings at the main path's shape (``check_pad_kernels``) and the
-    ``FULL_F32`` prefill of the serve plan's longer batch with the serve
-    phase's seeded weights (``time_full_f32_prefill``), taken by this
-    script of the package of the checkout at TREE, so another tree's
-    kernels are read like for like.  Prints one JSON line."""
-    tree = pathlib.Path(tree).resolve()
-    sys.path.insert(0, str(tree / "src"))
-    from repro_torch.configs import PAPER_SINGLE as cfg_p
-    from repro_torch.models import api
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    casts = {"pad_cast": {}, "unpad_cast": {}}
-    check_pad_kernels(dev, cfg_p.N_m, cfg_p.N_t, 2 * cfg_p.N_t, True, casts,
-                      device_time)
-    cfg, reqs, _, max_seq, _ = serve_plan(True)
-    model = api.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(SEED + 29), device=dev)
-    prefill = time_full_f32_prefill(dev, cfg, model, reqs[4:], max_seq,
-                                    device_time)
-    print(json.dumps({"tree": str(tree),
-                      "device": torch.cuda.get_device_name(0),
-                      "casts": casts, "full_f32_prefill_ms": prefill}))
-    return 0
-
-
 def plain_path(op):
     """``op`` with every contraction on the plain PyTorch code (the
     "torch" dispatch path); pad/unpad still launch their kernels."""
@@ -2823,7 +2812,7 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     long_shape = (4 * cfg.n_heads, FLASH_LONG, FLASH_LONG, cfg.head_dim(),
                   True)
     check_flash_kernel(dev, FLASH_RAGGED, {}, results, time_fn)
-    check_f32_flash_kernel(dev)
+    check_flash_entries(dev)
     check_flash_kernel(dev, (serve_shape, long_shape) if full else
                        (serve_shape,),
                        {serve_shape: "serve", long_shape: f"S={FLASH_LONG}"}
@@ -2879,12 +2868,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--tree"] and len(sys.argv) == 3:
-        return tree_readings(sys.argv[2])
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.backend import H100_HBM_BYTES_PER_S
     from repro_torch.configs import PAPER_SINGLE
+    from repro_torch.core import time_callable
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False   # "s" is IEEE f32
@@ -2918,7 +2906,10 @@ def main() -> int:
         print(f"  {fn}: {info['registers']} registers, spill stores "
               f"{info['spill_stores']} B, spill loads {info['spill_loads']} B")
 
-    time_fn = device_time
+    def time_fn(fn, arg, repeats=REPEATS, warmup=3, mode="median"):
+        return time_callable(fn, arg, repeats=repeats, warmup=warmup,
+                             mode=mode)
+
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = PAPER_SINGLE

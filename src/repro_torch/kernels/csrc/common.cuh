@@ -1,4 +1,5 @@
-// Shared helpers of the hand-written kernels: dtype codes and casts.
+// Shared helpers of the hand-written kernels: dtype codes, casts and the
+// cp.async copy helpers.
 //
 // Dtype codes match repro_torch/kernels/_build.py:DTYPE_CODES.
 // Every cast to bf16 rounds through f32 (__float2bfloat16_rn((float)x)):
@@ -132,6 +133,29 @@ __device__ __forceinline__ double quantize(double v, int lvl) {
   if (lvl >= 2) return v;
   const float f = __double2float_rn(v);
   return (double)(lvl == 0 ? round_bf16(f) : f);
+}
+
+// Asynchronous global -> shared copy of N = 4, 8 or 16 aligned bytes; !ok
+// reads nothing and zero-fills the destination.
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool ok) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 bytes");
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(dst), "l"(src), "n"(N), "r"(ok ? N : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Run the statements in __VA_ARGS__ with T bound to the C++ type of a

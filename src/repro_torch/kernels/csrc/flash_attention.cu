@@ -369,28 +369,6 @@ struct Layout {
   static constexpr int BLOCKS = BYTES <= 74 * 1024 ? 3 : BYTES <= 112 * 1024 ? 2 : 1;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// cp.async of 16 or 4 bytes; !ok reads nothing and zero-fills.
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 // Rows [r0, r0 + 64) of a (S, Dh) head matrix with row stride ss into the
 // tile at shared address dst (rows LD floats apart, DHP columns) by
 // cp.async; rows >= S and columns >= Dh read as zeros.  vec: Dh, ss and
@@ -412,13 +390,13 @@ __device__ __forceinline__ void copy_tile(uint32_t dst, const float* src, int64_
 #pragma unroll
     for (int n = 0; n < kKeys / RS; ++n) {
       const bool ok = c < Dh && r0 + r + n * RS < S;
-      cp16(d0 + 4 * n * RS * LD, ok ? s0 + n * RS * ss : src, ok);
+      cp_async<16>(d0 + 4 * n * RS * LD, ok ? s0 + n * RS * ss : src, ok);
     }
   } else {
     for (int i = threadIdx.x; i < kKeys * DHP; i += kThreads) {
       const int r = i / DHP, c = i % DHP;
       const bool ok = r0 + r < S && c < Dh;
-      cp4(dst + 4 * (r * LD + c), ok ? src + (r0 + r) * ss + c : src, ok);
+      cp_async<4>(dst + 4 * (r * LD + c), ok ? src + (r0 + r) * ss + c : src, ok);
     }
   }
 #endif
@@ -448,12 +426,12 @@ flash_f32_kernel(const Params p) {
   const float* k = static_cast<const float*>(p.k) + b * p.ks[0] + hk * p.ks[1];
   const float* v = static_cast<const float*>(p.v) + b * p.vs[0] + hk * p.vs[1];
   const bool vec = p.vec != 0;
-  const uint32_t base = smem_u32(fsm);
+  const uint32_t base = wg::smem_u32(fsm);
   copy_tile<DHP, LD>(base + 4 * L::Q, q, p.qs[2], q0, p.Sq, p.Dh, vec);
   copy_tile<DHP, LD>(base + 4 * L::K, k, p.ks[2], 0, p.Skv, p.Dh, vec);
-  commit();
+  cp_async_commit();
   copy_tile<DHP, LD>(base + 4 * L::V, v, p.vs[2], 0, p.Skv, p.Dh, vec);
-  commit();
+  cp_async_commit();
 
   const float sl2 = p.scale * 1.4426950408889634f;   // scale log2(e)
   float o[kRM][NC][4];
@@ -470,7 +448,7 @@ flash_f32_kernel(const Params p) {
   float* pw = fsm + L::P + warp * 16 * LP + rl * LP; // row rg + 16 i at + 4 i LP
 
   for (int64_t t = 0; t < nt; ++t) {
-    wait<1>();           // K(t) landed (V(t) is the newer group)
+    cp_async_wait<1>();  // K(t) landed (V(t) is the newer group)
     __syncthreads();
 
     // S = Q K^T: per 4-wide step of Dh, 4 + 8 vector loads and 128 FFMAs
@@ -498,7 +476,7 @@ flash_f32_kernel(const Params p) {
     __syncthreads();     // every warp is done with K(t): K(t + 1) into its place
     if (t + 1 < nt)
       copy_tile<DHP, LD>(base + 4 * L::K, k, p.ks[2], (t + 1) * kKeys, p.Skv, p.Dh, vec);
-    commit();
+    cp_async_commit();
 
     // the online softmax, row by row
     const int64_t kbase = t * kKeys;
@@ -536,7 +514,7 @@ flash_f32_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < kKN; ++j) pw[4 * i * LP + kg + 8 * j] = s[i][j];
     }
-    wait<1>();           // V(t) landed (K(t + 1) is the newer group)
+    cp_async_wait<1>();  // V(t) landed (K(t + 1) is the newer group)
     __syncthreads();     // and the warp's P rows are written
 
     // O += P V: per 4 keys, 4 + 4 NC vector loads and 64 NC FFMAs
@@ -565,7 +543,7 @@ flash_f32_kernel(const Params p) {
     __syncthreads();     // every warp is done with V(t): V(t + 1) into its place
     if (t + 1 < nt)
       copy_tile<DHP, LD>(base + 4 * L::V, v, p.vs[2], (t + 1) * kKeys, p.Skv, p.Dh, vec);
-    commit();
+    cp_async_commit();
   }
   float* out = static_cast<float*>(p.o) + b * p.os[0] + h * p.os[1];
 #pragma unroll

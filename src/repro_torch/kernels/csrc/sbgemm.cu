@@ -525,29 +525,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Asynchronous global -> shared copy of N = 4, 8 or 16 aligned bytes; !ok
-// reads nothing and zero-fills the destination.
-template <int N>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool ok) {
-  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 bytes");
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-                 :: "r"(dst), "l"(src), "n"(N), "r"(ok ? N : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 // Stage a ROWS x COLS tile of doubles or floats whose rows start at src +
 // r ld (contiguous along c) into shared memory at dst + r DLD + c, the
 // block's NT threads sharing the copies: rows r < rv and columns c < cv are

@@ -13,8 +13,8 @@
 // sums.  The tiled and real builds stay on the vector kernels.
 //
 // Included by sbgemm.cu inside its anonymous namespace, after the f64
-// section, whose copy helpers (cp_async, cp_async_commit, cp_async_wait,
-// smem_addr), min64 / aligned16 and launch_persistent it uses.
+// section, whose smem_addr, min64 / aligned16 and launch_persistent it
+// uses, with common.cuh's cp_async, cp_async_commit and cp_async_wait.
 // Measurement builds of sbgemm.cu (chip_smoke.py's bound probe; no wrapper
 // loads them) compile one side of both kernels out: SBGEMM_BF16_NO_MMA the
 // products, leaving the copy pipeline and the fragment loads,

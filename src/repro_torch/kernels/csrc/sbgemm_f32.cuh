@@ -21,8 +21,9 @@
 // read it cost more than the parent's vector kernel).
 //
 // Included by sbgemm.cu inside its anonymous namespace, after the f64 and
-// bf16 sections, whose stage(), cp_async / cp_async_commit / cp_async_wait,
-// smem_addr, min64, aligned16 and launch_persistent it uses.  Measurement
+// bf16 sections, whose stage(), smem_addr, min64, aligned16 and
+// launch_persistent it uses, with common.cuh's cp_async / cp_async_commit /
+// cp_async_wait.  Measurement
 // builds of sbgemm.cu (chip_smoke.py's bound probe; no wrapper loads them)
 // compile one side of all three kernels out: SBGEMM_F32_NO_FMA the
 // products (the copy pipeline alone), SBGEMM_F32_NO_COPY the operand

@@ -181,15 +181,23 @@ def test_cpu_calls_count_no_launch_on_any_entry(dtype):
 
 @pytest.mark.parametrize("Dh", [12, 32, 96])
 @pytest.mark.parametrize("causal", [True, False])
-def test_f32_cpu_path_matches_jax_at_other_head_dims(Dh, causal):
+@pytest.mark.parametrize("aligned", [True, False])
+def test_f32_cpu_path_matches_jax_at_other_head_dims(Dh, causal, aligned):
     """f32 at the head dims the f32 kernel takes besides 64 and 128, with
-    ragged lengths (two key heads in groups of 2): on the CPU the wrapper
-    is the plain version, and it matches the JAX kernel (interpret mode)
-    and oracle at the f32 tolerance."""
+    ragged lengths (two key heads in groups of 2), on contiguous rows and
+    (``aligned`` False) on rows of Dh + 1 floats starting one float in, the
+    layout of the kernel's 4-byte copies: on the CPU the wrapper is the
+    plain version, and it matches the JAX kernel (interpret mode) and
+    oracle at the f32 tolerance."""
     tdt, jdt, tol = DTYPES["float32"]
     Sq, Skv = (70, 70) if causal else (50, 90)
-    (q, k, v), (jq, jk, jv) = _both(_inputs(6, 1, Sq, Skv, 4, 2, Dh), tdt,
-                                    jdt)
+    arrs = _inputs(6, 1, Sq, Skv, 4, 2, Dh)
+    (q, k, v), (jq, jk, jv) = _both(arrs, tdt, jdt)
+    if not aligned:
+        q, k, v = (torch.nn.functional.pad(x, (1, 0))[..., 1:]
+                   for x in (q, k, v))
+        assert all(x.stride(2) == Dh + 1 for x in (q, k, v))
+        assert all(x.data_ptr() % 16 for x in (q, k, v))
     got = fa.flash_attention(q, k, v, causal=causal, q_block=35, kv_block=10)
     want = jax_flash(jq, jk, jv, causal=causal, q_block=35, kv_block=10,
                      interpret=True)
@@ -198,22 +206,6 @@ def test_f32_cpu_path_matches_jax_at_other_head_dims(Dh, causal):
     np.testing.assert_allclose(_np(got), _np(jax_ref(jq, jk, jv,
                                                      causal=causal)),
                                rtol=tol, atol=tol)
-
-
-def test_f32_plain_takes_unaligned_row_strides():
-    """The plain version reads strided views as the f32 kernel's 4-byte
-    path does on the card: rows of Dh + 1 floats, starting one element in,
-    give the same output as the contiguous copies."""
-    rng = np.random.default_rng(7)
-    buf = [torch.from_numpy(rng.standard_normal((3, 77, 13),
-                                                dtype=np.float32))
-           for _ in range(3)]
-    q, k, v = (b[..., 1:] for b in buf)
-    assert q.stride(1) % 4 != 0
-    got = fa.flash_attention_bh(q, k, v, causal=True)
-    want = fa.flash_attention_bh(*(x.contiguous() for x in (q, k, v)),
-                                 causal=True)
-    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("Dh", [64, 128])
