@@ -151,6 +151,14 @@ CUDA toolkit.  It:
    never, and its prefill of the longer batch is timed on the flash and
    the chunked path.  pad_cast and unpad_cast are timed queued through
    their C entries beside their one-call PyTorch versions.
+13. the vector cast kernel and the N SBGEMV on 16-byte vectors: pad_cast
+   at a shape whose rows hold whole vectors at every dtype pair and from a
+   view one column in (the element path), bit for bit; the N SBGEMV at
+   (3, 5, 264) and (2, 7, 1000), also on planes that start one element
+   in, and its tiled build at (3, 5, 264); the N SBGEMVs timed queued
+   through their C entries beside ``torch.bmm``; the N kernel built
+   without its products, timed beside it at the paper shape; the real N
+   kernel at an odd n (its element path at every dtype).
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -262,27 +270,29 @@ def bound_ms(bytes_moved: float, flops: float, flop_dtype: str):
 
 def check_pad_kernels(dev, R, T, P, timed, results, time_fn):
     """pad_cast / unpad_cast bit for bit their plain versions for all 9
-    dtype pairs, the pad reading a row-strided view, the unpad its rows and
-    a view of them one column in.  Timed (same-dtype pairs): each kernel
-    through its C entry and its one-call PyTorch version, both queued
-    (FLASH_REPEATS calls behind a device-side spin, so the host's launch
-    time stays out of a call of tens of us), each twice (``ms``,
+    dtype pairs, the pad reading a row-strided view and a view one column
+    in, the unpad its rows and a view of them one column in (the views one
+    column in take the kernel's element path).  Timed (same-dtype pairs):
+    each kernel through its C entry and its one-call PyTorch version, both
+    queued (FLASH_REPEATS calls behind a device-side spin, so the host's
+    launch time stays out of a call of tens of us), each twice (``ms``,
     ``ms_again``; ``library_ms``, ``library_ms_again``); the wrapper
     (``wrapper_ms``) and the plain version by the median of events."""
-    from repro_torch.kernels import _build
     from repro_torch.kernels import pad_cast as pk
     gen = torch.Generator(device=dev).manual_seed(SEED)
     base = torch.randn((R, P), generator=gen, device=dev, dtype=torch.float64)
     for din in DTYPES:
         wide = base.to(din)
         for dout in DTYPES:
-            # pad reads a row-strided view: (R, T) columns of an (R, P) tensor
+            # pad reads a row-strided view: (R, T) columns of an (R, P)
+            # tensor, from its first column and one column in
             x = wide[:, :T]
-            got = pk.pad_cast(x, P, dout)
-            want = pk.pad_cast_plain(x, P, dout)
-            if not torch.equal(bits(got), bits(want)):
-                fail(f"pad_cast {name(din)}->{name(dout)} at {(R, T, P)} "
-                     f"differs from its plain version")
+            for src, what in ((x, ""), (wide[:, 1:1 + T], " one column in")):
+                got = pk.pad_cast(src, P, dout)
+                want = pk.pad_cast_plain(src, P, dout)
+                if not torch.equal(bits(got), bits(want)):
+                    fail(f"pad_cast {name(din)}->{name(dout)} at {(R, T, P)}"
+                         f"{what} differs from its plain version")
             # unpad from rows whose starts allow vectors and from a view one
             # column in (the element path)
             for src, what in ((wide, ""), (wide[:, 1:], " one column in")):
@@ -295,21 +305,10 @@ def check_pad_kernels(dev, R, T, P, timed, results, time_fn):
                 continue
             xc = x.contiguous()
             s = din.itemsize
-            code = _build.DTYPE_CODES[din]
             yp = torch.empty((R, P), device=dev, dtype=dout)
             yu = torch.empty((R, T), device=dev, dtype=dout)
-
-            def entry_call(kname, yp=yp, yu=yu, xc=xc, wide=wide):
-                # the kernel through its C entry, no Python around it
-                fn = getattr(_build.library("pad_cast"), kname)
-                args = ((xc.data_ptr(), yp.data_ptr(), R, T, P, T)
-                        if kname == "pad_cast" else
-                        (wide.data_ptr(), yu.data_ptr(), R, T, P))
-
-                def call(_):
-                    _build.check(fn(*args, code, code, dev.index,
-                                    _build.stream_of(wide)), kname)
-                return call
+            entries = {"pad_cast": ((xc, yp), (R, T, P, T)),
+                       "unpad_cast": ((wide, yu), (R, T, P))}
             for kname, kfn, pfn, lfn, nbytes in (
                 ("pad_cast", lambda a: pk.pad_cast(a, P, dout),
                  lambda a: pk.pad_cast_plain(a, P, dout),
@@ -322,7 +321,8 @@ def check_pad_kernels(dev, R, T, P, timed, results, time_fn):
             ):
                 arg = xc if kname == "pad_cast" else wide
                 b_ms, b_by = bound_ms(nbytes, 0, "float32")
-                launch = (entry_call(kname) if dev.type == "cuda"
+                launch = (entry_call("pad_cast", kname, *entries[kname],
+                                     din, dout) if dev.type == "cuda"
                           else lambda _, kfn=kfn, arg=arg: kfn(arg))
 
                 def queued(fn, arg=arg):
@@ -400,7 +400,43 @@ def _library_gram(Ar, Ai, data: bool, combine: bool = False):
     return lambda _: torch.bmm(Ac.mH, Ac)
 
 
-def check_sbgemv_kernels(dev, B, m, n, timed, results, time_fn):
+def entry_call(source, entry, tensors, sizes, dt_in, dt_out, defines=()):
+    """A C entry of ``csrc/<source>.cu`` (built with the ``-D`` macros
+    ``defines``) on ``tensors`` (inputs, then outputs) with no Python
+    around it: no launch is counted."""
+    from repro_torch.kernels import _build
+    fn = getattr(_build.library(source, defines), entry)
+    t0 = tensors[0]
+    args = (*[t.data_ptr() for t in tensors], *sizes,
+            _build.DTYPE_CODES[dt_in], _build.DTYPE_CODES[dt_out],
+            t0.device.index, _build.stream_of(t0))
+
+    def call(_):
+        _build.check(fn(*args), entry)
+    return call
+
+
+def queued_pair(time_fn, kernel_call, library_call) -> dict:
+    """A kernel's call and one PyTorch call for the same function, each
+    timed queued (FLASH_REPEATS calls behind a device-side spin, so the
+    host's time stays out) twice, in the order kernel, library, library,
+    kernel."""
+    def queued(fn):
+        return time_fn(fn, None, repeats=FLASH_REPEATS, mode="queued")
+    row = {"queued_ms": queued(kernel_call),
+           "library_queued_ms": queued(library_call)}
+    row["library_queued_ms_again"] = queued(library_call)
+    row["queued_ms_again"] = queued(kernel_call)
+    return row
+
+
+def check_sbgemv_kernels(dev, B, m, n, timed, results, time_fn, offset=0):
+    """The complex SBGEMVs (modes N, T, H) against their plain versions at
+    each dtype; with ``offset``, on planes that start that many elements
+    into a larger buffer (contiguous views whose starts no 16-byte vector
+    fits: the N kernel's element path).  Timed (modes N and H): kernel,
+    plain version and one PyTorch call by the median of events; mode N also
+    through its C entry beside the PyTorch call, both queued."""
     from repro_torch.kernels import sbgemv as sk
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     A64 = [torch.randn((B, m, n), generator=gen, device=dev,
@@ -409,24 +445,31 @@ def check_sbgemv_kernels(dev, B, m, n, timed, results, time_fn):
                         dtype=torch.float64) for _ in range(2)]
     xm64 = [torch.randn((B, m), generator=gen, device=dev,
                         dtype=torch.float64) for _ in range(2)]
+
+    def at(t):
+        if not offset:
+            return t
+        buf = torch.empty(t.numel() + offset, device=dev, dtype=t.dtype)
+        return buf[offset:].view(t.shape).copy_(t)
+    where = f" {offset} element(s) in" if offset else ""
     for dt in DTYPES:
-        Ar, Ai = (a.to(dt) for a in A64)
+        Ar, Ai = (at(a.to(dt)) for a in A64)
         for mode in "NTH":
             if mode == "N":
-                xr, xi = (x.to(dt) for x in xn64)
+                xr, xi = (at(x.to(dt)) for x in xn64)
                 kname = "sbgemv_n_complex"
                 kfn = lambda _: sk.sbgemv_n_complex(Ar, Ai, xr, xi)
                 pfn = lambda _: sk.sbgemv_n_complex_plain(Ar, Ai, xr, xi, dt)
                 x_elems, y_elems = B * n, B * m
             else:
-                xr, xi = (x.to(dt) for x in xm64)
+                xr, xi = (at(x.to(dt)) for x in xm64)
                 conj = mode == "H"
                 kname = "sbgemv_th_complex"
                 kfn = lambda _: sk.sbgemv_th_complex(Ar, Ai, xr, xi, conj=conj)
                 pfn = lambda _: sk.sbgemv_th_complex_plain(Ar, Ai, xr, xi,
                                                            conj, dt)
                 x_elems, y_elems = B * m, B * n
-            what = f"{kname} mode {mode} {name(dt)} at {(B, m, n)}"
+            what = f"{kname} mode {mode} {name(dt)} at {(B, m, n)}{where}"
             err = check_planes(what, kfn(None), pfn(None), dt)
             print(f"{what}: max abs err vs plain {err:.3e}", flush=True)
             if not timed or mode == "T":
@@ -436,12 +479,26 @@ def check_sbgemv_kernels(dev, B, m, n, timed, results, time_fn):
             flops = 8 * B * m * n
             b_ms, b_by = bound_ms(nbytes, flops, name(dt))
             lib = _library(Ar, Ai, xr, xi, mode)
-            results[kname][name(dt)] = {
+            row = results[kname][name(dt)] = {
                 "shape": [B, m, n], "mode": mode, "max_abs_err": err,
                 "ms": time_fn(kfn, None), "plain_ms": time_fn(pfn, None),
                 "library_ms": time_fn(lib, None),
                 "bytes": nbytes, "flops": flops,
                 "bound_ms": b_ms, "bound_by": b_by}
+            if mode == "N":
+                ys = [torch.empty((B, m), device=dev, dtype=dt)
+                      for _ in range(2)]
+                call = (entry_call("sbgemv", kname, (Ar, Ai, xr, xi, *ys),
+                                   (B, m, n), dt, dt)
+                        if dev.type == "cuda" else kfn)
+                row.update(queued_pair(time_fn, call, lib))
+                print(f"{kname} {name(dt)} at {(B, m, n)}: "
+                      f"{row['queued_ms']:.4f} / {row['queued_ms_again']:.4f}"
+                      f" ms queued, one PyTorch call "
+                      f"{row['library_queued_ms']:.4f} / "
+                      f"{row['library_queued_ms_again']:.4f}; bound "
+                      f"{b_ms:.4f}", flush=True)
+                del ys
             del lib
         del Ar, Ai
 
@@ -891,6 +948,51 @@ def probe_bounds(dev, B, m, n, time_fn):
                   f"without copies {row['no_copy_ms']:.4f}: bound by "
                   f"{row['bound_side']}", flush=True)
         del A, cases
+        free(dev)
+    return out
+
+
+# the measurement build of csrc/sbgemv.cu's N kernel without its products
+# (every loaded word folded into the sums by XOR instead)
+SBGEMV_PROBES = {"no_products_ms": ("SBGEMV_N_NO_PRODUCTS",)}
+
+
+def probe_sbgemv_bounds(dev, B, m, n, time_fn):
+    """The N SBGEMV (``sbgemv_n_complex``) at the paper shape at each
+    dtype, built as the wrapper loads it and without its products.  The
+    whole build is timed once and the reading dropped (the card's first
+    reading after other work runs slow), then timed before and after the
+    build without products (the run's spread: the two readings'
+    difference, at least 2 % of the first).  Bound by its loads when the
+    build without products is no faster than the whole by more than the
+    spread, else by the instructions around them.  Called through the C
+    entry: no launch is counted.  Reported, not gated."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    out = {}
+    for dt in DTYPES:
+        tensors = [torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((B, m, n), (B, m, n), (B, n), (B, n))]
+        tensors += [torch.empty((B, m), device=dev, dtype=dt)
+                    for _ in range(2)]
+
+        def call_of(defines, tensors=tensors, dt=dt):
+            return entry_call("sbgemv", "sbgemv_n_complex", tensors,
+                              (B, m, n), dt, dt, defines)
+        time_fn(call_of(()), None)
+        row = {"ms": time_fn(call_of(()), None)}
+        for label, defines in SBGEMV_PROBES.items():
+            row[label] = time_fn(call_of(defines), None)
+        row["ms_again"] = time_fn(call_of(()), None)
+        spread = max(abs(row["ms_again"] - row["ms"]), 0.02 * row["ms"])
+        whole = min(row["ms"], row["ms_again"])
+        row["bound_side"] = ("loads" if row["no_products_ms"]
+                             >= whole - spread else "instructions")
+        out[f"sbgemv_n_complex {name(dt)}"] = row
+        print(f"sbgemv_n_complex {name(dt)} at {(B, m, n)}: {row['ms']:.4f}"
+              f" / {row['ms_again']:.4f} ms; without products "
+              f"{row['no_products_ms']:.4f}: bound by {row['bound_side']}",
+              flush=True)
+        del tensors
         free(dev)
     return out
 
@@ -1901,13 +2003,28 @@ def check_real_kernels(dev, B, m, n, S_list, timed, results, time_fn):
                 flops = 2 * B * m * n * S
                 b_ms, b_by = bound_ms(nbytes, flops, name(dt))
                 Am = A if mode == "N" else A.mT
-                results[kname][name(dt) if S == 1 else f"{name(dt)} S={S}"] = {
+                lib = lambda _: torch.bmm(Am, Xc)
+                row = results[kname][name(dt) if S == 1
+                                     else f"{name(dt)} S={S}"] = {
                     "shape": [B, m, n, S], "mode": mode, "max_abs_err": err,
                     "ms": time_fn(lambda _: kern(A, X), None),
                     "plain_ms": time_fn(lambda _: plain(A, X, dt), None),
-                    "library_ms": time_fn(lambda _: torch.bmm(Am, Xc), None),
+                    "library_ms": time_fn(lib, None),
                     "bytes": nbytes, "flops": flops, "bound_ms": b_ms,
                     "bound_by": b_by}
+                if kname == "sbgemv_n_real":
+                    y = torch.empty((B, m), device=dev, dtype=dt)
+                    call = (entry_call("sbgemv", kname, (A, X, y), (B, m, n),
+                                       dt, dt)
+                            if dev.type == "cuda" else lambda _: kern(A, X))
+                    row.update(queued_pair(time_fn, call, lib))
+                    print(f"{kname} {name(dt)} at {(B, m, n)}: "
+                          f"{row['queued_ms']:.4f} / "
+                          f"{row['queued_ms_again']:.4f} ms queued, one "
+                          f"PyTorch call {row['library_queued_ms']:.4f} / "
+                          f"{row['library_queued_ms_again']:.4f}; bound "
+                          f"{b_ms:.4f}", flush=True)
+                    del y
                 if dt == torch.bfloat16:
                     continue
                 u_ms = time_fn(lambda _: gemm(A, Xc), None)
@@ -2714,8 +2831,16 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     report = {}
     # slice 1: pad/unpad and the SBGEMV kernels, matvec / rmatvec
     check_pad_kernels(dev, 5, 77, 154, False, results, time_fn)
+    # whole 16-byte vectors in every row at every dtype pair (vector path)
+    check_pad_kernels(dev, 7, 96, 200, False, results, time_fn)
     check_sbgemv_kernels(dev, 3, 3, 77, False, results, time_fn)
     check_sbgemv_kernels(dev, 2, 300, 50, False, results, time_fn)
+    # the N kernel's vector path with a lane tail, and its element path on
+    # planes that start one element in
+    for shape in ((3, 5, 264), (2, 7, 1000)):
+        for offset in (0, 1):
+            check_sbgemv_kernels(dev, *shape, False, results, time_fn,
+                                 offset)
     if dev.type == "cuda":
         check_dispatch_on_card(dev)
     check_pad_kernels(dev, N_m, N_t, 2 * N_t, timed, results, time_fn)
@@ -2755,6 +2880,8 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     free(dev)
     if timed and dev.type == "cuda":
         report["bound_probe"] = probe_bounds(dev, N_t + 1, N_d, N_m, time_fn)
+        report["bound_probe"].update(probe_sbgemv_bounds(
+            dev, N_t + 1, N_d, N_m, time_fn))
         free(dev)
     op_d = drive_block_path(dev, N_t, N_d, N_m, timed, time_fn, report)
     free(dev)
@@ -2768,6 +2895,7 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     # slice 3: the tiled kernels, tiles= configs, autotune
     check_tiled_kernels(dev, 3, 7, 130, (1, 5, 33), "NTH", False, results,
                         time_fn)
+    check_tiled_kernels(dev, 3, 5, 264, (1,), "NTH", False, results, time_fn)
     check_tiled_kernels(dev, 2, 300, 50, (1, 9), "NTH", False, results,
                         time_fn)
     check_tiled_kernels(dev, 3, 77, 133, (8, 9, 32, 33), "NH", False, results,
@@ -2793,6 +2921,8 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     free(dev)
     # slice 4: the real-A products and the Fig. 1 sweep
     check_real_kernels(dev, 3, 7, 130, (1, 5, 33), False, results, time_fn)
+    # odd n: the N kernel's element path at every dtype
+    check_real_kernels(dev, 3, 5, 263, (1,), False, results, time_fn)
     check_real_kernels(dev, 2, 300, 50, (1, 9), False, results, time_fn)
     check_real_kernels(dev, 3, 77, 133, (8, 9, 32, 33), False, results,
                        time_fn)
@@ -2830,7 +2960,7 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
 STAGED = ("zgemm_f64_kernel", "zgram_f64_kernel", "zgemm_bf16_kernel",
           "zgram_bf16_kernel", "zgemm_f32_kernel", "zgemm_th_f32_kernel",
           "zgram_f32_kernel", "zgram_wgmma_kernel", "flash_wgmma_kernel",
-          "flash_f32_kernel")
+          "flash_f32_kernel", "sbgemv_n_kernel")
 
 
 def staged_ptxas(logs) -> dict:
@@ -2888,7 +3018,8 @@ def main() -> int:
     logs = _build.build(variants=[("sbgemm", d)
                                   for d in BOUND_PROBES.values()]
                         + [("flash_attention", d)
-                           for d in FLASH_PROBES.values()])
+                           for d in FLASH_PROBES.values()]
+                        + [("sbgemv", d) for d in SBGEMV_PROBES.values()])
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.1f} s", flush=True)
     for src, log in logs.items():

@@ -1,5 +1,5 @@
-// Shared helpers of the hand-written kernels: dtype codes, casts and the
-// cp.async copy helpers.
+// Shared helpers of the hand-written kernels: dtype codes, raw vector
+// types, casts and the cp.async copy helpers.
 //
 // Dtype codes match repro_torch/kernels/_build.py:DTYPE_CODES.
 // Every cast to bf16 rounds through f32 (__float2bfloat16_rn((float)x)):
@@ -13,6 +13,13 @@
 #include <cuda_runtime.h>
 
 enum DType : int { DT_BF16 = 0, DT_F32 = 1, DT_F64 = 2 };
+
+// The raw type of B bytes, for vector loads and stores.
+template <int B> struct Raw;
+template <> struct Raw<2> { using T = unsigned short; };
+template <> struct Raw<4> { using T = uint32_t; };
+template <> struct Raw<8> { using T = uint2; };
+template <> struct Raw<16> { using T = uint4; };
 
 // Accumulator of a plane type: f64 stays f64, bf16 and f32 sum in f32.
 template <typename T> struct AccOf { using type = float; };

@@ -11,11 +11,26 @@
 // read A once, coalesced, with enough loads in flight:
 //
 //   N (sum over the long n):  one warp per output row (b, i), 100,100
-//     warps at the paper shape.  Lanes stride over n with coalesced loads
-//     of A_re[b,i,:], A_im[b,i,:] and x[b,:]; each A element feeds both
-//     output planes (the kernel's traffic win over four real GEMVs).  The
-//     warp reduces with a fixed shuffle tree: no atomics, no cross-block
-//     pass, so every row sums in the same order on every run.
+//     warps at the paper shape.  A lane loads 16-byte vectors of
+//     A_re[b,i,:], A_im[b,i,:] and x[b,:] (2 f64, 4 f32 or 8 bf16
+//     elements), four warp-wide steps of each plane before it uses any:
+//     128 bytes of A a lane in flight at every dtype, and each warp reads
+//     2 KB of a plane's row at a time.  f64 planes keep two such buffers
+//     and start the next four steps' loads before this step's products:
+//     there the products (FP64 units, two elements a vector) leave a
+//     warp's loads idle long enough to show in the build without products
+//     (chip_smoke.py's bound probe); at f32 and bf16 a second buffer only
+//     costs occupancy.  Each A element feeds both output planes (the
+//     kernel's traffic win over four real GEMVs).  A lane sums its vectors
+//     in order, then the warp reduces with a fixed shuffle tree: no
+//     atomics, no cross-block pass, so every row sums in the same order on
+//     every run.  The loop's last step masks the lanes past the row.
+//     Planes whose starts or n leave no room for whole 16-byte vectors
+//     take the element path: the same code on single elements.  Loads of
+//     x[b, :] repeat for each of a bin's rows and the caches serve them;
+//     a warp on several rows that share each x vector measured slower on
+//     an H100 (PERF.md), since it splits the warp's bytes of A into
+//     shorter runs.
 //   T/H (sum over the short m):  one thread per output column j, blocks
 //     tiling the long n axis: the paper's fix for the short-wide
 //     conjugate transpose.  x[b, :] is staged in shared memory (in chunks
@@ -36,16 +51,19 @@
 // so on planes quantized up front they give the untiled build's bits.  T/H
 // threads own a column, so they look the level up once a batch and skip
 // the rounding in cells at the carrier's level; N lanes stride the columns
-// and look it up per element.  The bytes are the untiled kernel's: A
-// stays stored at the carrier type.
+// and look it up per element.  The bytes are the untiled kernel's: A stays
+// stored at the carrier type.
 //
 // Real builds (REAL = true; sbgemv_n_real and sbgemv_th_real, which
 // replace the TPU kernels :sbgemv_n_real and :sbgemv_th_real) are the same
 // kernels with the imaginary planes compiled away: one A plane, y = A x or
 // A^T x.  Each A element then carries half the bytes and half the
-// arithmetic, so they unroll twice as far to keep as many bytes in flight.
+// arithmetic; the T kernel unrolls twice as far to keep as many bytes in
+// flight, the N kernel keeps its four vector steps (64 bytes a lane).
 // Bound: bytes (2 flops per A element: 0.25 flop per byte at f64).  The
 // real T kernel is the real short-wide case of the paper's Fig. 1.
+#include <cstring>
+
 #include "common.cuh"
 
 namespace {
@@ -53,51 +71,126 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <typename T, typename O, bool TILED, bool REAL>
+// Warp-wide vector steps of a row that the N kernel loads before it uses
+// any (see the head).
+constexpr int kSteps = 4;
+
+// VE elements a vector: 16 bytes (2 f64, 4 f32, 8 bf16), or 1 on the
+// element path.  A warp owns row w = b * m + i; lane l takes its vectors
+// l, l + 32, .., kSteps warp-wide steps loaded into a buffer before any is
+// used.  Measurement build SBGEMV_N_NO_PRODUCTS folds each loaded word into
+// the sums by XOR instead of multiplying: the loads alone.
+template <typename T, typename O, bool TILED, bool REAL, int VE>
 __global__ void __launch_bounds__(kThreads)
 sbgemv_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                 const T* __restrict__ xr, const T* __restrict__ xi,
                 O* __restrict__ yr, O* __restrict__ yi,
                 int64_t B, int64_t m, int64_t n, TileGrid tg) {
   using A = typename AccOf<T>::type;
+  using V = typename Raw<VE * sizeof(T)>::T;
   const int lane = threadIdx.x & 31;
-  const int64_t rows = B * m;
-  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows;
-       row += (int64_t)gridDim.x * kWarps) {
-    const int64_t b = row / m;
-    const T* ar = Ar + row * n;
-    const T* ai = Ai + (REAL ? 0 : row * n);    // REAL: Ai is null
-    const T* vr = xr + b * n;
-    const T* vi = xi + (REAL ? 0 : b * n);
+  const int64_t nv = n / VE;                       // vectors a row (n % VE == 0)
+  for (int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); w < B * m;
+       w += (int64_t)gridDim.x * kWarps) {
+    const int64_t b = w / m;
+    const V* ar = reinterpret_cast<const V*>(Ar + w * n);
+    const V* ai = reinterpret_cast<const V*>(REAL ? Ar : Ai + w * n);   // REAL: Ai is null
+    const V* vr = reinterpret_cast<const V*>(xr + b * n);
+    const V* vi = reinterpret_cast<const V*>(REAL ? xr : xi + b * n);
     const uint32_t cells = TILED ? tile_row(tg, b) : 0u;
-    A rr = 0, ii = 0, ri = 0, ir = 0;
-#pragma unroll (REAL ? 8 : 4)
-    for (int64_t j = lane; j < n; j += 32) {
-      A a_r = widen<A>(ar[j]), a_i = 0;
-      if constexpr (!REAL) a_i = widen<A>(ai[j]);
-      if (TILED) {
-        const int lv = tile_level(tg, cells, j);
-        a_r = quantize(a_r, lv);
-        a_i = quantize(a_i, lv);
+    A acc[4] = {};                                 // rr, ii, ri, ir
+    struct Buf { V a_r[kSteps], a_i[kSteps], v_r[kSteps], v_i[kSteps]; };
+    // kSteps warp-wide steps from vector j0, lanes past the row loading
+    // nothing
+    auto load = [&](Buf& f, int64_t j0) {
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+        const int64_t j = j0 + 32 * s;
+        if (j < nv) {
+          f.v_r[s] = vr[j];
+          if constexpr (!REAL) f.v_i[s] = vi[j];
+          f.a_r[s] = ar[j];
+          if constexpr (!REAL) f.a_i[s] = ai[j];
+        }
       }
-      const A v_r = widen<A>(vr[j]);
-      rr += a_r * v_r;
-      if constexpr (!REAL) {
-        const A v_i = widen<A>(vi[j]);
-        ii += a_i * v_i;
-        ri += a_i * v_r;
-        ir += a_r * v_i;
+    };
+    auto use = [&](const Buf& f, int64_t j0) {
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+        if (j0 + 32 * s >= nv) break;
+#ifdef SBGEMV_N_NO_PRODUCTS
+        // measurement build: every loaded word folded in, no products
+        constexpr int kWords = sizeof(V) >= 4 ? sizeof(V) / 4 : 1;
+        uint32_t fold = 0;
+        auto fold_in = [&](const V& raw) {
+          uint32_t word[kWords] = {};
+          memcpy(word, &raw, sizeof(V));
+#pragma unroll
+          for (int q = 0; q < kWords; ++q) fold ^= word[q];
+        };
+        fold_in(f.v_r[s]);
+        if constexpr (!REAL) fold_in(f.v_i[s]);
+        fold_in(f.a_r[s]);
+        if constexpr (!REAL) fold_in(f.a_i[s]);
+        acc[0] += (A)(fold & 1u);
+#else
+        T xe_r[VE], xe_i[VE], ae_r[VE], ae_i[VE];
+        memcpy(xe_r, &f.v_r[s], sizeof(V));
+        if constexpr (!REAL) memcpy(xe_i, &f.v_i[s], sizeof(V));
+        memcpy(ae_r, &f.a_r[s], sizeof(V));
+        if constexpr (!REAL) memcpy(ae_i, &f.a_i[s], sizeof(V));
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          const A x_r = widen<A>(xe_r[e]);
+          const A x_i = REAL ? (A)0 : widen<A>(xe_i[e]);
+          A a_re = widen<A>(ae_r[e]), a_im = 0;
+          if constexpr (!REAL) a_im = widen<A>(ae_i[e]);
+          if (TILED) {
+            const int lv = tile_level(tg, cells, (j0 + 32 * s) * VE + e);
+            a_re = quantize(a_re, lv);
+            a_im = quantize(a_im, lv);
+          }
+          acc[0] += a_re * x_r;
+          if constexpr (!REAL) {
+            acc[1] += a_im * x_i;
+            acc[2] += a_im * x_r;
+            acc[3] += a_re * x_i;
+          }
+        }
+#endif
+      }
+    };
+    if constexpr (sizeof(T) == 8) {
+      // f64: two buffers, the next steps' loads started before this step's
+      // products (unrolled by two, so neither buffer is indexed at run time)
+      Buf f0, f1;
+      int64_t j0 = lane;
+      load(f0, j0);
+      while (j0 < nv) {
+        load(f1, j0 + 32 * kSteps);
+        use(f0, j0);
+        j0 += 32 * kSteps;
+        if (j0 >= nv) break;
+        load(f0, j0 + 32 * kSteps);
+        use(f1, j0);
+        j0 += 32 * kSteps;
+      }
+    } else {
+      for (int64_t j0 = lane; j0 < nv; j0 += 32 * kSteps) {
+        Buf f;
+        load(f, j0);
+        use(f, j0);
       }
     }
-    A re = REAL ? rr : rr - ii, im = ir + ri;
-    // the whole warp shares `row`, so every lane reaches the shuffles
+    // the whole warp shares w, so every lane reaches the shuffles
+    A re = REAL ? acc[0] : acc[0] - acc[1], im = acc[3] + acc[2];
     for (int off = 16; off > 0; off >>= 1) {
       re += __shfl_down_sync(0xffffffffu, re, off);
       if constexpr (!REAL) im += __shfl_down_sync(0xffffffffu, im, off);
     }
     if (lane == 0) {
-      yr[row] = Store<O>::from(re);
-      if constexpr (!REAL) yi[row] = Store<O>::from(im);
+      yr[w] = Store<O>::from(re);
+      if constexpr (!REAL) yi[w] = Store<O>::from(im);
     }
   }
 }
@@ -161,6 +254,24 @@ sbgemv_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   }
 }
 
+// 16-byte vectors when every plane's start and n allow them, else the
+// element path; a warp a row, rows grid-striding past 2^20 blocks.
+template <typename T, typename O, bool TILED, bool REAL>
+void launch_n_typed(const T* Ar, const T* Ai, const T* xr, const T* xi, O* yr, O* yi,
+                    int64_t B, int64_t m, int64_t n, const TileGrid& tg, cudaStream_t s) {
+  constexpr int VE = 16 / sizeof(T);
+  auto aligned = [](const void* p) { return p == nullptr || (uintptr_t)p % 16 == 0; };
+  const bool vec = n % VE == 0 && aligned(Ar) && aligned(Ai) && aligned(xr) && aligned(xi);
+  int64_t blocks = (B * m + kWarps - 1) / kWarps;
+  blocks = blocks < (1 << 20) ? blocks : (1 << 20);
+  if (vec)
+    sbgemv_n_kernel<T, O, TILED, REAL, VE><<<(unsigned)blocks, kThreads, 0, s>>>(
+        Ar, Ai, xr, xi, yr, yi, B, m, n, tg);
+  else
+    sbgemv_n_kernel<T, O, TILED, REAL, 1><<<(unsigned)blocks, kThreads, 0, s>>>(
+        Ar, Ai, xr, xi, yr, yi, B, m, n, tg);
+}
+
 template <bool TILED, bool REAL>
 int launch_n(const void* Ar, const void* Ai, const void* xr, const void* xi,
              void* yr, void* yi, int64_t B, int64_t m, int64_t n, const TileGrid& tg,
@@ -168,14 +279,12 @@ int launch_n(const void* Ar, const void* Ai, const void* xr, const void* xi,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B == 0 || m == 0) return 0;
-  int64_t blocks = (B * m + kWarps - 1) / kWarps;
-  blocks = blocks < (1 << 20) ? blocks : (1 << 20);  // rows grid-stride past this
   auto s = static_cast<cudaStream_t>(stream);
   DISPATCH_DTYPE(dt_in, T, DISPATCH_DTYPE(dt_out, O,
-    sbgemv_n_kernel<T, O, TILED, REAL><<<(unsigned)blocks, kThreads, 0, s>>>(
+    launch_n_typed<T, O, TILED, REAL>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(xr), static_cast<const T*>(xi),
-        static_cast<O*>(yr), static_cast<O*>(yi), B, m, n, tg);
+        static_cast<O*>(yr), static_cast<O*>(yi), B, m, n, tg, s);
   ))
   return (int)cudaGetLastError();
 }

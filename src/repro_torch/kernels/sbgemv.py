@@ -5,9 +5,11 @@ m << n (N_d sensors << N_m parameters), the stock conjugate-transpose
 SBGEMV launches one block per output element, each doing a length-m dot
 product.  The fix tiles the columns so a block computes a chunk of
 outputs.  The kernels in ``csrc/sbgemv.cu`` do that for the transpose
-modes and give the non-transpose mode one warp per output row; complex
-data is carried as split re/im planes, each A element read once for both
-output planes.  Their multi-RHS twins (SBGEMM, S right-hand sides on a
+modes and give the non-transpose mode one warp per output row, each lane
+loading 16-byte vectors of A and x, four warp-wide steps in flight (two
+buffers of them at f64);
+complex data is carried as split re/im planes, each A element read once
+for both output planes.  Their multi-RHS twins (SBGEMM, S right-hand sides on a
 trailing axis) and the per-bin Gram blocks G = A^H A live in
 ``csrc/sbgemm.cu``; there each A element also serves every column of a
 pass, f64 planes run on the FP64 tensor cores, the untiled complex bf16

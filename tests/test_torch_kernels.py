@@ -61,13 +61,17 @@ def _data(shape, seed):
 # pad_cast / unpad_cast
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("R,T,P", [(8, 100, 200), (16, 33, 66)])
+# (7, 96, 200): rows of whole 16-byte vectors at every dtype pair, the
+# kernel's vector path on the card
+@pytest.mark.parametrize("R,T,P", [(8, 100, 200), (16, 33, 66), (7, 96, 200)])
 @pytest.mark.parametrize("din", SMALL)
 @pytest.mark.parametrize("dout", SMALL)
 def test_pad_cast_plain_matches_pallas(R, T, P, din, dout):
     jx, tx = _both(_data((R, T), 0), din)
     got = tpad.pad_cast(tx, P, dout)
-    want = jax_pad_cast(jx, P, JNP[dout], interpret=True)
+    # the JAX kernel takes whole blocks of rows: one block where R % 8 != 0
+    want = jax_pad_cast(jx, P, JNP[dout], block_rows=8 if R % 8 == 0 else R,
+                        interpret=True)
     assert got.dtype == dout and got.shape == (R, P)
     np.testing.assert_array_equal(_np(got), _np(want))
 
@@ -111,6 +115,13 @@ def test_pad_cast_takes_row_strided_views():
     got = tpad.pad_cast(wide[:, :9], 14, torch.float32)
     assert torch.equal(got[:, :9], wide[:, :9].to(torch.float32))
     assert not got[:, 9:].any()
+    # a view one column in (the kernel's element path on the card), held
+    # against the JAX kernel on the same values
+    x = wide[:, 1:1 + 8]
+    got = tpad.pad_cast(x, 16, torch.float32)
+    want = jax_pad_cast(jnp.asarray(x.numpy()), 16, jnp.float32,
+                        block_rows=x.shape[0], interpret=True)
+    np.testing.assert_array_equal(_np(got), _np(want))
 
 
 @pytest.mark.parametrize("bad", [
@@ -130,7 +141,9 @@ def test_pad_wrappers_reject_what_the_kernel_does_not_take(bad):
 # sbgemv
 # ---------------------------------------------------------------------------
 
-SHAPES = [(3, 4, 128), (2, 7, 130), (2, 16, 256)]
+# (3, 5, 264) and (2, 7, 1000): whole 16-byte vectors at every dtype and a
+# lane tail in the N kernel on the card
+SHAPES = [(3, 4, 128), (2, 7, 130), (2, 16, 256), (3, 5, 264), (2, 7, 1000)]
 
 
 def _planes(B, m, n, mode, dt, seed):
