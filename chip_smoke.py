@@ -159,6 +159,12 @@ CUDA toolkit.  It:
    through their C entries beside ``torch.bmm``; the N kernel built
    without its products, timed beside it at the paper shape; the real N
    kernel at an odd n (its element path at every dtype).
+14. the real SBGEMMs of bf16 and f32 planes on the staged kernels: about
+   6200 calls at ragged shapes across their layouts' edges against the
+   plain versions, each one launch of its kernel; the tiled real builds
+   bit for bit against the untiled ones at three more edge shapes; both
+   real SBGEMMs timed queued through their C entries beside ``torch.bmm``
+   at S = 8 and 32; the four real builds in the bound probe.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -867,9 +873,9 @@ def check_wgmma_kernels(dev):
           f"plain versions, each one launch of its wgmma kernel", flush=True)
 
 
-# measurement builds of csrc/sbgemm.cu: the bf16 tensor-core kernels and
-# the staged f32 kernels with one side compiled out (csrc/sbgemm_bf16.cuh,
-# csrc/sbgemm_f32.cuh)
+# measurement builds of csrc/sbgemm.cu and csrc/sbgemm_real.cu: the bf16
+# tensor-core kernels and the staged f32 kernels with one side compiled out
+# (csrc/sbgemm_bf16.cuh, csrc/sbgemm_f32.cuh)
 BOUND_PROBES = {"no_products_ms": ("SBGEMM_BF16_NO_MMA", "SBGEMM_F32_NO_FMA"),
                 "no_copy_ms": ("SBGEMM_BF16_NO_COPY", "SBGEMM_F32_NO_COPY")}
 
@@ -896,12 +902,15 @@ def bound_side(time_fn, call_whole, calls_one_sided) -> dict:
 
 def probe_bounds(dev, B, m, n, time_fn):
     """The bf16 tensor-core kernels and the staged f32 kernels (each: the
-    data-space Gram, N and mode H at S = 8 and 32) at the paper shape,
-    each built as the wrappers load it, without its products (the copy
+    data-space Gram, N and mode H at S = 8 and 32; the real N and T at S =
+    8 and 32, from the ``sbgemm_real`` library) at the paper shape, each
+    built as the wrappers load it, without its products (the copy
     pipeline alone, with the bf16 fragment loads) and without its copies
     (the products alone, on whatever shared memory holds): ``bound_side``
-    names the side that bounds the kernel, or neither.  Called through
-    the C entries, so no launch is counted.  Reported, not gated."""
+    names the side that bounds the kernel, or neither.  A real build's
+    whole is timed once and the reading dropped first (the card's first
+    reading after other work runs slow).  Called through the C entries,
+    so no launch is counted.  Reported, not gated."""
     from repro_torch.kernels import _build
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
 
@@ -918,28 +927,37 @@ def probe_bounds(dev, B, m, n, time_fn):
         gram = ("sbgemm_gram_complex_wgmma" if dt == torch.bfloat16
                 else "sbgemm_gram_complex")
         cases = {f"{gram} data": (
-            gram, (*A, *planes(dt, B, m, m, fill=False)), (B, m, n), (1,))}
+            "sbgemm", gram, (*A, *planes(dt, B, m, m, fill=False)),
+            (B, m, n), (1,))}
         for S in (S_BLOCK, S_WIDE):
             cases[f"sbgemm_n_complex S={S}"] = (
-                "sbgemm_n_complex", (*A, *planes(dt, B, n, S),
-                                     *planes(dt, B, m, S, fill=False)),
+                "sbgemm", "sbgemm_n_complex",
+                (*A, *planes(dt, B, n, S), *planes(dt, B, m, S, fill=False)),
                 (B, m, n, S), ())
             cases[f"sbgemm_th_complex H S={S}"] = (
-                "sbgemm_th_complex", (*A, *planes(dt, B, m, S),
-                                      *planes(dt, B, n, S, fill=False)),
+                "sbgemm", "sbgemm_th_complex",
+                (*A, *planes(dt, B, m, S), *planes(dt, B, n, S, fill=False)),
                 (B, m, n, S), (1,))
+            # the real builds: one plane of A, X and Y
+            for op, (xlen, ylen) in (("n", (n, m)), ("th", (m, n))):
+                cases[f"sbgemm_{op}_real S={S}"] = (
+                    "sbgemm_real", f"sbgemm_{op}_real",
+                    (A[0], planes(dt, B, xlen, S)[0],
+                     planes(dt, B, ylen, S, fill=False)[0]), (B, m, n, S), ())
         code = _build.DTYPE_CODES[dt]
-        for what, (entry, tensors, sizes, ints) in cases.items():
+        for what, (source, entry, tensors, sizes, ints) in cases.items():
             ptrs = [t.data_ptr() for t in tensors]
 
-            def call_of(defines, entry=entry, ptrs=ptrs, sizes=sizes,
-                        ints=ints):
-                fn = getattr(_build.library("sbgemm", defines), entry)
+            def call_of(defines, source=source, entry=entry, ptrs=ptrs,
+                        sizes=sizes, ints=ints):
+                fn = getattr(_build.library(source, defines), entry)
 
                 def call(_):
                     _build.check(fn(*ptrs, *sizes, *ints, code, code,
                                     dev.index, _build.stream_of(A[0])), entry)
                 return call
+            if source == "sbgemm_real":
+                time_fn(call_of(()), None)
             row = out[f"{what} {name(dt)}"] = bound_side(
                 time_fn, call_of(()),
                 {label: call_of(d) for label, d in BOUND_PROBES.items()})
@@ -1955,9 +1973,11 @@ def check_real_kernels(dev, B, m, n, S_list, timed, results, time_fn):
     column of the SBGEMM) bit for bit against the untiled SBGEMM on planes
     quantized up front, on each map of TILE_MAPS, and against its plain
     version.  Timed: kernel, plain version and one ``torch.bmm`` on the
-    same planes (the transposed view for T); the tiled builds beside the
-    untiled SBGEMM on the same, unquantized planes (f64 and f32 carriers;
-    no single PyTorch call quantizes per cell, so no library time)."""
+    same planes (the transposed view for T); the N SBGEMV and both real
+    SBGEMMs also through their C entries beside the ``bmm``, both queued;
+    the tiled builds beside the untiled SBGEMM on the same, unquantized
+    planes (f64 and f32 carriers; no single PyTorch call quantizes per
+    cell, so no library time)."""
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import sbgemv as sk
     gen = torch.Generator(device=dev).manual_seed(SEED + 17)
@@ -2012,13 +2032,17 @@ def check_real_kernels(dev, B, m, n, S_list, timed, results, time_fn):
                     "library_ms": time_fn(lib, None),
                     "bytes": nbytes, "flops": flops, "bound_ms": b_ms,
                     "bound_by": b_by}
-                if kname == "sbgemv_n_real":
-                    y = torch.empty((B, m), device=dev, dtype=dt)
-                    call = (entry_call("sbgemv", kname, (A, X, y), (B, m, n),
-                                       dt, dt)
+                if kname != "sbgemv_th_real":
+                    # through the C entry, queued, beside the queued bmm
+                    y = torch.empty((B, ylen) if S == 1 else (B, ylen, S),
+                                    device=dev, dtype=dt)
+                    source, sizes = (("sbgemv", (B, m, n)) if S == 1
+                                     else ("sbgemm_real", (B, m, n, S)))
+                    call = (entry_call(source, kname, (A, X, y), sizes, dt,
+                                       dt)
                             if dev.type == "cuda" else lambda _: kern(A, X))
                     row.update(queued_pair(time_fn, call, lib))
-                    print(f"{kname} {name(dt)} at {(B, m, n)}: "
+                    print(f"{kname} {name(dt)} at {(B, m, n, S)}: "
                           f"{row['queued_ms']:.4f} / "
                           f"{row['queued_ms_again']:.4f} ms queued, one "
                           f"PyTorch call {row['library_queued_ms']:.4f} / "
@@ -2042,6 +2066,74 @@ def check_real_kernels(dev, B, m, n, S_list, timed, results, time_fn):
                 del X, Xc
         del A
     del A64
+
+
+def check_real_gemm_kernels(dev):
+    """The real SBGEMMs of bf16 and f32 planes (``zgemm_bf16_kernel``,
+    ``zgemm_f32_kernel`` and ``zgemm_th_f32_kernel`` with ``REAL``) at
+    ragged shapes across their layouts' edges, modes N and T, each call
+    one launch of its kernel.  bf16 N: m around the 16-row warp tiles and
+    the 112-row item, n odd (element copies), n % 8 != 0, n shorter than
+    one 256-wide k-chunk (192 at S > 16) and past two.  bf16 T: k = m from
+    1 past one 112-wide k-chunk, n around the 112 rows of the warps' first
+    row tiles and the 224-row item.  f32 N: m around the 40-row warp bands,
+    the 3-row tile of a band of at most 24 rows and the 100-row item, n
+    shorter than one 64-wide k-chunk (32 at S > 16), odd, n % 4 != 0 and
+    the paper's 5000.  f32 T: k = m past one 20- or 16-wide k-chunk, n
+    around the 64-row warp bands and the 256-row item.  S across the
+    8/16/32 passes and past 32.  bf16: the bf16, f32 and f64 outputs within
+    the h tolerance of the plain version; f32: ``_check_f32_outputs``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    S_list = (1, 8, 9, 16, 17, 32, 33, 40)
+    shapes = {
+        (torch.bfloat16, "N"): ((1, 15, 16, 17, 100, 112, 113, 129),
+                                (40, 130, 133, 264, 520)),
+        (torch.bfloat16, "T"): ((1, 7, 16, 100, 112, 113, 129),
+                                (40, 111, 112, 113, 127, 128, 129, 223, 224,
+                                 225, 257)),
+        (torch.float32, "N"): ((1, 15, 24, 25, 39, 40, 41, 64, 65, 80, 99,
+                                100, 101, 129), (40, 65, 130, 133, 5000)),
+        (torch.float32, "T"): ((1, 7, 16, 17, 20, 21, 100, 129),
+                               (40, 63, 64, 65, 129, 133, 255, 256, 257)),
+    }
+    counted = {}
+    for (dt, mode), (ms, ns) in shapes.items():
+        kname = "sbgemm_n_real" if mode == "N" else "sbgemm_th_real"
+        kern, plain = getattr(sk, kname), getattr(sk, kname + "_plain")
+        for m in ms:
+            for n in ns:
+                A = torch.randn((2, m, n), generator=gen, device=dev,
+                                dtype=torch.float64).to(dt)
+                for S in S_list:
+                    X = torch.randn((2, n if mode == "N" else m, S),
+                                    generator=gen, device=dev,
+                                    dtype=torch.float64).to(dt)
+                    what = f"{kname} {name(dt)} at {(2, m, n, S)}"
+                    before = _build.launch_counts[kname]
+                    if dt == torch.float32:
+                        calls = _check_f32_outputs(
+                            what, lambda od: [kern(A, X, out_dtype=od)],
+                            lambda od: [plain(A, X, od)])
+                    else:
+                        calls = 0
+                        for od in (dt, torch.float32, torch.float64):
+                            check_planes(f"{what} -> {name(od)}",
+                                         [kern(A, X, out_dtype=od)],
+                                         [plain(A, X, od)], dt)
+                            calls += 1
+                    if (dev.type == "cuda" and _build.launch_counts[kname]
+                            != before + calls):
+                        fail(f"{what}: {calls} calls did not launch {kname} "
+                             f"{calls} times")
+                    key = f"{kname} {name(dt)}"
+                    counted[key] = counted.get(key, 0) + calls
+    sync(dev)
+    print(f"real SBGEMM kernels at ragged shapes: {counted} calls, each "
+          f"within {TOL['h']:g} (bf16) / {TOL['s']:g} (f32) of its plain "
+          f"version (f32's bf16 / f64 outputs: its f32 output cast, bit for "
+          f"bit)", flush=True)
 
 
 def check_real_dispatch_on_card(dev):
@@ -2926,6 +3018,14 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     check_real_kernels(dev, 2, 300, 50, (1, 9), False, results, time_fn)
     check_real_kernels(dev, 3, 77, 133, (8, 9, 32, 33), False, results,
                        time_fn)
+    # the real SBGEMMs' layouts (slice 13): every edge against the plain
+    # versions; the tiled builds at the bf16 N item and k-chunk, the f32 N
+    # 3-row tile, a 40-row band past it and the T items (bf16 224, f32 256)
+    check_real_gemm_kernels(dev)
+    check_real_kernels(dev, 2, 113, 257, (1, 9, 17, 33), False, results,
+                       time_fn)
+    check_real_kernels(dev, 2, 24, 130, (8, 32), False, results, time_fn)
+    check_real_kernels(dev, 2, 65, 225, (16, 40), False, results, time_fn)
     if dev.type == "cuda":
         report["real_dispatch_launches"] = check_real_dispatch_on_card(dev)
     check_real_kernels(dev, N_t + 1, N_d, N_m, (1, S_BLOCK, S_WIDE), timed,
@@ -3015,7 +3115,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build(variants=[("sbgemm", d)
+    logs = _build.build(variants=[(src, d)
+                                  for src in ("sbgemm", "sbgemm_real")
                                   for d in BOUND_PROBES.values()]
                         + [("flash_attention", d)
                            for d in FLASH_PROBES.values()]

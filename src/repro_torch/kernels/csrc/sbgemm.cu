@@ -10,16 +10,16 @@
 //
 // f64 planes run on the FP64 tensor cores (67 TFLOP/s against 34 for the
 // FP64 vector units), in the staged kernels of the f64 section below.  The
-// untiled complex N, T/H and Gram of bf16 planes run on the bf16 tensor
-// cores with f32 sums (sbgemm_bf16.cuh), and the complex N, T/H and Gram of
-// f32 planes, untiled and tiled, in staged FP32 kernels (sbgemm_f32.cuh).
-// The other builds (f32 sums: the tiled bf16 builds and every real build)
+// untiled complex N, T/H and Gram of bf16 planes and the real N and T of
+// bf16 planes, untiled and tiled, run on the bf16 tensor cores with f32
+// sums (sbgemm_bf16.cuh), and the complex N, T/H and Gram and the real N
+// and T of f32 planes, untiled and tiled, in staged FP32 kernels
+// (sbgemm_f32.cuh).  The tiled complex builds of bf16 planes (f32 sums)
 // run on the vector units, in the kernels described here.  Bounds and
 // designs:
 //
-//   N (sum over the long n), bytes-bound at S = 8 (8 S flops per complex
-//     A element: S flop per byte at f32, 2 S at bf16), the f32 product
-//     turning compute-bound near S = 32.  The sbgemv_n design widened to
+//   N (sum over the long n), bytes-bound (8 S flops per complex bf16 A
+//     element: 2 S flops a byte).  The sbgemv_n design widened to
 //     S columns: a warp owns two output rows of one bin and a pass of SC
 //     columns; its lanes stride over n, so every A load is coalesced and
 //     goes straight to registers, where it serves all SC columns.  The
@@ -67,14 +67,14 @@
 //
 // Real builds (REAL = true) replace the TPU kernels :sbgemm_n_real,
 // :sbgemm_th_real, :sbgemm_n_real_tiled and :sbgemm_th_real_tiled: the
-// same kernels with the imaginary planes compiled away (one A, X and Y
-// plane; on the f64 path one DMMA a tile pair instead of four; the Gram
-// has no real build).  With one plane an A element carries 2 S flops:
-// bytes-bound at every S here.  The tiled real builds take the TILED flag
-// unchanged.  Their C entries are
-// built from this file as a second library (sbgemm_real.cu defines
-// SBGEMM_REAL_ENTRIES), so the complex and the real instantiations compile
-// in parallel.
+// staged kernels of each plane type with the imaginary planes compiled
+// away (one A, X and Y plane; on the f64 path one DMMA a tile pair instead
+// of four, on the bf16 path one mma.sync; the Gram has no real build).
+// The tiled real builds take the TILED flag unchanged on f64 and f32
+// planes; on bf16 planes they run the untiled build (launch_n).  Their C
+// entries are built from this file as a second library (sbgemm_real.cu
+// defines SBGEMM_REAL_ENTRIES), so the complex and the real instantiations
+// compile in parallel.
 #include "common.cuh"
 #if defined(SBGEMM_BF16_NO_MMA) && !defined(WGMMA_NO_MMA)
 #define WGMMA_NO_MMA   // the bound probe's build without products: wgmma's too
@@ -97,7 +97,7 @@ __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
-template <typename T, typename O, int SC, bool TILED, bool REAL>
+template <typename T, typename O, int SC, bool TILED>
 __global__ void __launch_bounds__(kNWarps * 32)
 sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                 const T* __restrict__ Xr, const T* __restrict__ Xi,
@@ -116,7 +116,7 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   const int64_t row0 = ((int64_t)blockIdx.x * kNWarps + (threadIdx.x >> 5)) * R;
   for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
     const T* xr = Xr + b * n * S;
-    const T* xi = Xi + (REAL ? 0 : b * n * S);  // REAL: Xi is null
+    const T* xi = Xi + b * n * S;
     const uint32_t cells = TILED ? tile_row(tg, b) : 0u;
     for (int64_t s0 = 0; s0 < S; s0 += SC) {
       const int sc = (int)min64(SC, S - s0);
@@ -133,10 +133,10 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
           A vr = 0, vi = 0;
           if (k < n && s < sc) {
             vr = widen<A>(xr[k * S + s0 + s]);
-            if constexpr (!REAL) vi = widen<A>(xi[k * S + s0 + s]);
+            vi = widen<A>(xi[k * S + s0 + s]);
           }
           sxr[s][kk] = vr;
-          if constexpr (!REAL) sxi[s][kk] = vi;
+          sxi[s][kk] = vi;
         }
         if (TILED)
           for (int e = threadIdx.x; e < KC; e += kNWarps * 32)
@@ -155,7 +155,7 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
             if (row0 + u < m && k < n) {
               const int64_t off = (b * m + row0 + u) * n + k;
               a_r[u] = widen<A>(Ar[off]);
-              if constexpr (!REAL) a_i[u] = widen<A>(Ai[off]);
+              a_i[u] = widen<A>(Ai[off]);
               if (TILED && rounds<A>(lv)) {
                 a_r[u] = quantize(a_r[u], lv);
                 a_i[u] = quantize(a_i[u], lv);
@@ -164,17 +164,11 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
           }
 #pragma unroll
           for (int s = 0; s < SC; ++s) {
-            const A x_r = sxr[s][kk];
-            if constexpr (REAL) {
+            const A x_r = sxr[s][kk], x_i = sxi[s][kk];
 #pragma unroll
-              for (int u = 0; u < R; ++u) acc_r[u][s] += a_r[u] * x_r;
-            } else {
-              const A x_i = sxi[s][kk];
-#pragma unroll
-              for (int u = 0; u < R; ++u) {
-                acc_r[u][s] += a_r[u] * x_r - a_i[u] * x_i;
-                acc_i[u][s] += a_r[u] * x_i + a_i[u] * x_r;
-              }
+            for (int u = 0; u < R; ++u) {
+              acc_r[u][s] += a_r[u] * x_r - a_i[u] * x_i;
+              acc_i[u][s] += a_r[u] * x_i + a_i[u] * x_r;
             }
           }
         }
@@ -189,8 +183,7 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1) {
             acc_r[u][s] += __shfl_xor_sync(0xffffffffu, acc_r[u][s], off);
-            if constexpr (!REAL)
-              acc_i[u][s] += __shfl_xor_sync(0xffffffffu, acc_i[u][s], off);
+            acc_i[u][s] += __shfl_xor_sync(0xffffffffu, acc_i[u][s], off);
           }
 #pragma unroll
       for (int u = 0; u < R; ++u) {
@@ -200,7 +193,7 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
         for (int s = 0; s < SC; ++s) {
           if (s == lane && s < sc) {          // lane s stores column s
             Yr[out + s] = Store<O>::from(acc_r[u][s]);
-            if constexpr (!REAL) Yi[out + s] = Store<O>::from(acc_i[u][s]);
+            Yi[out + s] = Store<O>::from(acc_i[u][s]);
           }
         }
       }
@@ -208,7 +201,7 @@ sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   }
 }
 
-template <typename T, typename O, int SC, bool TILED, bool REAL>
+template <typename T, typename O, int SC, bool TILED>
 __global__ void __launch_bounds__(kThreads)
 sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                  const T* __restrict__ Xr, const T* __restrict__ Xi,
@@ -222,9 +215,9 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   const A sgn = conj ? A(-1) : A(1);        // conj(A): negate Im(A)
   for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
     const T* ar = Ar + b * m * n + j;
-    const T* ai = Ai + (REAL ? 0 : b * m * n + j);   // REAL: Ai, Xi are null
+    const T* ai = Ai + b * m * n + j;
     const T* xr = Xr + b * m * S;
-    const T* xi = Xi + (REAL ? 0 : b * m * S);
+    const T* xi = Xi + b * m * S;
     const int lv = TILED ? tile_level(tg, tile_row(tg, b), j) : 2;
     for (int64_t s0 = 0; s0 < S; s0 += SC) {
       const int sc = (int)min64(SC, S - s0);
@@ -242,19 +235,18 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
           if (ii < len && s < sc) {
             const int64_t off = (i0 + ii) * S + s0 + s;
             vr = widen<A>(xr[off]);
-            if constexpr (!REAL) vi = widen<A>(xi[off]);
+            vi = widen<A>(xi[off]);
           }
           sxr[e] = vr;
-          if constexpr (!REAL) sxi[e] = vi;
+          sxi[e] = vi;
         }
         __syncthreads();
         auto sweep = [&](auto q) {
-          // four rows' loads in flight a step (eight with one plane)
-#pragma unroll (REAL ? 8 : 4)
+          // four rows' loads in flight a step
+#pragma unroll 4
           for (int k = 0; k < len; ++k) {
             const int64_t off = (i0 + k) * n;
-            A a_r = widen<A>(ar[off]), a_i = 0;
-            if constexpr (!REAL) a_i = widen<A>(ai[off]);
+            A a_r = widen<A>(ar[off]), a_i = widen<A>(ai[off]);
             if constexpr (decltype(q)::value) {
               a_r = quantize(a_r, lv);
               a_i = quantize(a_i, lv);
@@ -262,14 +254,9 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
             a_i = sgn * a_i;
 #pragma unroll
             for (int s = 0; s < SC; ++s) {
-              const A x_r = sxr[k * SC + s];
-              if constexpr (REAL) {
-                acc_r[s] += a_r * x_r;
-              } else {
-                const A x_i = sxi[k * SC + s];
-                acc_r[s] += a_r * x_r - a_i * x_i;
-                acc_i[s] += a_r * x_i + a_i * x_r;
-              }
+              const A x_r = sxr[k * SC + s], x_i = sxi[k * SC + s];
+              acc_r[s] += a_r * x_r - a_i * x_i;
+              acc_i[s] += a_r * x_i + a_i * x_r;
             }
           }
         };
@@ -280,12 +267,12 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
       }
       if (j < n) {
         O* yr = Yr + (b * n + j) * S + s0;
-        O* yi = Yi + (REAL ? 0 : (b * n + j) * S + s0);
+        O* yi = Yi + (b * n + j) * S + s0;
 #pragma unroll
         for (int s = 0; s < SC; ++s) {
           if (s < sc) {
             yr[s] = Store<O>::from(acc_r[s]);
-            if constexpr (!REAL) yi[s] = Store<O>::from(acc_i[s]);
+            yi[s] = Store<O>::from(acc_i[s]);
           }
         }
       }
@@ -405,24 +392,6 @@ sbgemm_gram_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
     }
   }
 }
-
-// As DISPATCH_DTYPE, for the plane types of the vector-unit kernels: bf16
-// where BF16 holds and f32 where F32 holds (f64 planes go to the FP64
-// tensor-core kernels, the bf16 planes of the untiled complex N, T/H and
-// Gram to the bf16 ones, the f32 planes of the complex N, T/H and Gram to
-// the staged f32 kernels, and their vector builds are not compiled).
-#define DISPATCH_NARROW(code, BF16, F32, T, ...)                           \
-  switch (code) {                                                          \
-    case DT_BF16:                                                          \
-      if constexpr (BF16) { using T = __nv_bfloat16; __VA_ARGS__ }         \
-      else return (int)cudaErrorInvalidValue;                              \
-      break;                                                               \
-    case DT_F32:                                                           \
-      if constexpr (F32) { using T = float; __VA_ARGS__ }                  \
-      else return (int)cudaErrorInvalidValue;                              \
-      break;                                                               \
-    default: return (int)cudaErrorInvalidValue;                            \
-  }
 
 // Run the statements in __VA_ARGS__ with SC bound to the column pass width
 // for S right-hand sides: 1, 8, or 32 (wider blocks take passes of 32).
@@ -1030,33 +999,36 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
                                                     0, tg, device, s);
     )
   }
-  if constexpr (!REAL) {
-    if (dt_in == DT_F32) {
-      DISPATCH_DTYPE(dt_out, O,
-        return f32simt::launch_n<O, TILED>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, tg, device,
-                                           s);
-      )
-    }
+  if (dt_in == DT_F32) {
+    DISPATCH_DTYPE(dt_out, O,
+      return f32simt::launch_n<O, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, tg,
+                                               device, s);
+    )
   }
-  if constexpr (!TILED && !REAL) {
-    if (dt_in == DT_BF16) {
-      DISPATCH_DTYPE(dt_out, O,
-        return bf16tc::launch_gemm<O, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, 0,
-                                             device, s);
-      )
-    }
+  if (dt_in != DT_BF16) return (int)cudaErrorInvalidValue;
+  // bf16 planes: the tensor cores, but for the tiled complex build.  A
+  // tiled real build's map was checked by its entry; at a bf16 carrier
+  // every cell's rounding is the identity (rounds<float> holds only at h,
+  // and round_bf16 returns a bf16 value as it is), so it runs the untiled
+  // build and gives its bits by construction.
+  if constexpr (!TILED || REAL) {
+    DISPATCH_DTYPE(dt_out, O,
+      return bf16tc::launch_gemm<O, false, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, 0,
+                                                 device, s);
+    )
     return (int)cudaErrorInvalidValue;
-  } else {   // the tiled bf16 and the real builds
+  } else {   // the tiled complex build: the vector kernel
     const int64_t rows = kNWarps * kNRows;   // output rows of a block
     const int64_t bx = (m + rows - 1) / rows;
     if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     const dim3 grid((unsigned)bx, batch_grid(B));
-    DISPATCH_NARROW(dt_in, true, REAL, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_N_PASS(S, SC,
-      sbgemm_n_kernel<T, O, SC, TILED, REAL><<<grid, kNWarps * 32, 0, s>>>(
+    using T = __nv_bfloat16;
+    DISPATCH_DTYPE(dt_out, O, DISPATCH_N_PASS(S, SC,
+      sbgemm_n_kernel<T, O, SC, TILED><<<grid, kNWarps * 32, 0, s>>>(
           static_cast<const T*>(Ar), static_cast<const T*>(Ai),
           static_cast<const T*>(Xr), static_cast<const T*>(Xi),
           static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, tg);
-    )))
+    ))
     return (int)cudaGetLastError();
   }
 }
@@ -1076,32 +1048,32 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
                                                    conj, tg, device, s);
     )
   }
-  if constexpr (!REAL) {
-    if (dt_in == DT_F32) {
-      DISPATCH_DTYPE(dt_out, O,
-        return f32simt::launch_th<O, TILED>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj, tg,
-                                            device, s);
-      )
-    }
+  if (dt_in == DT_F32) {
+    DISPATCH_DTYPE(dt_out, O,
+      return f32simt::launch_th<O, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj,
+                                                tg, device, s);
+    )
   }
-  if constexpr (!TILED && !REAL) {
-    if (dt_in == DT_BF16) {
-      DISPATCH_DTYPE(dt_out, O,
-        return bf16tc::launch_gemm<O, true>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj,
-                                            device, s);
-      )
-    }
+  if (dt_in != DT_BF16) return (int)cudaErrorInvalidValue;
+  // bf16 planes: the tensor cores, but for the tiled complex build (the
+  // tiled real build as in launch_n)
+  if constexpr (!TILED || REAL) {
+    DISPATCH_DTYPE(dt_out, O,
+      return bf16tc::launch_gemm<O, true, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj,
+                                                device, s);
+    )
     return (int)cudaErrorInvalidValue;
-  } else {   // the tiled bf16 and the real builds
+  } else {   // the tiled complex build: the vector kernel
     const int64_t bx = (n + kThreads - 1) / kThreads;
     if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     const dim3 grid((unsigned)bx, batch_grid(B));
-    DISPATCH_NARROW(dt_in, true, REAL, T, DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
-      sbgemm_th_kernel<T, O, SC, TILED, REAL><<<grid, kThreads, 0, s>>>(
+    using T = __nv_bfloat16;
+    DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
+      sbgemm_th_kernel<T, O, SC, TILED><<<grid, kThreads, 0, s>>>(
           static_cast<const T*>(Ar), static_cast<const T*>(Ai),
           static_cast<const T*>(Xr), static_cast<const T*>(Xi),
           static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj, tg);
-    )))
+    ))
     return (int)cudaGetLastError();
   }
 }
@@ -1137,14 +1109,16 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
     }
     return (int)cudaErrorInvalidValue;
   } else {   // the tiled bf16 build
+    if (dt_in != DT_BF16) return (int)cudaErrorInvalidValue;
     const int64_t tiles = (P + kTile - 1) / kTile;
     if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
     const dim3 grid((unsigned)tiles, (unsigned)tiles, batch_grid(B));
-    DISPATCH_NARROW(dt_in, true, false, T, DISPATCH_DTYPE(dt_out, O,
+    using T = __nv_bfloat16;
+    DISPATCH_DTYPE(dt_out, O,
       sbgemm_gram_kernel<T, O, TILED><<<grid, kGramThreads, 0, s>>>(
           static_cast<const T*>(Ar), static_cast<const T*>(Ai),
           static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, data, tg);
-    ))
+    )
     return (int)cudaGetLastError();
   }
 }

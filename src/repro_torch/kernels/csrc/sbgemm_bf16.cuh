@@ -10,16 +10,20 @@
 // = Ar^T Ai - Ai^T Ar; the data-space A A^H read from A as stored).  A bf16
 // x bf16 product is exact in f32, so mma.sync.m16n8k16 (bf16 in, f32
 // accumulate) computes the vector kernels' function up to the order of the
-// sums.  The tiled and real builds stay on the vector kernels.
+// sums.  zgemm_bf16_kernel with REAL also takes the real products
+// :sbgemm_n_real and :sbgemm_th_real, and their tiled builds
+// :sbgemm_n_real_tiled and :sbgemm_th_real_tiled (sbgemm.cu's launch_n /
+// launch_th: at a bf16 carrier every cell's rounding is the identity).  The
+// tiled complex builds stay on the vector kernels.
 //
 // Included by sbgemm.cu inside its anonymous namespace, after the f64
 // section, whose smem_addr, min64 / aligned16 and launch_persistent it
 // uses, with common.cuh's cp_async, cp_async_commit and cp_async_wait.
-// Measurement builds of sbgemm.cu (chip_smoke.py's bound probe; no wrapper
-// loads them) compile one side of both kernels out: SBGEMM_BF16_NO_MMA the
-// products, leaving the copy pipeline and the fragment loads,
-// SBGEMM_BF16_NO_COPY the operand copies, leaving the products on whatever
-// shared memory holds.
+// Measurement builds of sbgemm.cu and sbgemm_real.cu (chip_smoke.py's
+// bound probe; no wrapper loads them) compile one side of both kernels
+// out: SBGEMM_BF16_NO_MMA the products, leaving the copy pipeline and the
+// fragment loads, SBGEMM_BF16_NO_COPY the operand copies, leaving the
+// products on whatever shared memory holds.
 //
 // Both kernels are persistent (blocks take items blockIdx.x, + gridDim.x,
 // ...) and run one cp.async ring of k-chunks across their items, as
@@ -58,6 +62,13 @@
 //     parameter-space Gram reads U; a bin's X panel is read from L2 once an
 //     item.  As an item can be a single chunk, the cursor steps through the
 //     items without a division.
+//     REAL (one A, X and Y plane; one product where the complex build does
+//     four): a stage holds the complex build's bytes of A in one plane, so
+//     N takes 256-wide k-chunks (192 at S > 16) and T items of 224 output
+//     rows (warp w owns row tiles w and w + 7; 448-byte runs along n).  A
+//     real bf16 A element carries 2 S flops for 2 bytes: bytes-bound at
+//     every S on the tensor cores (on FFMA, 0.48 ms of flops at S = 32
+//     against 0.40 of bytes at the paper shape, it could not be).
 //   Gram, G = U U^H per bin with U's rows the P indices (data space: A's
 //     rows, k over n; parameter space: A's columns, k over m, read through
 //     ldmatrix.trans): zgram_bf16_kernel, except the data space with P <=
@@ -168,43 +179,52 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src, int64_t ld, in
 }
 
 // Shared-memory layout of a GEMM stage for NT column tiles of 8: the A
-// panel of each plane (N: kRows x KC, A's rows as stored; T/H: KC x kRows,
-// A's rows k along the output rows) and the X panel of each plane (KC x
-// SP).  STEP and TILE: the element offsets in an A panel of k-step j (16 k)
-// and of row tile w (16 output rows).
-template <int NT, bool TRANS>
+// panel of each of its PL planes (N: kRows x KC, A's rows as stored; T/H:
+// KC x ROWS, A's rows k along the output rows) and the X panel of each
+// plane (KC x SP).  A warp owns RT row tiles of 16, w + 7 u (u < RT), of
+// an item's ROWS output rows.  STEP and TILE: the element offsets in an A
+// panel of k-step j (16 k) and of row tile w (16 output rows).  Staged rows
+// are odd multiples of 16 bytes: ALD 240 / 464 bytes (T/H / real T); 272,
+// 208 (N); 528, 400 (real N); XLD 48, 80.
+template <int NT, bool TRANS, bool REAL>
 struct ZLayout {
-  static constexpr int SP = 8 * NT, NS = 3;
-  static constexpr int KC = TRANS ? 112 : NT == 4 ? 96 : 128;
-  static constexpr int ALD = TRANS ? kRows + kPadE : KC + kPadE;   // 240; 208, 272 bytes
-  static constexpr int XLD = SP % 16 ? SP + 2 * kPadE : SP + kPadE;   // 48, 80
-  static constexpr int A_TILE = (TRANS ? KC : kRows) * ALD, X_TILE = KC * XLD;
-  static constexpr int STAGE = 2 * (A_TILE + X_TILE);          // elements
+  static constexpr int SP = 8 * NT, NS = 3, PL = REAL ? 1 : 2;
+  static constexpr int RT = REAL && TRANS ? 2 : 1;
+  static constexpr int ROWS = RT * kRows;
+  static constexpr int KC = TRANS ? 112 : (NT == 4 ? 96 : 128) * (REAL ? 2 : 1);
+  static constexpr int ALD = TRANS ? ROWS + kPadE : KC + kPadE;
+  static constexpr int XLD = SP % 16 ? SP + 2 * kPadE : SP + kPadE;
+  static constexpr int A_TILE = (TRANS ? KC : ROWS) * ALD, X_TILE = KC * XLD;
+  static constexpr int STAGE = PL * (A_TILE + X_TILE);         // elements
   static constexpr int BYTES = 2 * NS * STAGE;
   static constexpr int STEP = TRANS ? 16 * ALD : 16, TILE = TRANS ? 16 : 16 * ALD;
+  static_assert((ALD / 8) % 2 == 1 && (XLD / 8) % 2 == 1,
+                "the 8 rows an ldmatrix reads lie in distinct banks");
 };
 
 // Y = op(A) X per bin: N (Y (B, m, S) = A X, k over n) or TRANS (Y (B, n,
-// S) = A^T X, A^H X with conj, k over m).
-template <typename O, int NT, bool TRANS>
+// S) = A^T X, A^H X with conj, k over m); REAL: the planes Ar, Xr, Yr only
+// (conj 0).
+template <typename O, int NT, bool TRANS, bool REAL>
 __global__ void __launch_bounds__(kThreads, 1)
 zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
                   const bf16* __restrict__ Xr, const bf16* __restrict__ Xi,
                   O* __restrict__ Yr, O* __restrict__ Yi, int64_t B, int64_t m,
                   int64_t n, int64_t S, int conj, int vec_a, int vec_x) {
-  using L = ZLayout<NT, TRANS>;
-  constexpr int KC = L::KC, NS = L::NS, SP = L::SP;
+  using L = ZLayout<NT, TRANS, REAL>;
+  constexpr int KC = L::KC, NS = L::NS, SP = L::SP, PL = L::PL, RT = L::RT;
+  constexpr int ROWS = L::ROWS;
   extern __shared__ __align__(16) bf16 sbf[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int64_t M = TRANS ? n : m, K = TRANS ? m : n;
   const int64_t KCH = (K + KC - 1) / KC;
   // A position in this block's chunk stream: item (b, rt, sp) of the B x
-  // RTS x SPS items (bin, kRows output rows, SP columns), taken blockIdx.x,
+  // RTS x SPS items (bin, ROWS output rows, SP columns), taken blockIdx.x,
   // + gridDim.x, ..., its chunk c and the ring stage it goes to.  gridDim.x
   // is added to the item digit by digit, with carries, so no division runs
   // past the first item (an item can be a single chunk).
-  const int RTS = (int)((M + kRows - 1) / kRows), SPS = (int)((S + SP - 1) / SP);
+  const int RTS = (int)((M + ROWS - 1) / ROWS), SPS = (int)((S + SP - 1) / SP);
   const int64_t step_b = gridDim.x / ((int64_t)RTS * SPS);
   const int step_rt = (int)(gridDim.x / SPS % RTS), step_sp = (int)(gridDim.x % SPS);
   struct Cursor {
@@ -213,9 +233,9 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
   };
   auto at_item = [&](Cursor& q) {     // past the last item, q.b >= B
     q.c = 0;
-    q.r0 = (int64_t)q.rt * kRows;
+    q.r0 = (int64_t)q.rt * ROWS;
     q.s0 = (int64_t)q.sp * SP;
-    q.rv = (int)min64(kRows, M - q.r0);
+    q.rv = (int)min64(ROWS, M - q.r0);
     q.sv = (int)min64(SP, S - q.s0);
   };
   auto advance = [&](Cursor& q) {
@@ -234,16 +254,16 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
       const int kv = (int)min64(KC, K - k0);
       bf16* st = sbf + w.slot * L::STAGE;
 #pragma unroll
-      for (int pl = 0; pl < 2; ++pl) {
+      for (int pl = 0; pl < PL; ++pl) {
         const bf16* a = (pl ? Ai : Ar) + w.b * m * n;
         if (TRANS)   // A's rows k0.. (k), its columns r0.. (output rows)
-          stage<KC, kRows, L::ALD, true>(st + pl * L::A_TILE, a + k0 * n + w.r0, n, kv,
-                                         w.rv, vec_a);
+          stage<KC, ROWS, L::ALD, true>(st + pl * L::A_TILE, a + k0 * n + w.r0, n, kv,
+                                        w.rv, vec_a);
         else         // A's rows r0.., its columns k0..
-          stage<kRows, KC, L::ALD, false>(st + pl * L::A_TILE, a + w.r0 * n + k0, n, w.rv,
-                                          kv, vec_a);
+          stage<ROWS, KC, L::ALD, false>(st + pl * L::A_TILE, a + w.r0 * n + k0, n, w.rv,
+                                         kv, vec_a);
         const bf16* x = (pl ? Xi : Xr) + (w.b * K + k0) * S + w.s0;
-        stage<KC, SP, L::XLD, true>(st + 2 * L::A_TILE + pl * L::X_TILE, x, S, kv, w.sv,
+        stage<KC, SP, L::XLD, true>(st + PL * L::A_TILE + pl * L::X_TILE, x, S, kv, w.sv,
                                     vec_x);
       }
     }
@@ -256,13 +276,15 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
   const int a_row = TRANS ? (lane & 7) + 8 * (lane >> 4) : lr;
   const int a_col = TRANS ? 8 * ((lane >> 3) & 1) : lc;
   const uint32_t a_off = 2u * (warp * L::TILE + a_row * L::ALD + a_col);
-  const uint32_t x_off = 2u * (2 * L::A_TILE + lr * L::XLD + lc);
+  const uint32_t x_off = 2u * (PL * L::A_TILE + lr * L::XLD + lc);
   // the sign bits the Im A fragments take into the Re sum (-Im Im; +Im Im
   // with conj) and into the Im sum (+Im Re; -Im Re with conj)
   const uint32_t flip_ii = conj ? 0u : 0x80008000u, flip_ri = flip_ii ^ 0x80008000u;
-  float acc[2][NT][4];
+  // complex: [Re, Im][column tile]; REAL: [row tile u][column tile]
+  constexpr int AC = REAL ? RT : 2;
+  float acc[AC][NT][4];
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
+  for (int p = 0; p < AC; ++p)
 #pragma unroll
     for (int v = 0; v < NT; ++v)
 #pragma unroll
@@ -284,52 +306,70 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
     __syncthreads();                 // everyone's; the chunk before is consumed
     load(ld);
     advance(ld);
-    const bool rows = 16 * warp < w.rv;      // whole warp: rows in its tile
-    if (rows) {
+    // whole warp: its row tiles that hold rows of this item (tile warp +
+    // 7 u for u < tiles <= RT)
+    const int tiles =
+        (int)min64(RT, (w.rv - 16 * warp + 16 * kWarps - 1) / (16 * kWarps));
+    if (tiles > 0) {
       const uint32_t st = smem_addr(sbf + w.slot * L::STAGE);
 #pragma unroll
       for (int j = 0; j < KC / 16; ++j) {
-        uint32_t ar[4], ai[4], aii[4], ari[4], xr[NT][2], xi[NT][2];
-        ldsm4<TRANS>(ar, st + a_off + 2u * L::STEP * j);
-        ldsm4<TRANS>(ai, st + a_off + 2u * (L::A_TILE + L::STEP * j));
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          aii[e] = ai[e] ^ flip_ii;
-          ari[e] = ai[e] ^ flip_ri;
-        }
+        uint32_t x[PL][NT][2];                 // X's fragments a plane
         const uint32_t xa = st + x_off + 2u * 16 * j * L::XLD;
-        if constexpr (NT == 1) {
-          ldsm2t(xr[0], xa);
-          ldsm2t(xi[0], xa + 2u * L::X_TILE);
-        } else {
 #pragma unroll
-          for (int v = 0; v < NT; v += 2) {  // two n8 tiles an ldmatrix
-            uint32_t r[4];
-            ldsm4<true>(r, xa + 16u * v);
-            xr[v][0] = r[0], xr[v][1] = r[1], xr[v + 1][0] = r[2], xr[v + 1][1] = r[3];
-            ldsm4<true>(r, xa + 2u * L::X_TILE + 16u * v);
-            xi[v][0] = r[0], xi[v][1] = r[1], xi[v + 1][0] = r[2], xi[v + 1][1] = r[3];
+        for (int pl = 0; pl < PL; ++pl) {
+          if constexpr (NT == 1) {
+            ldsm2t(x[pl][0], xa + 2u * pl * L::X_TILE);
+          } else {
+#pragma unroll
+            for (int v = 0; v < NT; v += 2) {  // two n8 tiles an ldmatrix
+              uint32_t r[4];
+              ldsm4<true>(r, xa + 2u * pl * L::X_TILE + 16u * v);
+              x[pl][v][0] = r[0], x[pl][v][1] = r[1];
+              x[pl][v + 1][0] = r[2], x[pl][v + 1][1] = r[3];
+            }
           }
         }
+        if constexpr (REAL) {
 #pragma unroll
-        for (int v = 0; v < NT; ++v) {
-          mma16816(acc[0][v], ar, xr[v][0], xr[v][1]);
-          mma16816(acc[0][v], aii, xi[v][0], xi[v][1]);
-          mma16816(acc[1][v], ar, xi[v][0], xi[v][1]);
-          mma16816(acc[1][v], ari, xr[v][0], xr[v][1]);
+          for (int u = 0; u < RT; ++u) {
+            if (u >= tiles) break;
+            uint32_t a[4];
+            ldsm4<TRANS>(a, st + a_off + 2u * (kWarps * u * L::TILE + L::STEP * j));
+#pragma unroll
+            for (int v = 0; v < NT; ++v) mma16816(acc[u][v], a, x[0][v][0], x[0][v][1]);
+          }
+        } else {
+          uint32_t ar[4], ai[4], aii[4], ari[4];
+          ldsm4<TRANS>(ar, st + a_off + 2u * L::STEP * j);
+          ldsm4<TRANS>(ai, st + a_off + 2u * (L::A_TILE + L::STEP * j));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            aii[e] = ai[e] ^ flip_ii;
+            ari[e] = ai[e] ^ flip_ri;
+          }
+#pragma unroll
+          for (int v = 0; v < NT; ++v) {
+            mma16816(acc[0][v], ar, x[0][v][0], x[0][v][1]);
+            mma16816(acc[0][v], aii, x[1][v][0], x[1][v][1]);
+            mma16816(acc[1][v], ar, x[1][v][0], x[1][v][1]);
+            mma16816(acc[1][v], ari, x[0][v][0], x[0][v][1]);
+          }
         }
       }
     }
-    if (w.c == KCH - 1 && rows) {            // the item's last chunk: store
+    if (w.c == KCH - 1 && tiles > 0) {       // the item's last chunk: store
 #pragma unroll
-      for (int p = 0; p < 2; ++p)
+      for (int p = 0; p < AC; ++p)
 #pragma unroll
         for (int v = 0; v < NT; ++v)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int row = 16 * warp + g + 8 * (e >> 1), col = 8 * v + 2 * t + (e & 1);
+            // complex: plane p of row tile `warp`; REAL: row tile warp + 7 p
+            const int row = 16 * (warp + (REAL ? kWarps * p : 0)) + g + 8 * (e >> 1);
+            const int col = 8 * v + 2 * t + (e & 1);
             if (row < w.rv && col < w.sv)
-              (p ? Yi : Yr)[(w.b * M + w.r0 + row) * S + w.s0 + col] =
+              (!REAL && p ? Yi : Yr)[(w.b * M + w.r0 + row) * S + w.s0 + col] =
                   Store<O>::from(acc[p][v][e]);
             acc[p][v][e] = 0.f;
           }
@@ -566,8 +606,8 @@ zgram_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
 
 // Y (B, m, S) = A (B, m, n) X (B, n, S), or TRANS: Y (B, n, S) = A^T X
 // (A^H X with conj), X (B, m, S), on bf16 planes, passes of 8, 16 or 32
-// columns.
-template <typename O, bool TRANS>
+// columns; REAL: the planes Ar, Xr, Yr only (Ai, Xi, Yi null).
+template <typename O, bool TRANS, bool REAL>
 int launch_gemm(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
                 void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, int conj,
                 int device, cudaStream_t s) {
@@ -575,12 +615,13 @@ int launch_gemm(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
   if ((TRANS ? m : n) == 0) {                // an empty sum: Y = 0
     const size_t bytes = (size_t)(B * M * S) * sizeof(O);
     cudaError_t e = cudaMemsetAsync(Yr, 0, bytes, s);
-    if (e == cudaSuccess) e = cudaMemsetAsync(Yi, 0, bytes, s);
+    if (e == cudaSuccess && !REAL) e = cudaMemsetAsync(Yi, 0, bytes, s);
     return (int)e;
   }
   const int vec_a = n % 8 == 0 && aligned16(Ar) && aligned16(Ai);
   const int vec_x = S % 8 == 0 && aligned16(Xr) && aligned16(Xi);
-  const int64_t rts = (M + kRows - 1) / kRows;
+  constexpr int rows = ZLayout<1, TRANS, REAL>::ROWS;   // an item's output rows
+  const int64_t rts = (M + rows - 1) / rows;
   auto go = [&](auto kernel, int nt, int bytes) {
     return launch_persistent(kernel, kThreads, bytes,
                              B * rts * ((S + 8 * nt - 1) / (8 * nt)), device, s,
@@ -589,9 +630,11 @@ int launch_gemm(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
                              static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj,
                              vec_a, vec_x);
   };
-  if (S <= 8) return go(zgemm_bf16_kernel<O, 1, TRANS>, 1, ZLayout<1, TRANS>::BYTES);
-  if (S <= 16) return go(zgemm_bf16_kernel<O, 2, TRANS>, 2, ZLayout<2, TRANS>::BYTES);
-  return go(zgemm_bf16_kernel<O, 4, TRANS>, 4, ZLayout<4, TRANS>::BYTES);
+  if (S <= 8)
+    return go(zgemm_bf16_kernel<O, 1, TRANS, REAL>, 1, ZLayout<1, TRANS, REAL>::BYTES);
+  if (S <= 16)
+    return go(zgemm_bf16_kernel<O, 2, TRANS, REAL>, 2, ZLayout<2, TRANS, REAL>::BYTES);
+  return go(zgemm_bf16_kernel<O, 4, TRANS, REAL>, 4, ZLayout<4, TRANS, REAL>::BYTES);
 }
 
 // G = A^H A, (B, n, n), or with data != 0 G = A A^H, (B, m, m), on bf16

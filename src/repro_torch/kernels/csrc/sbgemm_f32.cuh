@@ -1,12 +1,16 @@
 // f32 planes on the FP32 vector units: the complex N, T/H and Gram blocks
-// of sbgemm.cu, with f32 sums, untiled and tiled.
+// of sbgemm.cu and the real N and T products, with f32 sums, untiled and
+// tiled.
 //
 // Replaces, for f32 planes, the TPU kernels
 // src/repro/kernels/sbgemv.py:sbgemm_n_complex (Y = A X: Yr = rr - ii, Yi =
 // ir + ri, the contraction over the long n), :sbgemm_th_complex (Y = A^T X,
 // or A^H X with conj, over the short m), :sbgemm_gram_complex (G = A^H A
-// per bin, or A A^H in data space, from A as stored) and their tiled twins
-// :sbgemm_n_complex_tiled, :sbgemm_th_complex_tiled and :sbgemm_gram_tiled.
+// per bin, or A A^H in data space, from A as stored), their tiled twins
+// :sbgemm_n_complex_tiled, :sbgemm_th_complex_tiled and :sbgemm_gram_tiled,
+// and, with the REAL flag of the N and T/H kernels (one A, X and Y plane),
+// :sbgemm_n_real, :sbgemm_th_real, :sbgemm_n_real_tiled and
+// :sbgemm_th_real_tiled.
 // "s" is IEEE f32: every product is an FFMA on the vector units (no TF32,
 // no tensor cores, no atomics), so the kernels compute the vector kernels'
 // function up to the order of the sums.  Every output sums its k products
@@ -23,9 +27,9 @@
 // Included by sbgemm.cu inside its anonymous namespace, after the f64 and
 // bf16 sections, whose stage(), smem_addr, min64, aligned16 and
 // launch_persistent it uses, with common.cuh's cp_async / cp_async_commit /
-// cp_async_wait.  Measurement
-// builds of sbgemm.cu (chip_smoke.py's bound probe; no wrapper loads them)
-// compile one side of all three kernels out: SBGEMM_F32_NO_FMA the
+// cp_async_wait.  Measurement builds of sbgemm.cu and sbgemm_real.cu
+// (chip_smoke.py's bound probe; no wrapper loads them) compile one side of
+// all three kernels out: SBGEMM_F32_NO_FMA the
 // products (the copy pipeline alone), SBGEMM_F32_NO_COPY the operand
 // copies (the products alone, on whatever shared memory holds).
 //
@@ -75,7 +79,22 @@
 //     sign of Im(A), which the FFMAs take as an operand modifier (each
 //     chunk's products are compiled for both): Re + Ar Xr, then - (s Ai)
 //     Xi; Im + Ar Xi, then + (s Ai) Xr, s = -1 for H.  The tiled cell is
-//     fixed by (bin, output row): thread t rounds staged row t.
+//     fixed by (bin, output row): thread t rounds staged rows t (and t +
+//     128, REAL).
+//   REAL (N and T): one plane, so a real A element (4 bytes) carries 2 S
+//     flops: bytes-bound at S = 8 (0.65 ms of bytes, 0.12 of FFMA at the
+//     paper shape) and still at S = 32 (0.79 ms against 0.48).  A lane's
+//     R x C tile takes R + C shared loads a k-step for R C FFMAs, half the
+//     complex tile's 4 R C for 2 (R + C), so the registers of the complex
+//     tile's imaginary plane go to twice its columns: lane (lr, lc) = (lane
+//     / 4, lane % 4) holds 2 C columns from 2 C lc, and the warp twice the
+//     rows, so each load feeds as many products as the complex tile's
+//     nearly (N: 13 loads for 160 FFMAs a 4-k step at SP = 32; T: 4 for
+//     64 a k).  N: warps of 40 rows, rows lr + 8 i (i < 5), 3 warps an
+//     item of 100 rows (the third holds rows 80 .. 99 in a 3-row tile,
+//     rows lr + 8 i, i < 3); chunks of 32 k (64 at SP < 32).  T: items of
+//     256 output rows, warps of 64, rows 64 w + 4 lr + 32 i + q.  A stage
+//     holds the complex build's bytes.
 //   Gram (zgram_f32_kernel, DATA: G = A A^H (B, m, m) over k < n, else A^H
 //     A (B, n, n) over k < m): tiles of 100 x 100 (25 quads of 4 indices a
 //     side); a block of 11 warps, one an SM, a ring 3 deep of k-chunks
@@ -101,7 +120,8 @@
 // Measured (PERF.md, chip_smoke.py's bound probe): the T/H is bound by its
 // copies at S = 8 and by its FFMAs at S = 32, the Gram by its FFMAs, and
 // the FFMA sides run well under the FP32 peak with the SM clock at its
-// maximum.
+// maximum.  The real N and T are bound by their copies at S = 8 and S =
+// 32; at S = 32 each side alone takes about 70 % of the whole.
 
 namespace f32simt {
 
@@ -175,7 +195,12 @@ __device__ __forceinline__ uint64_t round_bits(const TileGrid& tg, uint32_t cell
 // C consecutive floats of shared memory (16-, 8- or 4-byte aligned).
 template <int C>
 __device__ __forceinline__ void load_row(float (&v)[C], const float* p) {
-  if constexpr (C == 4) {
+  if constexpr (C == 8) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    const float4 r = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    v[4] = r.x, v[5] = r.y, v[6] = r.z, v[7] = r.w;
+  } else if constexpr (C == 4) {
     const float4 q = *reinterpret_cast<const float4*>(p);
     v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
   } else if constexpr (C == 2) {
@@ -211,40 +236,48 @@ __device__ __forceinline__ void store_run(O* p, const float (&v)[N], uint32_t ma
 // N: Y (B, m, S) = A (B, m, n) X (B, n, S)
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 5;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTRows = 5;                   // rows of a thread: lr + 4 i
-constexpr int kWarpRows = 4 * kTRows;       // rows of a warp
-constexpr int kRows = kWarps * kWarpRows;   // rows of an item: 100
+constexpr int kTRows = 5;                   // rows of a lane's tile: lr + LR i
+constexpr int kRows = 100;                  // rows of an item
 
-// Shared-memory layout of a stage for C columns a lane: the A panel of
-// each plane (kRows x KC) and the X panel of each plane (KC x SP), NS
-// stages, BLOCKS blocks an SM.  At SP = 32 (the FFMA-bound pass) 16-wide
-// chunks and three blocks an SM (15 warps, the register tile in 128
-// registers); narrower passes (bytes-bound) 32-wide chunks and two blocks.
-template <int C>
+// Shared-memory layout of a stage for passes of SP = 8 C columns: the A
+// panel of each of the PL planes (PROWS x KC) and the X panel of each
+// plane (KC x SP), NS stages, BLOCKS blocks an SM.  Complex: 5 warps of WROWS = 20
+// rows, lane (lr, lc) = (lane / 8, lane % 8) with a 5 x C tile (CT = C
+// columns); at SP = 32 (the FFMA-bound pass) 16-wide chunks and three
+// blocks an SM (15 warps, the register tile in 128 registers); narrower
+// passes (bytes-bound) 32-wide chunks and two blocks.  REAL: 3 warps of 40
+// rows, lane (lane / 4, lane % 4) with a 5 x 2 C tile, chunks twice as
+// wide; the panel has 104 rows, as the third warp's 3-row tile reads rows
+// 80 .. 103 (rows past the item are never stored).
+template <int C, bool REAL>
 struct Layout {
-  static constexpr int SP = 8 * C, XLD = SP;
-  static constexpr int KC = C == 4 ? 16 : 32, NS = 3, BLOCKS = C == 4 ? 3 : 2;
+  static constexpr int SP = 8 * C, XLD = SP, PL = REAL ? 1 : 2;
+  static constexpr int WARPS = REAL ? 3 : 5, THREADS = 32 * WARPS;
+  static constexpr int LCB = REAL ? 2 : 3, LC = 1 << LCB, LR = 32 / LC, CT = SP / LC;
+  static constexpr int WROWS = kTRows * LR;   // rows of a warp's band
+  static constexpr int PROWS = REAL ? 104 : kRows;
+  static constexpr int KC = (C == 4 ? 16 : 32) * (REAL ? 2 : 1), NS = 3;
+  static constexpr int BLOCKS = C == 4 ? (REAL ? 4 : 3) : 2;
   static constexpr int ALD = KC + 4;       // a staged A row: an odd number of 16 bytes
-  static constexpr int A_TILE = kRows * ALD, X_TILE = KC * XLD;
-  static constexpr int STAGE = 2 * (A_TILE + X_TILE);          // floats
+  static constexpr int A_TILE = PROWS * ALD, X_TILE = KC * XLD;
+  static constexpr int STAGE = PL * (A_TILE + X_TILE);         // floats
   static constexpr int BYTES = 4 * NS * STAGE;
-  static_assert((ALD / 4) % 2 == 1, "the 4 rows a warp reads lie in distinct bank groups");
+  static_assert((ALD / 4) % 2 == 1, "the LR rows a warp reads lie in distinct bank groups");
 };
 
-template <typename O, int C, bool TILED>
-__global__ void __launch_bounds__(kThreads, Layout<C>::BLOCKS)
+template <typename O, int C, bool TILED, bool REAL>
+__global__ void __launch_bounds__(Layout<C, REAL>::THREADS, Layout<C, REAL>::BLOCKS)
 zgemm_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
                  const float* __restrict__ Xr, const float* __restrict__ Xi,
                  O* __restrict__ Yr, O* __restrict__ Yi, int64_t B, int64_t m, int64_t n,
                  int64_t S, int vec_a, int vec_x, TileGrid tg) {
-  using L = Layout<C>;
-  constexpr int SP = L::SP, KC = L::KC, NS = L::NS, ALD = L::ALD;
+  using L = Layout<C, REAL>;
+  constexpr int SP = L::SP, KC = L::KC, NS = L::NS, ALD = L::ALD, PL = L::PL;
+  constexpr int LR = L::LR, CT = L::CT, NTH = L::THREADS;
   extern __shared__ __align__(16) float sf[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lc = lane & 7;
-  const int row0 = kWarpRows * warp + (lane >> 3);   // this thread's rows row0 + 4 i
+  const int lc = lane & (L::LC - 1);
+  const int row0 = L::WROWS * warp + (lane >> L::LCB);   // this thread's rows row0 + LR i
   const int64_t M = m, KCH = (n + KC - 1) / KC;
   const Steps g((int)((M + kRows - 1) / kRows), (int)((S + SP - 1) / SP));
   struct Cursor : Walk<NS> {
@@ -270,25 +303,24 @@ zgemm_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
       const int kv = (int)min64(KC, n - k0);
       float* st = sf + w.slot * L::STAGE;
 #pragma unroll
-      for (int pl = 0; pl < 2; ++pl) {
+      for (int pl = 0; pl < PL; ++pl) {
         const float* a = (pl ? Ai : Ar) + (w.b * m + w.r0) * n + k0;
-        stage<kRows, KC, ALD, kThreads, false>(st + pl * L::A_TILE, a, n, w.rv, kv,
-                                                    vec_a);
+        stage<kRows, KC, ALD, NTH, false>(st + pl * L::A_TILE, a, n, w.rv, kv, vec_a);
         const float* x = (pl ? Xi : Xr) + (w.b * n + k0) * S + w.s0;
-        stage<KC, SP, L::XLD, kThreads, true>(st + 2 * L::A_TILE + pl * L::X_TILE, x,
-                                                  S, kv, w.sv, vec_x);
+        stage<KC, SP, L::XLD, NTH, true>(st + PL * L::A_TILE + pl * L::X_TILE, x, S, kv,
+                                         w.sv, vec_x);
       }
     }
 #endif
     cp_async_commit();
   };
-  float acc[2][kTRows][C];
+  float acc[PL][kTRows][CT];
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
+  for (int p = 0; p < PL; ++p)
 #pragma unroll
     for (int i = 0; i < kTRows; ++i)
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[p][i][c] = 0.f;
+      for (int c = 0; c < CT; ++c) acc[p][i][c] = 0.f;
   Cursor w, ld;                              // compute and load cursors
   w.first(g);
   at_item(w);
@@ -303,62 +335,77 @@ zgemm_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
     __syncthreads();                 // everyone's; the chunk before is consumed
     load(ld);
     advance(ld);
-    const bool rows = kWarpRows * warp < w.rv;   // whole warp: rows in its band
+    const int band = w.rv - L::WROWS * warp;  // whole warp: rows left in its band
 #ifndef SBGEMM_F32_NO_FMA
-    if (rows) {
+    if (band > 0) {
       const float* pa = sf + w.slot * L::STAGE + row0 * ALD;
-      const float* px = sf + w.slot * L::STAGE + 2 * L::A_TILE + C * lc;
-      // the chunk's products; ROUND (tiled, the chunk holds a column whose
-      // cell rounds): each A value rounded at its column's level first, the
-      // k-steps not unrolled (unrolled, the levels' registers spill)
-      auto products = [&](auto rounding) {
+      const float* px = sf + w.slot * L::STAGE + PL * L::A_TILE + CT * lc;
+      // the chunk's products on the lane's first R rows; ROUND (tiled, the
+      // chunk holds a column whose cell rounds): each A value rounded at its
+      // column's level first, the k-steps not unrolled (unrolled, the
+      // levels' registers spill)
+      auto products = [&](auto rounding, auto tile_rows) {
         constexpr bool ROUND = decltype(rounding)::value;
+        constexpr int R = decltype(tile_rows)::value;
 #pragma unroll (ROUND ? 1 : KC / 4)
         for (int k4 = 0; k4 < KC; k4 += 4) {
-          float4 a_r[kTRows], a_i[kTRows];
+          float4 a[PL][R];
 #pragma unroll
-          for (int i = 0; i < kTRows; ++i) {
-            a_r[i] = *reinterpret_cast<const float4*>(pa + 4 * i * ALD + k4);
-            a_i[i] = *reinterpret_cast<const float4*>(pa + L::A_TILE + 4 * i * ALD + k4);
-          }
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int p = 0; p < PL; ++p)
+              a[p][i] = *reinterpret_cast<const float4*>(pa + p * L::A_TILE +
+                                                         LR * i * ALD + k4);
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
-            float x_r[C], x_i[C];
-            load_row<C>(x_r, px + (k4 + kk) * L::XLD);
-            load_row<C>(x_i, px + L::X_TILE + (k4 + kk) * L::XLD);
+            float x[PL][CT];
+#pragma unroll
+            for (int p = 0; p < PL; ++p)
+              load_row<CT>(x[p], px + p * L::X_TILE + (k4 + kk) * L::XLD);
             const int lv = ROUND ? tile_level(tg, w.cells, w.c * KC + k4 + kk) : 1;
 #pragma unroll
-            for (int i = 0; i < kTRows; ++i) {
-              float re = part(a_r[i], kk), im = part(a_i[i], kk);
-              if (ROUND) {
-                re = quantize(re, lv);
-                im = quantize(im, lv);
-              }
+            for (int i = 0; i < R; ++i) {
+              float re = part(a[0][i], kk);
+              if (ROUND) re = quantize(re, lv);
+              if constexpr (REAL) {
 #pragma unroll
-              for (int c = 0; c < C; ++c) {
-                acc[0][i][c] = fmaf(re, x_r[c], acc[0][i][c]);
-                acc[0][i][c] = fmaf(-im, x_i[c], acc[0][i][c]);
-                acc[1][i][c] = fmaf(re, x_i[c], acc[1][i][c]);
-                acc[1][i][c] = fmaf(im, x_r[c], acc[1][i][c]);
+                for (int c = 0; c < CT; ++c) acc[0][i][c] = fmaf(re, x[0][c], acc[0][i][c]);
+              } else {
+                float im = part(a[PL - 1][i], kk);
+                if (ROUND) im = quantize(im, lv);
+#pragma unroll
+                for (int c = 0; c < CT; ++c) {
+                  acc[0][i][c] = fmaf(re, x[0][c], acc[0][i][c]);
+                  acc[0][i][c] = fmaf(-im, x[PL - 1][c], acc[0][i][c]);
+                  acc[PL - 1][i][c] = fmaf(re, x[PL - 1][c], acc[PL - 1][i][c]);
+                  acc[PL - 1][i][c] = fmaf(im, x[0][c], acc[PL - 1][i][c]);
+                }
               }
             }
           }
         }
       };
+      // REAL: a band of at most 24 rows (the item's last) takes a 3-row tile
+      auto rows_of = [&](auto rounding) {
+        if constexpr (REAL) {
+          if (band <= 3 * LR) return products(rounding, std::integral_constant<int, 3>{});
+        }
+        products(rounding, std::integral_constant<int, kTRows>{});
+      };
       if (TILED && cells_round(tg, w.cells, w.c * KC, w.c * KC + KC))
-        products(std::true_type{});
+        rows_of(std::true_type{});
       else
-        products(std::false_type{});
+        rows_of(std::false_type{});
     }
 #endif
-    if (w.c == KCH - 1 && rows) {            // the item's last chunk: store
+    if (w.c == KCH - 1 && band > 0) {        // the item's last chunk: store
 #pragma unroll
-      for (int p = 0; p < 2; ++p)
+      for (int p = 0; p < PL; ++p)
 #pragma unroll
         for (int i = 0; i < kTRows; ++i)
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const int row = row0 + 4 * i, col = C * lc + c;
+          for (int c = 0; c < CT; ++c) {
+            const int row = row0 + LR * i, col = CT * lc + c;
             if (row < w.rv && col < w.sv)
               (p ? Yi : Yr)[(w.b * m + w.r0 + row) * S + w.s0 + col] =
                   Store<O>::from(acc[p][i][c]);
@@ -369,31 +416,34 @@ zgemm_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
 }
 
 // Y (B, m, S) = A (B, m, n) X (B, n, S) on f32 planes, passes of 8, 16 or
-// 32 columns.
-template <typename O, bool TILED>
+// 32 columns; REAL: the planes Ar, Xr, Yr only (Ai, Xi, Yi null).
+template <typename O, bool TILED, bool REAL>
 int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
              void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, const TileGrid& tg,
              int device, cudaStream_t s) {
   if (n == 0) {                              // an empty sum: Y = 0
     const size_t bytes = (size_t)(B * m * S) * sizeof(O);
     cudaError_t e = cudaMemsetAsync(Yr, 0, bytes, s);
-    if (e == cudaSuccess) e = cudaMemsetAsync(Yi, 0, bytes, s);
+    if (e == cudaSuccess && !REAL) e = cudaMemsetAsync(Yi, 0, bytes, s);
     return (int)e;
   }
   const int vec_a = n % 4 == 0 && aligned16(Ar) && aligned16(Ai);
   const int vec_x = S % 4 == 0 && aligned16(Xr) && aligned16(Xi);
   const int64_t rts = (m + kRows - 1) / kRows;
-  auto go = [&](auto kernel, int c, int bytes) {
-    return launch_persistent(kernel, kThreads, bytes,
+  auto go = [&](auto kernel, int c, int threads, int bytes) {
+    return launch_persistent(kernel, threads, bytes,
                              B * rts * ((S + 8 * c - 1) / (8 * c)), device, s,
                              static_cast<const float*>(Ar), static_cast<const float*>(Ai),
                              static_cast<const float*>(Xr), static_cast<const float*>(Xi),
                              static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, vec_a,
                              vec_x, tg);
   };
-  if (S <= 8) return go(zgemm_f32_kernel<O, 1, TILED>, 1, Layout<1>::BYTES);
-  if (S <= 16) return go(zgemm_f32_kernel<O, 2, TILED>, 2, Layout<2>::BYTES);
-  return go(zgemm_f32_kernel<O, 4, TILED>, 4, Layout<4>::BYTES);
+  using L1 = Layout<1, REAL>;
+  using L2 = Layout<2, REAL>;
+  using L4 = Layout<4, REAL>;
+  if (S <= 8) return go(zgemm_f32_kernel<O, 1, TILED, REAL>, 1, L1::THREADS, L1::BYTES);
+  if (S <= 16) return go(zgemm_f32_kernel<O, 2, TILED, REAL>, 2, L2::THREADS, L2::BYTES);
+  return go(zgemm_f32_kernel<O, 4, TILED, REAL>, 4, L4::THREADS, L4::BYTES);
 }
 
 // ---------------------------------------------------------------------------
@@ -402,36 +452,43 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
 
 constexpr int kTHWarps = 4;
 constexpr int kTHThreads = 32 * kTHWarps;
-constexpr int kTHRows = 32 * kTHWarps;      // output rows of an item, 32 a warp
 
-// A stage: the A panel of each plane (KC k x kTHRows, [k][r]) and the X
-// panel of each plane (KC k x SP), NS stages, three blocks an SM (12 warps
-// to cover the barriers; 16-wide chunks at SP = 32 so that three fit).
-template <int C>
+// A stage: the A panel of each of the PL planes (KC k x ROWS, [k][r]) and
+// the X panel of each plane (KC k x SP), NS stages, three blocks an SM (12
+// warps to cover the barriers; 16-wide chunks at SP = 32 so that three
+// fit).  Complex: items of 128 output rows, 32 a warp, lane (lr, lc) =
+// (lane / 8, lane % 8), CT = C columns; REAL: 256 rows, 64 a warp, lane
+// (lane / 4, lane % 4), CT = 2 C columns.
+template <int C, bool REAL>
 struct THLayout {
   static constexpr int SP = 8 * C, KC = C == 4 ? 16 : 20, NS = 3, BLOCKS = 3;
-  static constexpr int A_TILE = KC * kTHRows, X_TILE = KC * SP;
-  static constexpr int STAGE = 2 * (A_TILE + X_TILE);          // floats
+  static constexpr int PL = REAL ? 1 : 2, LCB = REAL ? 2 : 3, LC = 1 << LCB, LR = 32 / LC;
+  static constexpr int CT = SP / LC;
+  static constexpr int ROWS = 8 * LR * kTHWarps;
+  static constexpr int A_TILE = KC * ROWS, X_TILE = KC * SP;
+  static constexpr int STAGE = PL * (A_TILE + X_TILE);         // floats
   static constexpr int BYTES = 4 * NS * STAGE;
-  static_assert(kTHThreads == kTHRows, "a thread a row rounds the tiled A panel");
+  static_assert(ROWS % kTHThreads == 0, "the threads round the tiled A panel's rows");
 };
 
-template <typename O, int C, bool TILED>
-__global__ void __launch_bounds__(kTHThreads, THLayout<C>::BLOCKS)
+template <typename O, int C, bool TILED, bool REAL>
+__global__ void __launch_bounds__(kTHThreads, THLayout<C, REAL>::BLOCKS)
 zgemm_th_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
                     const float* __restrict__ Xr, const float* __restrict__ Xi,
                     O* __restrict__ Yr, O* __restrict__ Yi, int64_t B, int64_t m,
                     int64_t n, int64_t S, int conj, int vec_a, int vec_x, int vec_y,
                     TileGrid tg) {
-  using L = THLayout<C>;
-  constexpr int SP = L::SP, KC = L::KC, NS = L::NS;
+  using L = THLayout<C, REAL>;
+  constexpr int SP = L::SP, KC = L::KC, NS = L::NS, PL = L::PL, LR = L::LR;
+  constexpr int CT = L::CT, ROWS = L::ROWS, RPT = ROWS / kTHThreads;
   extern __shared__ __align__(16) float sf[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lc = lane & 7;
-  const int row0 = 32 * warp + 4 * (lane >> 3);   // rows row0 + 16 i + q
-  const bool vy = vec_y && S % C == 0;       // each lane's run of C aligned
+  const int lc = lane & (L::LC - 1);
+  // rows row0 + 4 LR i + q (i < 2, q < 4): the warp's 8 LR rows
+  const int row0 = 8 * LR * warp + 4 * (lane >> L::LCB);
+  const bool vy = vec_y && S % CT == 0;      // each lane's run of CT aligned
   const int64_t KCH = (m + KC - 1) / KC;
-  const Steps g((int)((n + kTHRows - 1) / kTHRows), (int)((S + SP - 1) / SP));
+  const Steps g((int)((n + ROWS - 1) / ROWS), (int)((S + SP - 1) / SP));
   struct Cursor : Walk<NS> {
     int64_t r0, s0;
     int rv, sv;
@@ -439,9 +496,9 @@ zgemm_th_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
   };
   auto at_item = [&](Cursor& q) {     // past the last item, q.b >= B
     q.cells = TILED && q.b < B ? tile_row(tg, q.b) : 0u;
-    q.r0 = (int64_t)q.rt * kTHRows;
+    q.r0 = (int64_t)q.rt * ROWS;
     q.s0 = (int64_t)q.sp * SP;
-    q.rv = (int)min64(kTHRows, n - q.r0);
+    q.rv = (int)min64(ROWS, n - q.r0);
     q.sv = (int)min64(SP, S - q.s0);
   };
   auto advance = [&](Cursor& q) {
@@ -454,30 +511,30 @@ zgemm_th_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
       const int kv = (int)min64(KC, m - k0);
       float* st = sf + w.slot * L::STAGE;
 #pragma unroll
-      for (int pl = 0; pl < 2; ++pl) {
+      for (int pl = 0; pl < PL; ++pl) {
         // A's rows k0.. (k), its columns r0.. (the output rows)
         const float* a = (pl ? Ai : Ar) + (w.b * m + k0) * n + w.r0;
-        stage<KC, kTHRows, kTHRows, kTHThreads, true>(st + pl * L::A_TILE, a, n, kv,
-                                                       w.rv, vec_a);
+        stage<KC, ROWS, ROWS, kTHThreads, true>(st + pl * L::A_TILE, a, n, kv, w.rv,
+                                                vec_a);
         const float* x = (pl ? Xi : Xr) + (w.b * m + k0) * S + w.s0;
-        stage<KC, SP, SP, kTHThreads, true>(st + 2 * L::A_TILE + pl * L::X_TILE, x, S,
+        stage<KC, SP, SP, kTHThreads, true>(st + PL * L::A_TILE + pl * L::X_TILE, x, S,
                                              kv, w.sv, vec_x);
       }
     }
 #endif
     cp_async_commit();
   };
-  float acc[2][2][4][C];                     // plane, i, q, column
+  float acc[PL][2][4][CT];                   // plane, i, q, column
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
+  for (int p = 0; p < PL; ++p)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[p][i][q][c] = 0.f;
+        for (int c = 0; c < CT; ++c) acc[p][i][q][c] = 0.f;
   bool item_rounds = false;   // tiled: the item has a row whose cell rounds
-  bool own_rounds = false;    // tiled: so does row threadIdx.x
+  uint32_t own_rounds = 0;    // tiled: bit j, so does row threadIdx.x + 128 j
   Cursor w, ld;                              // compute and load cursors
   w.first(g);
   at_item(w);
@@ -492,75 +549,92 @@ zgemm_th_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
     __syncthreads();                 // everyone's; the chunk before is consumed
     load(ld);
     advance(ld);
-    const bool rows = 32 * warp < w.rv;      // whole warp: rows in its band
+    const bool rows = 8 * LR * warp < w.rv;  // whole warp: rows in its band
     const int kv = (int)min64(KC, m - w.c * KC);
     if (TILED && w.c == 0) {
       item_rounds = cells_round(tg, w.cells, w.r0, w.r0 + w.rv);
-      own_rounds = cells_round(tg, w.cells, w.r0 + threadIdx.x, w.r0 + threadIdx.x + 1);
+      own_rounds = 0;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int64_t r = w.r0 + threadIdx.x + kTHThreads * j;
+        own_rounds |= (uint32_t)cells_round(tg, w.cells, r, r + 1) << j;
+      }
     }
     if (TILED && item_rounds) {
       // the chunk's A values of rounding rows rounded to bf16 once, in
-      // place, before any lane reads them: thread t owns row t
-      if (own_rounds) {
-        float* a = sf + w.slot * L::STAGE + threadIdx.x;
-        for (int k = 0; k < kv; ++k) {
-          a[k * kTHRows] = round_bf16(a[k * kTHRows]);
-          a[L::A_TILE + k * kTHRows] = round_bf16(a[L::A_TILE + k * kTHRows]);
-        }
+      // place, before any lane reads them: thread t owns rows t + 128 j
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        if (!(own_rounds >> j & 1)) continue;
+        float* a = sf + w.slot * L::STAGE + threadIdx.x + kTHThreads * j;
+        for (int k = 0; k < kv; ++k)
+#pragma unroll
+          for (int p = 0; p < PL; ++p)
+            a[p * L::A_TILE + k * ROWS] = round_bf16(a[p * L::A_TILE + k * ROWS]);
       }
       __syncthreads();
     }
 #ifndef SBGEMM_F32_NO_FMA
     if (rows) {
       const float* pa = sf + w.slot * L::STAGE + row0;
-      const float* px = sf + w.slot * L::STAGE + 2 * L::A_TILE + C * lc;
-      // CONJ: Im(A) negated, a sign the FFMAs take for free
+      const float* px = sf + w.slot * L::STAGE + PL * L::A_TILE + CT * lc;
+      // CONJ: Im(A) negated, a sign the FFMAs take for free.  REAL: two k
+      // a step (with four the tiled build's 8 x 8 tile spilled; two run as
+      // fast)
       auto products = [&](auto conjugate) {
-        constexpr float SGN = decltype(conjugate)::value ? -1.f : 1.f;
-#pragma unroll 4
+        [[maybe_unused]] constexpr float SGN = decltype(conjugate)::value ? -1.f : 1.f;
+#pragma unroll (REAL ? 2 : 4)
         for (int k = 0; k < kv; ++k) {
-          float4 a_r[2], a_i[2];
+          float4 a[PL][2];
+          float x[PL][CT];
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            a_r[i] = *reinterpret_cast<const float4*>(pa + k * kTHRows + 16 * i);
-            a_i[i] = *reinterpret_cast<const float4*>(pa + L::A_TILE + k * kTHRows + 16 * i);
-          }
-          float x_r[C], x_i[C];
-          load_row<C>(x_r, px + k * SP);
-          load_row<C>(x_i, px + L::X_TILE + k * SP);
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int p = 0; p < PL; ++p)
+              a[p][i] = *reinterpret_cast<const float4*>(pa + p * L::A_TILE + k * ROWS +
+                                                         4 * LR * i);
+#pragma unroll
+          for (int p = 0; p < PL; ++p) load_row<CT>(x[p], px + p * L::X_TILE + k * SP);
 #pragma unroll
           for (int i = 0; i < 2; ++i)
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              const float re = part(a_r[i], q), im = part(a_i[i], q);
+              const float re = part(a[0][i], q);
+              if constexpr (REAL) {
 #pragma unroll
-              for (int c = 0; c < C; ++c) {
-                acc[0][i][q][c] = fmaf(re, x_r[c], acc[0][i][q][c]);
-                acc[0][i][q][c] = fmaf(-SGN * im, x_i[c], acc[0][i][q][c]);
-                acc[1][i][q][c] = fmaf(re, x_i[c], acc[1][i][q][c]);
-                acc[1][i][q][c] = fmaf(SGN * im, x_r[c], acc[1][i][q][c]);
+                for (int c = 0; c < CT; ++c)
+                  acc[0][i][q][c] = fmaf(re, x[0][c], acc[0][i][q][c]);
+              } else {
+                const float im = part(a[PL - 1][i], q);
+#pragma unroll
+                for (int c = 0; c < CT; ++c) {
+                  acc[0][i][q][c] = fmaf(re, x[0][c], acc[0][i][q][c]);
+                  acc[0][i][q][c] = fmaf(-SGN * im, x[PL - 1][c], acc[0][i][q][c]);
+                  acc[PL - 1][i][q][c] = fmaf(re, x[PL - 1][c], acc[PL - 1][i][q][c]);
+                  acc[PL - 1][i][q][c] = fmaf(SGN * im, x[0][c], acc[PL - 1][i][q][c]);
+                }
               }
             }
         }
       };
-      if (conj) products(std::true_type{});
+      if (!REAL && conj) products(std::true_type{});
       else products(std::false_type{});
     }
 #endif
     if (w.c == KCH - 1 && rows) {            // the item's last chunk: store
-      const int cv = w.sv - C * lc;          // this lane's columns in the pass
-      const uint32_t cols = cv >= C ? (1u << C) - 1u : cv > 0 ? (1u << cv) - 1u : 0u;
+      const int cv = w.sv - CT * lc;         // this lane's columns in the pass
+      const uint32_t cols = cv >= CT ? (1u << CT) - 1u : cv > 0 ? (1u << cv) - 1u : 0u;
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const int row = row0 + 16 * i + q;
-          const int64_t off = (w.b * n + w.r0 + row) * S + w.s0 + C * lc;
+          const int row = row0 + 4 * LR * i + q;
+          const int64_t off = (w.b * n + w.r0 + row) * S + w.s0 + CT * lc;
 #pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            if (row < w.rv) store_run<O, C>((p ? Yi : Yr) + off, acc[p][i][q], cols, vy);
+          for (int p = 0; p < PL; ++p) {
+            if (row < w.rv) store_run<O, CT>((p ? Yi : Yr) + off, acc[p][i][q], cols, vy);
 #pragma unroll
-            for (int c = 0; c < C; ++c) acc[p][i][q][c] = 0.f;
+            for (int c = 0; c < CT; ++c) acc[p][i][q][c] = 0.f;
           }
         }
     }
@@ -568,21 +642,22 @@ zgemm_th_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
 }
 
 // Y (B, n, S) = A^T X (A^H X with conj) on f32 planes, passes of 8, 16 or
-// 32 columns.
-template <typename O, bool TILED>
+// 32 columns; REAL: the planes Ar, Xr, Yr only (Ai, Xi, Yi null; conj 0).
+template <typename O, bool TILED, bool REAL>
 int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
               void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, int conj,
               const TileGrid& tg, int device, cudaStream_t s) {
   if (m == 0) {                              // an empty sum: Y = 0
     const size_t bytes = (size_t)(B * n * S) * sizeof(O);
     cudaError_t e = cudaMemsetAsync(Yr, 0, bytes, s);
-    if (e == cudaSuccess) e = cudaMemsetAsync(Yi, 0, bytes, s);
+    if (e == cudaSuccess && !REAL) e = cudaMemsetAsync(Yi, 0, bytes, s);
     return (int)e;
   }
   const int vec_a = n % 4 == 0 && aligned16(Ar) && aligned16(Ai);
   const int vec_x = S % 4 == 0 && aligned16(Xr) && aligned16(Xi);
   const int vec_y = aligned16(Yr) && aligned16(Yi);
-  const int64_t rts = (n + kTHRows - 1) / kTHRows;
+  constexpr int rows = THLayout<1, REAL>::ROWS;   // an item's output rows
+  const int64_t rts = (n + rows - 1) / rows;
   auto go = [&](auto kernel, int c, int bytes) {
     return launch_persistent(kernel, kTHThreads, bytes,
                              B * rts * ((S + 8 * c - 1) / (8 * c)), device, s,
@@ -591,9 +666,11 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
                              static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj,
                              vec_a, vec_x, vec_y, tg);
   };
-  if (S <= 8) return go(zgemm_th_f32_kernel<O, 1, TILED>, 1, THLayout<1>::BYTES);
-  if (S <= 16) return go(zgemm_th_f32_kernel<O, 2, TILED>, 2, THLayout<2>::BYTES);
-  return go(zgemm_th_f32_kernel<O, 4, TILED>, 4, THLayout<4>::BYTES);
+  if (S <= 8)
+    return go(zgemm_th_f32_kernel<O, 1, TILED, REAL>, 1, THLayout<1, REAL>::BYTES);
+  if (S <= 16)
+    return go(zgemm_th_f32_kernel<O, 2, TILED, REAL>, 2, THLayout<2, REAL>::BYTES);
+  return go(zgemm_th_f32_kernel<O, 4, TILED, REAL>, 4, THLayout<4, REAL>::BYTES);
 }
 
 // ---------------------------------------------------------------------------

@@ -118,6 +118,80 @@ def test_real_products_match_pallas_interpret(shape, dt, mode, S, which):
                                atol=tol * (4 if S is None else 8))
 
 
+# The real SBGEMMs' layouts on the card, whose edges these shapes straddle
+# (every pass 8, 16 or 32 columns wide: S = 8, 9, 16, 17, 32, 33):
+# - bf16 N (zgemm_bf16_kernel, REAL): 7 warps of 16-row tiles, items of
+#   112 rows, k-chunks of 256 (192 at S > 16), 16-byte copies where n % 8
+#   == 0, else element copies;
+# - bf16 T: items of 224 output rows (warp w: tiles w and w + 7), k = m in
+#   112-wide chunks;
+# - f32 N (zgemm_f32_kernel, REAL): 3 warps of 40-row bands (a band of at
+#   most 24 rows: a 3-row lane tile), items of 100 rows, k-chunks of 64 (32
+#   at S > 16), 16-byte copies where n % 4 == 0;
+# - f32 T (zgemm_th_f32_kernel, REAL): items of 256 output rows, 64-row warp
+#   bands, k-chunks of 20 (16 at S > 16).
+REAL_GEMM_EDGES = [
+    # bf16 N: m around the 16-row tiles and the 112-row item; n odd, n % 8
+    # != 0, past the 256-wide chunk
+    (torch.bfloat16, "N", 15, 130, 8), (torch.bfloat16, "N", 16, 264, 9),
+    (torch.bfloat16, "N", 17, 133, 16), (torch.bfloat16, "N", 111, 257, 17),
+    (torch.bfloat16, "N", 112, 520, 32), (torch.bfloat16, "N", 113, 40, 33),
+    # f32 N: m around the 3-row tile (24), the 40-row bands and the 100-row
+    # item; n past the 64-wide chunk, odd, n % 4 != 0
+    (torch.float32, "N", 24, 65, 8), (torch.float32, "N", 25, 64, 9),
+    (torch.float32, "N", 39, 130, 17), (torch.float32, "N", 41, 133, 32),
+    (torch.float32, "N", 99, 263, 33), (torch.float32, "N", 100, 65, 16),
+    (torch.float32, "N", 101, 129, 8),
+    # bf16 T: n around the 112 rows of the first tiles and the 224-row
+    # item; k = m past one 112-wide chunk
+    (torch.bfloat16, "T", 7, 111, 8), (torch.bfloat16, "T", 16, 112, 9),
+    (torch.bfloat16, "T", 113, 113, 16), (torch.bfloat16, "T", 100, 127, 17),
+    (torch.bfloat16, "T", 17, 128, 32), (torch.bfloat16, "T", 129, 225, 33),
+    # f32 T: n around the 64-row bands, the 128 rows of the complex item and
+    # the 256-row item; k = m past one 20- or 16-wide chunk
+    (torch.float32, "T", 21, 63, 9), (torch.float32, "T", 17, 64, 16),
+    (torch.float32, "T", 100, 255, 32), (torch.float32, "T", 7, 256, 33),
+    (torch.float32, "T", 129, 257, 17), (torch.float32, "T", 20, 129, 8),
+]
+
+
+@pytest.mark.parametrize("dt, mode, m, n, S", REAL_GEMM_EDGES,
+                         ids=[f"{str(c[0])[6:]}-{c[1]}-{c[2]}x{c[3]}-S{c[4]}"
+                              for c in REAL_GEMM_EDGES])
+def test_real_sbgemm_layout_edges_match_pallas_interpret(dt, mode, m, n, S):
+    shape = (2, m, n)
+    _, (A, X) = _inputs(*shape, mode, S, dt, seed=sum(shape) + S)
+    got = _plain(A, X, mode, torch.float32)
+    want = _jax_pallas(shape, dt, mode, S)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    np.testing.assert_allclose(_np(got), want, rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.parametrize("mode", ["N", "T"])
+@pytest.mark.parametrize("pattern", sorted(PATTERNS))
+def test_bf16_carrier_tiled_real_is_the_untiled_product(pattern, mode):
+    """At a bf16 carrier every cell's rounding is the identity, so the tiled
+    real product is the untiled one bit for bit (the card's tiled bf16
+    builds run the untiled kernel on this ground), in the port's plain
+    versions and in the JAX oracles; the port's tiled product agrees with
+    the JAX tiled oracle at the bf16 tolerance."""
+    levels = PATTERNS[pattern]
+    jp, (A, X) = _inputs(4, 16, 256, mode, 6, torch.bfloat16, seed=11)
+    d = "n" if mode == "N" else "th"
+    tiled = getattr(tsb, f"sbgemm_{d}_real_tiled")
+    untiled = getattr(tsb, f"sbgemm_{d}_real")
+    for od in (torch.bfloat16, torch.float32):
+        assert torch.equal(tiled(A, X, levels, out_dtype=od),
+                           untiled(A, X, out_dtype=od))
+    jt = jref.sbgemm_tiled_real_ref(*jp, levels, mode)
+    assert jt.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_np(jt), _np(jref.sbgemm_real_ref(*jp, mode)))
+    np.testing.assert_allclose(
+        _np(tiled(A, X, levels, out_dtype=torch.float32)), _np(jt),
+        rtol=2e-2, atol=2e-2 * 8)
+
+
 @pytest.mark.parametrize("force", [None, "torch", "ref", "plain"])
 @pytest.mark.parametrize("S", [None, 6])
 @pytest.mark.parametrize("mode", ["N", "T"])
