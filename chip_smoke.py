@@ -42,13 +42,15 @@ CUDA toolkit.  It:
    iteration, the Hessian action and the G_hat setup;
 5. tile-centric precision and the autotuner:
    a. the five tiled kernels (SBGEMV N and T/H for S = 1, SBGEMM N and
-      T/H for S > 1, the Gram), f64 and f32 carriers, an aligned 2 x 2 and
-      a ragged 3 x 3 map, at ragged small shapes and at the paper shape
-      (S = 1, 8, 32; the Gram in data space there, in parameter space at
-      (1001, 100, 1000)): each bit for bit against its untiled kernel on
-      planes quantized up front, and against its plain version at the
-      carrier's tolerance; tiled and untiled kernel times side by side;
-   b. two ``tiles=`` configs through matvec, rmatvec, matmat/rmatmat
+      T/H for S > 1, the Gram), f64, f32 and bf16 carriers, an aligned 2 x
+      2 and a ragged 3 x 3 map, at ragged small shapes and at the paper
+      shape (S = 1, 8, 32; the Gram in data space there, in parameter
+      space at (1001, 100, 1000)): each bit for bit against its untiled
+      kernel on planes quantized up front (the bf16 T/H SBGEMM against its
+      own call there), and against its plain version at the carrier's
+      tolerance; tiled and untiled kernel times side by side, at bf16
+      beside one ``torch.bmm`` and queued through the C entries;
+   b. three ``tiles=`` configs through matvec, rmatvec, matmat/rmatmat
       (S = 8), the exact Gram in both spaces and the tiled data-space G_hat,
       against ``torch-ref``, with launch counts that show the tiled kernels
       and no untiled gemv, each timed beside its uniform base;
@@ -165,6 +167,11 @@ CUDA toolkit.  It:
    bit for bit against the untiled ones at three more edge shapes; both
    real SBGEMMs timed queued through their C entries beside ``torch.bmm``
    at S = 8 and 32; the four real builds in the bound probe.
+15. the bf16 carrier of the tiled complex products: the tiled N SBGEMM
+   and Gram of bf16 planes run their untiled tensor-core builds (every
+   cell's rounding is the identity there; the data-space Gram at P <= 128
+   on wgmma), held bit for bit against them at every shape of 5a;
+   ``hhhhh;tiles=ds|sh`` runs in 5b beside uniform ``hhhhh``.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -175,6 +182,7 @@ prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import pathlib
 import subprocess
@@ -205,9 +213,9 @@ SOLVER_ITERS = 30
 # whose cells cut 1001 bins and 5000 columns raggedly
 TILE_MAPS = {"2x2": (("d", "s"), ("s", "h")),
              "3x3": (("h", "s", "d"), ("s", "d", "h"), ("d", "h", "s"))}
-# tiles= configs on the main path: f64 carrier with f32 and bf16 cells, and
-# f32 carrier with bf16 cells
-TILED_CONFIGS = ("ddddd;tiles=ds|sh", "dssdd;tiles=hs|sh")
+# tiles= configs on the main path: f64 carrier with f32 and bf16 cells, f32
+# carrier with bf16 cells, and a bf16 carrier (its effective map all h)
+TILED_CONFIGS = ("ddddd;tiles=ds|sh", "dssdd;tiles=hs|sh", "hhhhh;tiles=ds|sh")
 
 
 def name(dt: torch.dtype) -> str:
@@ -406,18 +414,27 @@ def _library_gram(Ar, Ai, data: bool, combine: bool = False):
     return lambda _: torch.bmm(Ac.mH, Ac)
 
 
-def entry_call(source, entry, tensors, sizes, dt_in, dt_out, defines=()):
+def entry_call(source, entry, tensors, sizes, dt_in, dt_out, defines=(),
+               levels=None):
     """A C entry of ``csrc/<source>.cu`` (built with the ``-D`` macros
     ``defines``) on ``tensors`` (inputs, then outputs) with no Python
-    around it: no launch is counted."""
+    around it: no launch is counted.  ``levels``: a tiled entry's map,
+    passed as the wrappers pass it (a host array after the outputs, its R
+    and C after ``sizes``)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import sbgemv as sk
     fn = getattr(_build.library(source, defines), entry)
     t0 = tensors[0]
-    args = (*[t.data_ptr() for t in tensors], *sizes,
+    ptrs, grid = [t.data_ptr() for t in tensors], None
+    if levels is not None:
+        R, C, grid = sk._level_grid(levels)
+        ptrs.append(ctypes.addressof(grid))
+        sizes = (*sizes, R, C)
+    args = (*ptrs, *sizes,
             _build.DTYPE_CODES[dt_in], _build.DTYPE_CODES[dt_out],
             t0.device.index, _build.stream_of(t0))
 
-    def call(_):
+    def call(_, grid=grid):            # holds the host array the calls read
         _build.check(fn(*args), entry)
     return call
 
@@ -1060,19 +1077,46 @@ def probe_flash_bounds(dev, shapes, time_fn):
     return out
 
 
+def queued_tiled(time_fn, call, untiled, what, b_ms) -> dict:
+    """A tiled build's C entry timed queued twice, beside ``untiled``, the
+    ``queued_pair`` of its untiled build's C entry and the ``bmm``."""
+    row = {"queued_ms": time_fn(call, None, repeats=FLASH_REPEATS,
+                                mode="queued")}
+    row["queued_ms_again"] = time_fn(call, None, repeats=FLASH_REPEATS,
+                                     mode="queued")
+    row.update({"untiled_queued_ms": untiled["queued_ms"],
+                "untiled_queued_ms_again": untiled["queued_ms_again"],
+                "library_queued_ms": untiled["library_queued_ms"],
+                "library_queued_ms_again": untiled["library_queued_ms_again"]})
+    print(f"  {what}: {row['queued_ms']:.4f} / {row['queued_ms_again']:.4f} "
+          f"ms, untiled {row['untiled_queued_ms']:.4f} / "
+          f"{row['untiled_queued_ms_again']:.4f}, torch.bmm "
+          f"{row['library_queued_ms']:.4f} / "
+          f"{row['library_queued_ms_again']:.4f} (queued through the C "
+          f"entries); bound {b_ms:.4f}", flush=True)
+    return row
+
+
 def check_tiled_kernels(dev, B, m, n, S_list, modes, timed, results, time_fn):
-    """The tiled SBGEMV (S = 1) and SBGEMM (S > 1) kernels, f64 and f32
-    carriers, on each map of TILE_MAPS: bit for bit against the untiled
-    kernel on planes quantized up front, and against the plain version at
-    the carrier's tolerance.  Timed: tiled and untiled kernel (the untiled
-    one on the same, unquantized planes: the same bytes), the plain
-    version on the first map."""
+    """The tiled SBGEMV (S = 1) and SBGEMM (S > 1) kernels, f64, f32 and
+    bf16 carriers, on each map of TILE_MAPS: bit for bit against the
+    untiled kernel on planes quantized up front, and against the plain
+    version at the carrier's tolerance.  One exception: the tiled bf16
+    T/H SBGEMM (S > 1) stays on the vector kernel, whose sums run in
+    another order than the untiled tensor-core T/H's, so it is held bit
+    for bit against its own call on the quantized planes (which shows
+    that its rounding is the identity), not against the untiled kernel.
+    Timed: tiled and untiled kernel (the untiled one on the same,
+    unquantized planes: the same bytes), the plain version on the first
+    map; at bf16, where one ``torch.bmm`` computes the same function, also
+    that call (median of events), and on the card the tiled and the
+    untiled C entries and the ``bmm``, each queued twice."""
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import sbgemv as sk
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     A64 = [torch.randn((B, m, n), generator=gen, device=dev,
                        dtype=torch.float64) for _ in range(2)]
-    for dt in (torch.float64, torch.float32):
+    for dt in DTYPES:
         Ar, Ai = (a.to(dt) for a in A64)
         for S in S_list:
             for mode in modes:
@@ -1087,23 +1131,35 @@ def check_tiled_kernels(dev, B, m, n, S_list, modes, timed, results, time_fn):
                 plain = getattr(sk, kname + "_tiled_plain")
                 kw = {} if mode == "N" else {"conj": mode == "H"}
                 pkw = () if mode == "N" else (mode == "H",)
+                own = dt == torch.bfloat16 and S > 1 and mode != "N"
+                against = "its own call" if own else "the untiled kernel"
+                bf16_card = timed and dt == torch.bfloat16 and dev.type == "cuda"
+                if bf16_card:      # the C entries' operands and sizes
+                    Y = [torch.empty(shape[:1] + (ylen,) + shape[2:],
+                                     device=dev, dtype=dt) for _ in range(2)]
+                    sizes = ((B, m, n) + ((S,) if S > 1 else ())
+                             + ((int(mode == "H"),) if mode != "N" else ()))
+
+                    def c_entry(entry, levels=None):
+                        return entry_call(kind, entry, (Ar, Ai, Xr, Xi, *Y),
+                                          sizes, dt, dt, levels=levels)
                 u_ms = None
                 for tname, levels in TILE_MAPS.items():
                     Aq = kref.quantize_tile_cells(levels, Ar, Ai)
                     got = tiled(Ar, Ai, Xr, Xi, levels, **kw)
-                    want_bits = untiled(*Aq, Xr, Xi, **kw)
+                    want_bits = (tiled(*Aq, Xr, Xi, levels, **kw) if own
+                                 else untiled(*Aq, Xr, Xi, **kw))
                     del Aq
                     what = (f"{kname}_tiled mode {mode} {name(dt)} map {tname} "
                             f"at {(B, m, n, S)}")
                     if not same_bits(got, want_bits):
-                        fail(f"{what}: differs from the untiled kernel on "
-                             f"planes quantized up front")
+                        fail(f"{what}: differs from {against} on planes "
+                             f"quantized up front")
                     err = check_planes(what, got, plain(Ar, Ai, Xr, Xi, levels,
                                                         *pkw, dt), dt)
                     del got, want_bits
-                    print(f"{what}: bitwise equal to the untiled kernel on "
-                          f"quantized planes; max abs err vs plain {err:.3e}",
-                          flush=True)
+                    print(f"{what}: bitwise equal to {against} on quantized "
+                          f"planes; max abs err vs plain {err:.3e}", flush=True)
                     if not timed:
                         continue
                     if u_ms is None:
@@ -1111,20 +1167,29 @@ def check_tiled_kernels(dev, B, m, n, S_list, modes, timed, results, time_fn):
                                        None)
                         p_ms = time_fn(lambda _: plain(Ar, Ai, Xr, Xi, levels,
                                                        *pkw, dt), None)
+                        lib = (_library(Ar, Ai, Xr, Xi, mode)
+                               if dt == torch.bfloat16 else None)
+                        lib_ms = time_fn(lib, None) if lib else None
+                        if bf16_card:
+                            uq = queued_pair(time_fn, c_entry(kname), lib)
                     nbytes = 2 * dt.itemsize * (B * m * n + B * xlen * S
                                                 + B * ylen * S)
                     b_ms, b_by = bound_ms(nbytes, 8 * B * m * n * S, name(dt))
                     key = (f"{name(dt)} {tname}" if S == 1
                            else f"{name(dt)} S={S} {tname}")
-                    results[kname + "_tiled"][key] = {
+                    row = results[kname + "_tiled"][key] = {
                         "shape": [B, m, n, S], "mode": mode, "map": tname,
                         "max_abs_err": err,
                         "ms": time_fn(lambda _: tiled(Ar, Ai, Xr, Xi, levels,
                                                       **kw), None),
                         "untiled_ms": u_ms, "plain_ms": p_ms,
-                        "library_ms": None, "bytes": nbytes,
+                        "library_ms": lib_ms, "bytes": nbytes,
                         "flops": 8 * B * m * n * S, "bound_ms": b_ms,
                         "bound_by": b_by}
+                    if bf16_card:
+                        row.update(queued_tiled(
+                            time_fn, c_entry(kname + "_tiled", levels), uq,
+                            what, b_ms))
                 del Xr, Xi
         del Ar, Ai
 
@@ -1159,20 +1224,26 @@ def check_tile_rounding(dev):
 
 
 def check_tiled_gram(dev, B, m, n, spaces, timed, results, time_fn):
-    """The tiled Gram kernel, f64 and f32 carriers, each map of TILE_MAPS:
-    bit for bit against the untiled Gram kernel on planes quantized up
-    front, and against the plain version (quantize, then the plain Gram,
-    taken 128 bins at a time so the plain products fit beside the
-    kernel's output) at the carrier's tolerance."""
+    """The tiled Gram kernel, f64, f32 and bf16 carriers, each map of
+    TILE_MAPS: bit for bit against the untiled Gram kernel on planes
+    quantized up front (at bf16 the data space at P <= 128 is the wgmma
+    Gram's, the rest the general bf16 Gram's), and against the plain
+    version (quantize, then the plain Gram, taken 128 bins at a time so
+    the plain products fit beside the kernel's output) at the carrier's
+    tolerance.  Timed as ``check_tiled_kernels``: at bf16 also one
+    ``torch.bmm`` of the stacked planes, and on the card the tiled and the
+    untiled C entries and the ``bmm``, each queued twice."""
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import sbgemv as sk
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     A64 = [torch.randn((B, m, n), generator=gen, device=dev,
                        dtype=torch.float64) for _ in range(2)]
-    for dt in (torch.float64, torch.float32):
+    for dt in DTYPES:
         Ar, Ai = (a.to(dt) for a in A64)
         for space in spaces:
             data = space == "data"
+            P, K = (m, n) if data else (n, m)
+            bf16_card = timed and dt == torch.bfloat16 and dev.type == "cuda"
             u_ms = None
             for tname, levels in TILE_MAPS.items():
                 Aq = kref.quantize_tile_cells(levels, Ar, Ai)
@@ -1198,23 +1269,41 @@ def check_tiled_gram(dev, B, m, n, spaces, timed, results, time_fn):
                 if not timed:
                     continue
                 free(dev)
+                if bf16_card and u_ms is None:   # the C entries' outputs
+                    G = [torch.empty((B, P, P), device=dev, dtype=dt)
+                         for _ in range(2)]
+
+                    def c_entry(entry, levels=None):
+                        return entry_call("sbgemm", entry, (Ar, Ai, *G),
+                                          (B, m, n, int(data)), dt, dt,
+                                          levels=levels)
                 if u_ms is None:
                     u_ms = time_fn(lambda _: sk.sbgemm_gram_complex(
                         Ar, Ai, data=data), None)
                     p_ms = time_fn(lambda _: sk.sbgemm_gram_tiled_plain(
                         Ar, Ai, levels, data, dt), None)
-                P, K = (m, n) if data else (n, m)
+                    lib = (_library_gram(Ar, Ai, data)
+                           if dt == torch.bfloat16 else None)
+                    lib_ms = time_fn(lib, None) if lib else None
+                    if bf16_card:
+                        uq = queued_pair(time_fn, c_entry(
+                            sk.gram_kernel_for(dt, data, P)), lib)
                 nbytes = 2 * dt.itemsize * (B * m * n + B * P * P)
                 flops = 4 * B * P * (P + 1) * K
                 b_ms, b_by = bound_ms(nbytes, flops, name(dt))
-                results["sbgemm_gram_tiled"][f"{name(dt)} {space} {tname}"] = {
+                row = results["sbgemm_gram_tiled"][
+                    f"{name(dt)} {space} {tname}"] = {
                     "shape": [B, m, n], "space": space, "map": tname,
                     "max_abs_err": err,
                     "ms": time_fn(lambda _: sk.sbgemm_gram_tiled(
                         Ar, Ai, levels, data=data), None),
-                    "untiled_ms": u_ms, "plain_ms": p_ms, "library_ms": None,
+                    "untiled_ms": u_ms, "plain_ms": p_ms, "library_ms": lib_ms,
                     "bytes": nbytes, "flops": flops, "bound_ms": b_ms,
                     "bound_by": b_by}
+                if bf16_card:
+                    row.update(queued_tiled(
+                        time_fn, c_entry("sbgemm_gram_tiled", levels), uq,
+                        what, b_ms))
                 free(dev)
         del Ar, Ai
 

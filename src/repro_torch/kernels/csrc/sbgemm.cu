@@ -10,49 +10,26 @@
 //
 // f64 planes run on the FP64 tensor cores (67 TFLOP/s against 34 for the
 // FP64 vector units), in the staged kernels of the f64 section below.  The
-// untiled complex N, T/H and Gram of bf16 planes and the real N and T of
-// bf16 planes, untiled and tiled, run on the bf16 tensor cores with f32
-// sums (sbgemm_bf16.cuh), and the complex N, T/H and Gram and the real N
-// and T of f32 planes, untiled and tiled, in staged FP32 kernels
-// (sbgemm_f32.cuh).  The tiled complex builds of bf16 planes (f32 sums)
-// run on the vector units, in the kernels described here.  Bounds and
-// designs:
+// complex N, T/H and Gram of bf16 planes and the real N and T of bf16
+// planes, untiled and tiled, run on the bf16 tensor cores with f32 sums
+// (sbgemm_bf16.cuh), but for the tiled complex T/H; the complex
+// N, T/H and Gram and the real N and T of f32 planes, untiled and tiled,
+// in staged FP32 kernels (sbgemm_f32.cuh).  The tiled complex T/H of bf16
+// planes runs on the vector units, in the kernel described here:
 //
-//   N (sum over the long n), bytes-bound (8 S flops per complex bf16 A
-//     element: 2 S flops a byte).  The sbgemv_n design widened to
-//     S columns: a warp owns two output rows of one bin and a pass of SC
-//     columns; its lanes stride over n, so every A load is coalesced and
-//     goes straight to registers, where it serves all SC columns.  The
-//     block's eight warps share each chunk of X (2048 elements a plane),
-//     staged in shared memory column by column, so lanes read consecutive
-//     k without bank conflicts and one staged element serves two rows.
-//     Each lane sums its k in order and the warp adds its lanes with a
-//     fixed butterfly: no atomics, no cross-block pass, so every sum runs
-//     in one order on every run.
 //   T/H (sum over the short m): the paper's short-wide pathology with S
 //     columns.  One thread per output column j, blocks tiling the long n
 //     axis, as in sbgemv_th; the X panel (an m-chunk x SC columns) sits in
 //     shared memory, read as broadcasts, and loads of A[b, i, j] are
-//     coalesced along j.  Each A element is read once for all SC columns.
-//   Gram G[p, q] = sum_k conj(U[k, p]) U[k, q], compute-bound (8 flops per
-//     A element and output column).  U = A (parameter space, k over m) or
-//     U = A^H (data space, k over n: the kernel reads A in its stored
-//     layout, so no transposed copy of A is made).  A block computes a
-//     64 x 64 output tile on or above the diagonal and writes the tile
-//     below it as its conjugate (G is Hermitian), so half the off-diagonal
-//     work is skipped.  Each k-chunk of both column panels is staged in
-//     shared memory, the next chunk's loads in flight in registers while
-//     this one is used; each thread accumulates a 4 x 4 register tile in k
-//     order, its rows and columns 16 apart so the panel reads are
-//     conflict-free.
+//     coalesced along j.  Each A element is read once for all SC columns,
+//     in passes of SC = 1, 8 or 32 (the smallest that holds S, at most 32;
+//     wider blocks loop over passes inside the kernel and read A once per
+//     pass).  Columns past S are zero in the staged panel and never
+//     stored.  Sums run in float; outputs are stored in their dtype
+//     straight from the accumulator.
 //
-// Columns come in passes of SC = 1, 8 or 16 for N and SC = 1, 8 or 32 for T/H
-// (the smallest that holds S, at most 16 or 32; wider blocks loop over
-// passes inside the kernel and read A once per pass).  Columns past S are
-// zero in the staged panel and never stored.
-// Sums run in double for f64 planes and in float otherwise; outputs are
-// stored in their dtype straight from the accumulator.  Offsets are int64
-// and ragged edges are masked in the kernels, so no call pads A.
+// Offsets are int64 and ragged edges are masked in the kernels, so no call
+// pads A.
 //
 // Tiled builds (TILED = true) replace the TPU kernels
 // :sbgemm_n_complex_tiled, :sbgemm_th_complex_tiled and :sbgemm_gram_tiled:
@@ -64,6 +41,9 @@
 // quantized up front they give the untiled build's bits.  In the
 // Gram both factors of a product are rounded at their own cells.  They
 // move the untiled kernels' bytes: A stays stored at the carrier type.
+// At a bf16 carrier every cell's rounding is the identity, so the tiled
+// N and Gram of bf16 planes run their untiled builds (launch_n,
+// launch_gram).
 //
 // Real builds (REAL = true) replace the TPU kernels :sbgemm_n_real,
 // :sbgemm_th_real, :sbgemm_n_real_tiled and :sbgemm_th_real_tiled: the
@@ -85,120 +65,9 @@ namespace {
 
 constexpr int kThreads = 128;   // T/H: threads of a block
 constexpr int kPanel = 2048;    // T/H: staged X panel, elements per plane
-constexpr int kNWarps = 8;      // N: warps of a block
-constexpr int kNRows = 2;       // N: output rows of a warp
-constexpr int kNStage = 2048;   // N: staged X chunk, elements per plane
-constexpr int kTile = 64;       // Gram output tile (kTile x kTile)
-constexpr int kMicro = 4;       // Gram register tile per thread (4 x 4)
-constexpr int kChunk = 16;      // Gram contraction chunk staged a step
-constexpr int kGramThreads = (kTile / kMicro) * (kTile / kMicro);
 
 __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
-}
-
-template <typename T, typename O, int SC, bool TILED>
-__global__ void __launch_bounds__(kNWarps * 32)
-sbgemm_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
-                const T* __restrict__ Xr, const T* __restrict__ Xi,
-                O* __restrict__ Yr, O* __restrict__ Yi,
-                int64_t B, int64_t m, int64_t n, int64_t S, TileGrid tg) {
-  using A = typename AccOf<T>::type;
-  constexpr int R = kNRows;
-  constexpr int KC = kNStage / SC;          // k-chunk staged a step
-  static_assert(KC % 32 == 0, "the lanes split a chunk evenly");
-  // the X chunk column by column, so lanes read consecutive k; the pad
-  // spreads the transposing stores over the banks
-  __shared__ A sxr[SC][KC + 1];
-  __shared__ A sxi[SC][KC + 1];
-  __shared__ unsigned char slv[TILED ? KC : 1];   // the chunk's column levels
-  const int lane = threadIdx.x & 31;
-  const int64_t row0 = ((int64_t)blockIdx.x * kNWarps + (threadIdx.x >> 5)) * R;
-  for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
-    const T* xr = Xr + b * n * S;
-    const T* xi = Xi + b * n * S;
-    const uint32_t cells = TILED ? tile_row(tg, b) : 0u;
-    for (int64_t s0 = 0; s0 < S; s0 += SC) {
-      const int sc = (int)min64(SC, S - s0);
-      A acc_r[R][SC], acc_i[R][SC];
-#pragma unroll
-      for (int u = 0; u < R; ++u)
-#pragma unroll
-        for (int s = 0; s < SC; ++s) acc_r[u][s] = acc_i[u][s] = 0;
-      for (int64_t k0 = 0; k0 < n; k0 += KC) {
-        __syncthreads();  // the previous chunk is consumed
-        for (int e = threadIdx.x; e < KC * SC; e += kNWarps * 32) {
-          const int kk = e / SC, s = e % SC;   // s fastest: coalesced reads
-          const int64_t k = k0 + kk;
-          A vr = 0, vi = 0;
-          if (k < n && s < sc) {
-            vr = widen<A>(xr[k * S + s0 + s]);
-            vi = widen<A>(xi[k * S + s0 + s]);
-          }
-          sxr[s][kk] = vr;
-          sxi[s][kk] = vi;
-        }
-        if (TILED)
-          for (int e = threadIdx.x; e < KC; e += kNWarps * 32)
-            slv[e] = (unsigned char)tile_level(tg, cells, k0 + e);
-        __syncthreads();
-        if (row0 >= m) continue;               // whole warp: no rows here
-        // a constant trip count, so the loads of four steps are in flight
-#pragma unroll 4
-        for (int kk = lane; kk < KC; kk += 32) {
-          const int64_t k = k0 + kk;
-          A a_r[R], a_i[R];
-          const int lv = TILED ? slv[kk] : 2;
-#pragma unroll
-          for (int u = 0; u < R; ++u) {
-            a_r[u] = a_i[u] = 0;
-            if (row0 + u < m && k < n) {
-              const int64_t off = (b * m + row0 + u) * n + k;
-              a_r[u] = widen<A>(Ar[off]);
-              a_i[u] = widen<A>(Ai[off]);
-              if (TILED && rounds<A>(lv)) {
-                a_r[u] = quantize(a_r[u], lv);
-                a_i[u] = quantize(a_i[u], lv);
-              }
-            }
-          }
-#pragma unroll
-          for (int s = 0; s < SC; ++s) {
-            const A x_r = sxr[s][kk], x_i = sxi[s][kk];
-#pragma unroll
-            for (int u = 0; u < R; ++u) {
-              acc_r[u][s] += a_r[u] * x_r - a_i[u] * x_i;
-              acc_i[u][s] += a_r[u] * x_i + a_i[u] * x_r;
-            }
-          }
-        }
-      }
-      if (row0 >= m) continue;
-      // butterfly over the lanes: both lanes of a pair add the same two
-      // operands, so every lane ends with the same total, bit for bit
-#pragma unroll
-      for (int u = 0; u < R; ++u)
-#pragma unroll
-        for (int s = 0; s < SC; ++s)
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            acc_r[u][s] += __shfl_xor_sync(0xffffffffu, acc_r[u][s], off);
-            acc_i[u][s] += __shfl_xor_sync(0xffffffffu, acc_i[u][s], off);
-          }
-#pragma unroll
-      for (int u = 0; u < R; ++u) {
-        if (row0 + u >= m) continue;
-        const int64_t out = (b * m + row0 + u) * S + s0;
-#pragma unroll
-        for (int s = 0; s < SC; ++s) {
-          if (s == lane && s < sc) {          // lane s stores column s
-            Yr[out + s] = Store<O>::from(acc_r[u][s]);
-            Yi[out + s] = Store<O>::from(acc_i[u][s]);
-          }
-        }
-      }
-    }
-  }
 }
 
 template <typename T, typename O, int SC, bool TILED>
@@ -280,131 +149,12 @@ sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   }
 }
 
-template <typename T, typename O, bool TILED>
-__global__ void __launch_bounds__(kGramThreads)
-sbgemm_gram_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
-                   O* __restrict__ Gr, O* __restrict__ Gi,
-                   int64_t B, int64_t m, int64_t n, int data, TileGrid tg) {
-  using A = typename AccOf<T>::type;
-  constexpr int TD = kTile / kMicro;        // threads along each tile axis
-  static_assert(TD * TD == kGramThreads, "one thread per register tile");
-  // U[k, p] sits at k * sk + p * sp, its imaginary part times sgn
-  const int64_t K = data ? n : m, P = data ? m : n;
-  const int64_t sk = data ? 1 : n, sp = data ? n : 1;
-  const A sgn = data ? A(-1) : A(1);
-  constexpr int L = 2 * kChunk * kTile / kGramThreads;  // staged a thread
-  // the lower tiles are the upper ones conjugated: only p0 <= q0 runs
-  if (blockIdx.y > blockIdx.x) return;
-  // [panel (p or q)][k][column], columns padded against bank conflicts
-  __shared__ A sur[2][kChunk][kTile + 1];
-  __shared__ A sui[2][kChunk][kTile + 1];
-  const int tx = threadIdx.x % TD, ty = threadIdx.x / TD;
-  const int64_t p0 = (int64_t)blockIdx.y * kTile, q0 = (int64_t)blockIdx.x * kTile;
-  // element l of this thread's share of a chunk: panel, k and column, with
-  // the unit-stride axis fastest so the loads coalesce
-  auto slot = [&](int l, int& panel, int& kk, int& pp) {
-    const int e = threadIdx.x + l * kGramThreads;
-    const int r = e % (kChunk * kTile);
-    panel = e / (kChunk * kTile);
-    kk = sp == 1 ? r / kTile : r % kChunk;
-    pp = sp == 1 ? r % kTile : r / kChunk;
-  };
-  for (int64_t b = blockIdx.z; b < B; b += gridDim.z) {
-    const T* ar = Ar + b * m * n;
-    const T* ai = Ai + b * m * n;
-    const uint32_t cells = TILED ? tile_row(tg, b) : 0u;
-    // the next chunk, loaded into registers while this one is used
-    A nr[L], ni[L];
-    auto fetch = [&](int64_t k0) {
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        int panel, kk, pp;
-        slot(l, panel, kk, pp);
-        const int64_t k = k0 + kk, p = (panel ? q0 : p0) + pp;
-        nr[l] = ni[l] = 0;
-        if (k < K && p < P) {
-          A vr = widen<A>(ar[k * sk + p * sp]), vi = widen<A>(ai[k * sk + p * sp]);
-          if (TILED) {                        // A's column: k (data) or p
-            const int lv = tile_level(tg, cells, data ? k : p);
-            if (rounds<A>(lv)) {
-              vr = quantize(vr, lv);
-              vi = quantize(vi, lv);
-            }
-          }
-          nr[l] = vr;
-          ni[l] = sgn * vi;
-        }
-      }
-    };
-    A gr[kMicro][kMicro], gi[kMicro][kMicro];
-#pragma unroll
-    for (int u = 0; u < kMicro; ++u)
-#pragma unroll
-      for (int v = 0; v < kMicro; ++v) gr[u][v] = gi[u][v] = 0;
-    fetch(0);
-    for (int64_t k0 = 0; k0 < K; k0 += kChunk) {
-      __syncthreads();  // the previous chunk is consumed
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        int panel, kk, pp;
-        slot(l, panel, kk, pp);
-        sur[panel][kk][pp] = nr[l];
-        sui[panel][kk][pp] = ni[l];
-      }
-      __syncthreads();
-      if (k0 + kChunk < K) fetch(k0 + kChunk);
-#pragma unroll 4
-      for (int kk = 0; kk < kChunk; ++kk) {
-        A ur[kMicro], ui[kMicro], vr[kMicro], vi[kMicro];
-#pragma unroll
-        for (int u = 0; u < kMicro; ++u) {
-          ur[u] = sur[0][kk][ty + TD * u];
-          ui[u] = sui[0][kk][ty + TD * u];
-          vr[u] = sur[1][kk][tx + TD * u];
-          vi[u] = sui[1][kk][tx + TD * u];
-        }
-#pragma unroll
-        for (int u = 0; u < kMicro; ++u)
-#pragma unroll
-          for (int v = 0; v < kMicro; ++v) {
-            // conj(U[k, p]) U[k, q] = (ur - i ui)(vr + i vi)
-            gr[u][v] += ur[u] * vr[v] + ui[u] * vi[v];
-            gi[u][v] += ur[u] * vi[v] - ui[u] * vr[v];
-          }
-      }
-    }
-    const bool mirror = blockIdx.x != blockIdx.y;
-#pragma unroll
-    for (int u = 0; u < kMicro; ++u) {
-      const int64_t p = p0 + ty + TD * u;
-      if (p >= P) continue;
-#pragma unroll
-      for (int v = 0; v < kMicro; ++v) {
-        const int64_t q = q0 + tx + TD * v;
-        if (q >= P) continue;
-        Gr[(b * P + p) * P + q] = Store<O>::from(gr[u][v]);
-        Gi[(b * P + p) * P + q] = Store<O>::from(gi[u][v]);
-        if (mirror) {                           // G[q, p] = conj(G[p, q])
-          Gr[(b * P + q) * P + p] = Store<O>::from(gr[u][v]);
-          Gi[(b * P + q) * P + p] = Store<O>::from(-gi[u][v]);
-        }
-      }
-    }
-  }
-}
-
 // Run the statements in __VA_ARGS__ with SC bound to the column pass width
 // for S right-hand sides: 1, 8, or 32 (wider blocks take passes of 32).
 #define DISPATCH_PASS(S, SC, ...)                          \
   if ((S) <= 1) { constexpr int SC = 1; __VA_ARGS__ }      \
   else if ((S) <= 8) { constexpr int SC = 8; __VA_ARGS__ } \
   else { constexpr int SC = 32; __VA_ARGS__ }
-
-// The same for the N kernel: passes of 1, 8 or 16 columns.
-#define DISPATCH_N_PASS(S, SC, ...)                        \
-  if ((S) <= 1) { constexpr int SC = 1; __VA_ARGS__ }      \
-  else if ((S) <= 8) { constexpr int SC = 8; __VA_ARGS__ } \
-  else { constexpr int SC = 16; __VA_ARGS__ }
 
 unsigned batch_grid(int64_t B) { return (unsigned)(B < 65535 ? B : 65535); }
 
@@ -1006,31 +756,16 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
     )
   }
   if (dt_in != DT_BF16) return (int)cudaErrorInvalidValue;
-  // bf16 planes: the tensor cores, but for the tiled complex build.  A
-  // tiled real build's map was checked by its entry; at a bf16 carrier
-  // every cell's rounding is the identity (rounds<float> holds only at h,
-  // and round_bf16 returns a bf16 value as it is), so it runs the untiled
-  // build and gives its bits by construction.
-  if constexpr (!TILED || REAL) {
-    DISPATCH_DTYPE(dt_out, O,
-      return bf16tc::launch_gemm<O, false, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, 0,
-                                                 device, s);
-    )
-    return (int)cudaErrorInvalidValue;
-  } else {   // the tiled complex build: the vector kernel
-    const int64_t rows = kNWarps * kNRows;   // output rows of a block
-    const int64_t bx = (m + rows - 1) / rows;
-    if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    const dim3 grid((unsigned)bx, batch_grid(B));
-    using T = __nv_bfloat16;
-    DISPATCH_DTYPE(dt_out, O, DISPATCH_N_PASS(S, SC,
-      sbgemm_n_kernel<T, O, SC, TILED><<<grid, kNWarps * 32, 0, s>>>(
-          static_cast<const T*>(Ar), static_cast<const T*>(Ai),
-          static_cast<const T*>(Xr), static_cast<const T*>(Xi),
-          static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, tg);
-    ))
-    return (int)cudaGetLastError();
-  }
+  // bf16 planes: the tensor cores, tiled or not.  A tiled build's map was
+  // checked by its entry; at a bf16 carrier every cell's rounding is the
+  // identity (rounds<float> holds only at h, and round_bf16 returns a bf16
+  // value as it is), so the tiled complex and real builds run the untiled
+  // build and give its bits by construction.
+  DISPATCH_DTYPE(dt_out, O,
+    return bf16tc::launch_gemm<O, false, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, 0,
+                                               device, s);
+  )
+  return (int)cudaErrorInvalidValue;
 }
 
 // Y (B, n, S) = A^T X, or A^H X when conj != 0; X is (B, m, S).
@@ -1056,14 +791,17 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
   }
   if (dt_in != DT_BF16) return (int)cudaErrorInvalidValue;
   // bf16 planes: the tensor cores, but for the tiled complex build (the
-  // tiled real build as in launch_n)
+  // tiled real build runs the untiled build, as in launch_n).  The tiled
+  // complex T/H keeps the vector kernel, sbgemm_th_kernel: its sums run in
+  // another order than the tensor-core T/H's, so it cannot yet give their
+  // bits.
   if constexpr (!TILED || REAL) {
     DISPATCH_DTYPE(dt_out, O,
       return bf16tc::launch_gemm<O, true, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj,
                                                 device, s);
     )
     return (int)cudaErrorInvalidValue;
-  } else {   // the tiled complex build: the vector kernel
+  } else {   // the tiled complex build of bf16 planes: the vector kernel
     const int64_t bx = (n + kThreads - 1) / kThreads;
     if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
     const dim3 grid((unsigned)bx, batch_grid(B));
@@ -1079,9 +817,8 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
 }
 
 // G = A^H A, (B, n, n), or with data != 0 G = A A^H, (B, m, m).  The tiles
-// below the diagonal are the conjugates of those above; the vector kernel's
-// diagonal tiles, and the f64, bf16 and f32 kernels' diagonal entries, are
-// not symmetrized (ops.sbgemm_gram does that).
+// below the diagonal are the conjugates of those above; the kernels'
+// diagonal entries are not symmetrized (ops.sbgemm_gram does that).
 template <bool TILED>
 int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
                 int64_t m, int64_t n, int data, const TileGrid& tg, int dt_in,
@@ -1101,26 +838,20 @@ int launch_gram(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t B,
       return f32simt::launch_gram<O, TILED>(Ar, Ai, Gr, Gi, B, m, n, data, tg, device, s);
     )
   }
-  if constexpr (!TILED) {
-    if (dt_in == DT_BF16) {
-      DISPATCH_DTYPE(dt_out, O,
-        return bf16tc::launch_gram<O>(Ar, Ai, Gr, Gi, B, m, n, data, device, s);
-      )
-    }
-    return (int)cudaErrorInvalidValue;
-  } else {   // the tiled bf16 build
-    if (dt_in != DT_BF16) return (int)cudaErrorInvalidValue;
-    const int64_t tiles = (P + kTile - 1) / kTile;
-    if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
-    const dim3 grid((unsigned)tiles, (unsigned)tiles, batch_grid(B));
-    using T = __nv_bfloat16;
+  if (dt_in != DT_BF16) return (int)cudaErrorInvalidValue;
+  // bf16 planes: the tensor cores.  The tiled build runs the untiled build
+  // (as in launch_n): the data space at P <= kWgmmaGramMaxP on wgmma (the
+  // calls of sbgemm_gram_complex_wgmma, which bf16tc::launch_gram refuses),
+  // the rest on the general bf16 Gram.
+  if (TILED && data && m <= bf16tc::kWgmmaGramMaxP) {
     DISPATCH_DTYPE(dt_out, O,
-      sbgemm_gram_kernel<T, O, TILED><<<grid, kGramThreads, 0, s>>>(
-          static_cast<const T*>(Ar), static_cast<const T*>(Ai),
-          static_cast<O*>(Gr), static_cast<O*>(Gi), B, m, n, data, tg);
+      return bf16tc::launch_gram_wgmma<O>(Ar, Ai, Gr, Gi, B, m, n, device, s);
     )
-    return (int)cudaGetLastError();
   }
+  DISPATCH_DTYPE(dt_out, O,
+    return bf16tc::launch_gram<O>(Ar, Ai, Gr, Gi, B, m, n, data, device, s);
+  )
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-// bf16 planes on Hopper's tensor cores: the untiled complex N, T/H and
-// Gram blocks of sbgemm.cu, for bf16 A with f32 sums.
+// bf16 planes on Hopper's tensor cores: the complex N, T/H and Gram blocks
+// of sbgemm.cu, for bf16 A with f32 sums.
 //
 // Replaces, for bf16 planes, the TPU kernels
 // src/repro/kernels/sbgemv.py:sbgemm_n_complex (Y = A X as four
@@ -9,12 +9,14 @@
 // A^H A from four f32-accumulated real products, Gr = Ar^T Ar + Ai^T Ai, Gi
 // = Ar^T Ai - Ai^T Ar; the data-space A A^H read from A as stored).  A bf16
 // x bf16 product is exact in f32, so mma.sync.m16n8k16 (bf16 in, f32
-// accumulate) computes the vector kernels' function up to the order of the
+// accumulate) computes the TPU kernels' function up to the order of the
 // sums.  zgemm_bf16_kernel with REAL also takes the real products
-// :sbgemm_n_real and :sbgemm_th_real, and their tiled builds
-// :sbgemm_n_real_tiled and :sbgemm_th_real_tiled (sbgemm.cu's launch_n /
-// launch_th: at a bf16 carrier every cell's rounding is the identity).  The
-// tiled complex builds stay on the vector kernels.
+// :sbgemm_n_real and :sbgemm_th_real.  At a bf16 carrier every cell's
+// rounding is the identity, so the tiled builds :sbgemm_n_real_tiled,
+// :sbgemm_th_real_tiled, :sbgemm_n_complex_tiled and :sbgemm_gram_tiled run
+// these kernels as their untiled builds do (sbgemm.cu's launch_n, launch_th
+// and launch_gram).  The tiled complex T/H stays on sbgemm.cu's vector
+// kernel.
 //
 // Included by sbgemm.cu inside its anonymous namespace, after the f64
 // section, whose smem_addr, min64 / aligned16 and launch_persistent it

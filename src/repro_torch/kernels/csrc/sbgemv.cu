@@ -52,7 +52,9 @@
 // threads own a column, so they look the level up once a batch and skip
 // the rounding in cells at the carrier's level; N lanes stride the columns
 // and look it up per element.  The bytes are the untiled kernel's: A stays
-// stored at the carrier type.
+// stored at the carrier type.  At a bf16 carrier every cell's rounding is
+// the identity, so the tiled builds of bf16 planes run the untiled kernels
+// (kTiled), with no level lookups.
 //
 // Real builds (REAL = true; sbgemv_n_real and sbgemv_th_real, which
 // replace the TPU kernels :sbgemv_n_real and :sbgemv_th_real) are the same
@@ -67,6 +69,10 @@
 #include "common.cuh"
 
 namespace {
+
+// Whether a tiled build of T planes rounds at all: not at a bf16 carrier.
+template <typename T, bool TILED>
+constexpr bool kTiled = TILED && !std::is_same<T, __nv_bfloat16>::value;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -264,11 +270,12 @@ void launch_n_typed(const T* Ar, const T* Ai, const T* xr, const T* xi, O* yr, O
   const bool vec = n % VE == 0 && aligned(Ar) && aligned(Ai) && aligned(xr) && aligned(xi);
   int64_t blocks = (B * m + kWarps - 1) / kWarps;
   blocks = blocks < (1 << 20) ? blocks : (1 << 20);
+  constexpr bool TL = kTiled<T, TILED>;
   if (vec)
-    sbgemv_n_kernel<T, O, TILED, REAL, VE><<<(unsigned)blocks, kThreads, 0, s>>>(
+    sbgemv_n_kernel<T, O, TL, REAL, VE><<<(unsigned)blocks, kThreads, 0, s>>>(
         Ar, Ai, xr, xi, yr, yi, B, m, n, tg);
   else
-    sbgemv_n_kernel<T, O, TILED, REAL, 1><<<(unsigned)blocks, kThreads, 0, s>>>(
+    sbgemv_n_kernel<T, O, TL, REAL, 1><<<(unsigned)blocks, kThreads, 0, s>>>(
         Ar, Ai, xr, xi, yr, yi, B, m, n, tg);
 }
 
@@ -301,7 +308,7 @@ int launch_th(const void* Ar, const void* Ai, const void* xr, const void* xi,
   const dim3 grid((unsigned)bx, (unsigned)(B < 65535 ? B : 65535));
   auto s = static_cast<cudaStream_t>(stream);
   DISPATCH_DTYPE(dt_in, T, DISPATCH_DTYPE(dt_out, O,
-    sbgemv_th_kernel<T, O, TILED, REAL><<<grid, kThreads, 0, s>>>(
+    sbgemv_th_kernel<T, O, (kTiled<T, TILED>), REAL><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(xr), static_cast<const T*>(xi),
         static_cast<O*>(yr), static_cast<O*>(yi), B, m, n, conj, tg);

@@ -12,10 +12,10 @@ complex data is carried as split re/im planes, each A element read once
 for both output planes.  Their multi-RHS twins (SBGEMM, S right-hand sides on a
 trailing axis) and the per-bin Gram blocks G = A^H A live in
 ``csrc/sbgemm.cu``; there each A element also serves every column of a
-pass, f64 planes run on the FP64 tensor cores, the untiled complex bf16
-products (N, T/H, Gram) on the bf16 tensor cores (the data-space Gram of
-P <= 128 on wgmma, its own entry), and the complex f32 products in staged
-FP32 kernels.
+pass, f64 planes run on the FP64 tensor cores, the complex bf16 products
+(N, T/H, Gram; the tiled N and Gram too, whose rounding is the identity
+at a bf16 carrier) on the bf16 tensor cores (the data-space Gram of P <=
+128 on wgmma), and the complex f32 products in staged FP32 kernels.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version beside it for CPU tensors.  Sums accumulate in f64 for f64 planes

@@ -9,8 +9,10 @@ bit for bit against the untiled kernels on planes quantized up front, on
 the card by ``chip_smoke.py``.  Tolerances:
 
 - quantization: bit for bit (both sides round f64 -> bf16 through f32);
-- tiled products against the JAX oracle: f64 1e-12, f32 1e-5 relative
-  (the same quantized operand, two summation orders);
+- tiled products against the JAX oracle: f64 1e-12, f32 1e-5, bf16
+  2e-2 relative (the same quantized operand, two summation orders);
+- at a bf16 carrier, each tiled product against its untiled one: bit for
+  bit (every cell's rounding is the identity there);
 - the data-space tiled Gram: against the oracle at f32 scale (rtol 1e-4,
   atol 5e-4, as ``tests/test_tile_precision.py``), never against JAX's
   kernel path, whose own data-space test fails by 2.4e-4 (ROADMAP §3);
@@ -37,7 +39,7 @@ from repro_torch.kernels import sbgemv as tsb
 TOL = {"d": 1e-12, "s": 1e-5, "h": 2e-2}
 MAPS = {"2x2": (("d", "s"), ("s", "h")),
         "3x3": (("h", "s", "d"), ("s", "d", "h"), ("d", "h", "s"))}
-LEVEL = {torch.float64: "d", torch.float32: "s"}
+LEVEL = {torch.float64: "d", torch.float32: "s", torch.bfloat16: "h"}
 GATED = dataclasses.replace(CPU_TORCH, name="cpu-torch-nogate",
                             tile_precision=False)
 # Values whose f64 -> bf16 rounding differs between one rounding and two
@@ -66,6 +68,9 @@ def _planes(rng, B, m, n, xlen, S, dt):
     src += [rng.standard_normal(shape), rng.standard_normal(shape)]
     npdt = np.float64 if dt == torch.float64 else np.float32
     src = [a.astype(npdt) for a in src]
+    if dt == torch.bfloat16:       # both frameworks round f32 -> bf16 alike
+        return ([jnp.asarray(a).astype(jnp.bfloat16) for a in src],
+                [torch.as_tensor(a).to(dt) for a in src])
     return [jnp.asarray(a) for a in src], [torch.as_tensor(a) for a in src]
 
 
@@ -123,7 +128,7 @@ def test_tile_bounds_match_the_elementwise_partition():
 # tiled products: oracle, dispatch paths and the kernels' plain versions
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tmap", sorted(MAPS))
 @pytest.mark.parametrize("mode", ["N", "T", "H"])
 @pytest.mark.parametrize("S", [None, 1, 5])
@@ -165,6 +170,42 @@ def test_at_carrier_map_is_the_untiled_product(dt):
         want = ops.sbgemm(*tp, "N", dispatch=table)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("tmap", sorted(MAPS))
+@pytest.mark.parametrize("op,S", [(mode, S) for mode in "NTH" for S in (None, 5)]
+                         + [("gram_parameter", None), ("gram_data", None)])
+def test_bf16_carrier_tiled_is_the_untiled_product(tmap, op, S):
+    """At a bf16 carrier every cell's rounding is the identity, so each
+    tiled build gives its untiled build's bits: the identity the kernels
+    rely on when the tiled bf16 N and Gram run the untiled builds."""
+    rng = np.random.default_rng(6)
+    B, m, n = 5, 6, 37
+    levels = MAPS[tmap]
+    bf = torch.bfloat16
+    if op.startswith("gram"):
+        A = [torch.as_tensor(rng.standard_normal((B, m, n))).to(bf)
+             for _ in range(2)]
+        data = op == "gram_data"
+        got = tsb.sbgemm_gram_tiled(*A, levels, data=data)
+        want = tsb.sbgemm_gram_complex(*A, data=data)
+        space = "data" if data else "parameter"
+        via_ops = ops.sbgemm_gram(*A, space=space, tile_map=TileMap(levels))
+        want_ops = ops.sbgemm_gram(*A, space=space)
+    else:
+        _, tp = _planes(rng, B, m, n, n if op == "N" else m, S, bf)
+        kind = "sbgemv" if S is None else "sbgemm"
+        kname = f"{kind}_{'n' if op == 'N' else 'th'}_complex"
+        kw = {} if op == "N" else {"conj": op == "H"}
+        got = getattr(tsb, kname + "_tiled")(*tp, levels, **kw)
+        want = getattr(tsb, kname)(*tp, **kw)
+        entry = ops.sbgemv if S is None else ops.sbgemm
+        via_ops = entry(*tp, op, tile_map=TileMap(levels))
+        want_ops = entry(*tp, op)
+    assert not any(torch.equal(g, torch.zeros_like(g)) for g in got)
+    for g, w in zip((*got, *via_ops), (*want, *want_ops)):
+        assert g.dtype == bf
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
 
 
 @pytest.mark.parametrize("space", ["parameter", "data"])
@@ -212,7 +253,8 @@ def test_tile_map_gating_and_kernel_path():
 # operators with a tiles= config
 # ---------------------------------------------------------------------------
 
-CONFIGS = ["ddddd;tiles=ds|sh", "dssdd;tiles=hs|sh", "dsdds;tiles=hsd|sdh"]
+CONFIGS = ["ddddd;tiles=ds|sh", "dssdd;tiles=hs|sh", "dsdds;tiles=hsd|sdh",
+           "hhhhh;tiles=ds|sh"]
 
 
 def _lowest(cfg: PrecisionConfig) -> str:
@@ -270,9 +312,14 @@ def test_tiled_operator_is_untiled_on_prequantized_F_hat(cfg_s):
     m = torch.as_tensor(rng.standard_normal((24, 16)))
     d = torch.as_tensor(rng.standard_normal((3, 16)))
     M = torch.as_tensor(rng.standard_normal((24, 16, 3)))
+    # the map bites unless every effective cell is at the carrier's level
+    # (hhhhh: a bf16 carrier), where the tiled operator is the untiled one
+    bites = not (torch.equal(Fr, top.F_hat_re) and torch.equal(Fi, top.F_hat_im))
+    assert bites == any(lvl != cfg.gemv for row in cfg.gemv_tile_levels()
+                        for lvl in row)
     for name, x in (("matvec", m), ("rmatvec", d), ("matmat", M)):
         assert torch.equal(getattr(top, name)(x), getattr(quant, name)(x))
-        assert not torch.equal(getattr(top, name)(x), getattr(plain, name)(x))
+        assert torch.equal(getattr(top, name)(x), getattr(plain, name)(x)) != bites
     for space in ("parameter", "data"):
         x = M if space == "parameter" else torch.as_tensor(
             rng.standard_normal((3, 16, 2)))
