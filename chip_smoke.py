@@ -46,10 +46,10 @@ CUDA toolkit.  It:
       2 and a ragged 3 x 3 map, at ragged small shapes and at the paper
       shape (S = 1, 8, 32; the Gram in data space there, in parameter
       space at (1001, 100, 1000)): each bit for bit against its untiled
-      kernel on planes quantized up front (the bf16 T/H SBGEMM against its
-      own call there), and against its plain version at the carrier's
-      tolerance; tiled and untiled kernel times side by side, at bf16
-      beside one ``torch.bmm`` and queued through the C entries;
+      kernel on planes quantized up front, and against its plain version
+      at the carrier's tolerance; tiled and untiled kernel times side by
+      side, at bf16 beside one ``torch.bmm`` and queued through the C
+      entries;
    b. three ``tiles=`` configs through matvec, rmatvec, matmat/rmatmat
       (S = 8), the exact Gram in both spaces and the tiled data-space G_hat,
       against ``torch-ref``, with launch counts that show the tiled kernels
@@ -167,11 +167,21 @@ CUDA toolkit.  It:
    bit for bit against the untiled ones at three more edge shapes; both
    real SBGEMMs timed queued through their C entries beside ``torch.bmm``
    at S = 8 and 32; the four real builds in the bound probe.
-15. the bf16 carrier of the tiled complex products: the tiled N SBGEMM
-   and Gram of bf16 planes run their untiled tensor-core builds (every
-   cell's rounding is the identity there; the data-space Gram at P <= 128
-   on wgmma), held bit for bit against them at every shape of 5a;
-   ``hhhhh;tiles=ds|sh`` runs in 5b beside uniform ``hhhhh``.
+15. the bf16 carrier of the tiled complex products: the tiled N and T/H
+   SBGEMMs and the Gram of bf16 planes run their untiled tensor-core
+   builds (every cell's rounding is the identity there; the data-space
+   Gram at P <= 128 on wgmma), held bit for bit against them at every
+   shape of 5a; ``hhhhh;tiles=ds|sh`` runs in 5b beside uniform ``hhhhh``.
+16. the solve server (``runtime.SolveEngine``) at the paper shape, on the
+   f64 operator of 3e (``max_batch`` 64): S = 1, 4, 16 and 64 consistent
+   requests (tolerances 1e-6, 3e-6, 9e-6, CGNR damp 0.01, at most 30
+   iterations) served coalesced and one at a time through the fig6
+   twin's sweep, requests/s of both; every request converged on both
+   paths, per uid the coalesced x within 1e-3 of the naive x, one batch
+   of S per coalesced serve, no operator or applier built after the
+   warm-up, a repeat serve at S = 64 launching the SBGEMMs once per
+   iteration, one exact Gram at S = 64 under the served config against
+   the plain path, and a second engine answered from the TuningCache.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -1079,7 +1089,8 @@ def probe_flash_bounds(dev, shapes, time_fn):
 
 def queued_tiled(time_fn, call, untiled, what, b_ms) -> dict:
     """A tiled build's C entry timed queued twice, beside ``untiled``, the
-    ``queued_pair`` of its untiled build's C entry and the ``bmm``."""
+    ``queued_pair`` of its untiled build's C entry and the ``bmm``, and
+    the first tiled reading over the first untiled one."""
     row = {"queued_ms": time_fn(call, None, repeats=FLASH_REPEATS,
                                 mode="queued")}
     row["queued_ms_again"] = time_fn(call, None, repeats=FLASH_REPEATS,
@@ -1088,9 +1099,11 @@ def queued_tiled(time_fn, call, untiled, what, b_ms) -> dict:
                 "untiled_queued_ms_again": untiled["queued_ms_again"],
                 "library_queued_ms": untiled["library_queued_ms"],
                 "library_queued_ms_again": untiled["library_queued_ms_again"]})
+    row["tiled_over_untiled"] = row["queued_ms"] / row["untiled_queued_ms"]
     print(f"  {what}: {row['queued_ms']:.4f} / {row['queued_ms_again']:.4f} "
           f"ms, untiled {row['untiled_queued_ms']:.4f} / "
-          f"{row['untiled_queued_ms_again']:.4f}, torch.bmm "
+          f"{row['untiled_queued_ms_again']:.4f} "
+          f"({row['tiled_over_untiled']:.4f}x), torch.bmm "
           f"{row['library_queued_ms']:.4f} / "
           f"{row['library_queued_ms_again']:.4f} (queued through the C "
           f"entries); bound {b_ms:.4f}", flush=True)
@@ -1099,18 +1112,15 @@ def queued_tiled(time_fn, call, untiled, what, b_ms) -> dict:
 
 def check_tiled_kernels(dev, B, m, n, S_list, modes, timed, results, time_fn):
     """The tiled SBGEMV (S = 1) and SBGEMM (S > 1) kernels, f64, f32 and
-    bf16 carriers, on each map of TILE_MAPS: bit for bit against the
-    untiled kernel on planes quantized up front, and against the plain
-    version at the carrier's tolerance.  One exception: the tiled bf16
-    T/H SBGEMM (S > 1) stays on the vector kernel, whose sums run in
-    another order than the untiled tensor-core T/H's, so it is held bit
-    for bit against its own call on the quantized planes (which shows
-    that its rounding is the identity), not against the untiled kernel.
-    Timed: tiled and untiled kernel (the untiled one on the same,
-    unquantized planes: the same bytes), the plain version on the first
-    map; at bf16, where one ``torch.bmm`` computes the same function, also
-    that call (median of events), and on the card the tiled and the
-    untiled C entries and the ``bmm``, each queued twice."""
+    bf16 carriers, in every mode of ``modes``, on each map of TILE_MAPS:
+    bit for bit against the untiled kernel on planes quantized up front,
+    and against the plain version at the carrier's tolerance.  Timed:
+    tiled and untiled kernel (the untiled one on the same, unquantized
+    planes: the same bytes), the plain version on the first map; at bf16,
+    where one ``torch.bmm`` computes the same function, also that call
+    (median of events), and on the card the tiled and the untiled C
+    entries and the ``bmm``, each queued twice, with the tiled build's
+    queued time over the untiled build's."""
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import sbgemv as sk
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
@@ -1131,8 +1141,6 @@ def check_tiled_kernels(dev, B, m, n, S_list, modes, timed, results, time_fn):
                 plain = getattr(sk, kname + "_tiled_plain")
                 kw = {} if mode == "N" else {"conj": mode == "H"}
                 pkw = () if mode == "N" else (mode == "H",)
-                own = dt == torch.bfloat16 and S > 1 and mode != "N"
-                against = "its own call" if own else "the untiled kernel"
                 bf16_card = timed and dt == torch.bfloat16 and dev.type == "cuda"
                 if bf16_card:      # the C entries' operands and sizes
                     Y = [torch.empty(shape[:1] + (ylen,) + shape[2:],
@@ -1147,19 +1155,19 @@ def check_tiled_kernels(dev, B, m, n, S_list, modes, timed, results, time_fn):
                 for tname, levels in TILE_MAPS.items():
                     Aq = kref.quantize_tile_cells(levels, Ar, Ai)
                     got = tiled(Ar, Ai, Xr, Xi, levels, **kw)
-                    want_bits = (tiled(*Aq, Xr, Xi, levels, **kw) if own
-                                 else untiled(*Aq, Xr, Xi, **kw))
+                    want_bits = untiled(*Aq, Xr, Xi, **kw)
                     del Aq
                     what = (f"{kname}_tiled mode {mode} {name(dt)} map {tname} "
                             f"at {(B, m, n, S)}")
                     if not same_bits(got, want_bits):
-                        fail(f"{what}: differs from {against} on planes "
-                             f"quantized up front")
+                        fail(f"{what}: differs from the untiled kernel on "
+                             f"planes quantized up front")
                     err = check_planes(what, got, plain(Ar, Ai, Xr, Xi, levels,
                                                         *pkw, dt), dt)
                     del got, want_bits
-                    print(f"{what}: bitwise equal to {against} on quantized "
-                          f"planes; max abs err vs plain {err:.3e}", flush=True)
+                    print(f"{what}: bitwise equal to the untiled kernel on "
+                          f"quantized planes; max abs err vs plain {err:.3e}",
+                          flush=True)
                     if not timed:
                         continue
                     if u_ms is None:
@@ -2881,6 +2889,201 @@ def time_full_f32_prefill(dev, cfg, model, reqs, max_seq, time_fn) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 8. The solve server at the paper shape
+# ---------------------------------------------------------------------------
+
+SOLVE_SIZES = (1, 4, 16, 64)     # fig6's sweep: requests a serve
+SOLVE_DAMP = 0.01                # drive_solvers' CGNR damp
+SOLVE_REPEATS = 3                # timed serves of each path, after one warm-up
+SOLVE_NAIVE_REPEATS = {64: 1}    # 64 solo solves: timed once
+SOLVE_X_TOL = 1e-3               # coalesced vs naive x (tests/test_solve_serve.py)
+
+
+def drive_solve_serve(dev, N_t, N_d, N_m, time_fn, report):
+    """``runtime.SolveEngine`` at the paper shape, on drive_solvers'
+    operator (f64, ``max_batch = 64``): S consistent requests (D = F
+    M_true, M_true from a seeded generator on the card; fig6's tolerance
+    decade, CGNR damp SOLVE_DAMP, at most SOLVER_ITERS iterations, within
+    which CGNR reaches 1e-10 on this operator) for S in SOLVE_SIZES,
+    served coalesced and naive through ``examples.fig6_serve.sweep``
+    (requests/s from CUDA events around whole serves).
+
+    Checks: outcomes in uid order; every request converged with relres <
+    tol on both paths; per uid the coalesced x within SOLVE_X_TOL of the
+    naive x; each coalesced serve one batch of S (naive: batches of 1);
+    the timed sweep and a repeat serve build no operator and no applier;
+    that repeat serve at S = 64 launches the SBGEMM N once and the T/H
+    once more than its iterations (every contraction on a kernel); one
+    exact Gram apply at S = 64 under the served config against the plain
+    path at the config's lowest level's tolerance; a second engine on the
+    same TuningCache file answers from it with the first engine's config
+    and solutions."""
+    from repro_torch.core import (FFTMatvec, PrecisionConfig,
+                                  random_block_column, rel_l2)
+    from repro_torch.core.precision import DOUBLE
+    from repro_torch.core.timing import TimingHarness
+    from repro_torch.examples import fig6_serve
+    from repro_torch.examples.mixed_precision_pareto import host_timer
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import SolveEngine
+    from repro_torch.tune import TuningCache
+
+    t_start = time.perf_counter()
+    out = {"sizes": list(SOLVE_SIZES), "damp": SOLVE_DAMP,
+           "max_iters": SOLVER_ITERS, "tols": list(fig6_serve.TOLS)}
+    report["solve_serve"] = out
+    if dev.type == "cuda":
+        report["peak_memory_gb_before_solve_serve"] = \
+            torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    F_col = random_block_column(gen, N_t, N_d, N_m)
+    op = FFTMatvec.from_block_column(F_col, precision=DOUBLE, device=dev)
+    del F_col
+    cache_path = ROOT / "chiprun_out" / "solve_serve_cache.json"
+    cache_path.parent.mkdir(exist_ok=True)
+    cache_path.unlink(missing_ok=True)
+    # CUDA-event timing on the card; the host clock in a CPU rehearsal
+    harness = (None if dev.type == "cuda"
+               else TimingHarness(timer=host_timer))
+
+    def engine():
+        return SolveEngine(op, cache=TuningCache(cache_path),
+                           harness=harness, max_batch=max(SOLVE_SIZES))
+
+    t0 = time.perf_counter()
+    eng = engine()
+    out["engine_setup_s"] = time.perf_counter() - t0
+    checks = out["checks"] = {}
+
+    def check(S, reqs, coalesced, naive):
+        uids = list(range(S))
+        if [o.uid for o in coalesced] != uids or \
+                [o.uid for o in naive] != uids:
+            fail(f"solve serve S={S}: outcomes not in uid order")
+        for path, outs in (("coalesced", coalesced), ("naive", naive)):
+            for o, r in zip(outs, reqs):
+                if not (o.converged and o.relres < r.tol):
+                    fail(f"solve serve S={S} {path}: request {o.uid} relres "
+                         f"{o.relres:.3e} (tol {r.tol:g}) after {o.n_iters} "
+                         f"of {r.max_iters} iterations")
+        e_x = max(rel_l2(a.x, b.x) for a, b in zip(coalesced, naive))
+        checks[str(S)] = {
+            "x_coalesced_vs_naive_max": e_x,
+            "iters_coalesced": [o.n_iters for o in coalesced],
+            "iters_naive": [o.n_iters for o in naive],
+            "relres_over_tol_max": max(o.relres / r.tol
+                                       for o, r in zip(coalesced, reqs))}
+        print(f"  S={S}: every request converged on both paths, coalesced "
+              f"vs naive x {e_x:.3e} (< {SOLVE_X_TOL:g}), iterations "
+              f"{min(checks[str(S)]['iters_coalesced'])}-"
+              f"{max(checks[str(S)]['iters_coalesced'])}", flush=True)
+        if not e_x < SOLVE_X_TOL:
+            fail(f"solve serve S={S}: coalesced vs naive x {e_x:.3e}")
+
+    res = fig6_serve.sweep(eng, op, SOLVE_SIZES, max_iters=SOLVER_ITERS,
+                           repeats=SOLVE_REPEATS, time_fn=time_fn,
+                           damp=SOLVE_DAMP, naive_repeats=SOLVE_NAIVE_REPEATS,
+                           check=check)
+    out.update(res)
+    served = {row["config"] for row in res["sweep"].values()}
+    if len(served) != 1:
+        fail(f"solve serve: one bucket served under {sorted(served)}")
+    cfg = PrecisionConfig.from_string(served.pop())
+    out["config"] = cfg.to_string()
+    out["stats"] = dict(eng.stats, coalesced=sorted(set(eng.stats["coalesced"])))
+    for S, row in res["sweep"].items():
+        if row["coalesced_batches"] != [int(S)] or row["naive_batches"] != [1]:
+            fail(f"solve serve S={S}: stats['coalesced'] held "
+                 f"{row['coalesced_batches']} coalesced, "
+                 f"{row['naive_batches']} naive")
+    if eng.stats["cold_tunes"] != 1 or eng.stats["warm_hits"] != 0:
+        fail(f"solve serve: {eng.stats['cold_tunes']} cold tunes and "
+             f"{eng.stats['warm_hits']} warm hits for one bucket")
+    jit = res["jit"]
+    if (jit["n_appliers"], jit["n_traces"]) != (2, 1) or any(
+            jit[k] for k in ("appliers_grown_during_timed",
+                             "traces_during_timed", "traces_on_repeat_serve",
+                             "appliers_on_repeat_serve")):
+        fail(f"solve serve: operators or appliers built while re-serving "
+             f"the bucket: {jit}")
+    rep = res["repeat_serve"]
+    it = rep["iters_max"]
+    check_launched(rep["launches"], ["sbgemm_n_complex", "sbgemm_th_complex"])
+    check_launches(rep["launches"], {
+        "sbgemm_n_complex": it, "sbgemm_th_complex": it + 1,
+        "pad_cast": 2 * it + 1, "unpad_cast": 2 * it + 1,
+        "sbgemv_n_complex": 0, "sbgemv_th_complex": 0})
+    print(f"solve serve: config {cfg.to_string()} (gemv planes "
+          f"{name(cfg.phase_dtype('gemv'))}), jit {jit}; the "
+          f"repeat serve at S={rep['S']}: {it} iterations, launches "
+          f"{rep['launches']}", flush=True)
+
+    # one exact Gram apply at S = 64 under the served config, kernel path
+    # against the plain path
+    op_t = op.with_precision(cfg)
+    X = torch.randn((N_m, N_t, max(SOLVE_SIZES)), generator=gen, device=dev,
+                    dtype=torch.float64).to(op_t.io_dtype)
+    _build.reset_launch_counts()
+    G = op_t.gram(space="parameter").apply(X)
+    sync(dev)
+    counts = dict(_build.launch_counts)
+    check_launches(counts, {"sbgemm_n_complex": 1, "sbgemm_th_complex": 1})
+    G_p = plain_path(op_t).gram(space="parameter").apply(X)
+    lvl = cfg.lowest()
+    e_g = rel_l2(G, G_p)
+    out["gram_S64"] = {"rel_vs_plain": e_g, "tol": TOL[lvl],
+                       "launches": counts}
+    print(f"solve serve: exact Gram at S={X.shape[-1]} under "
+          f"{cfg.to_string()} vs the plain path {e_g:.3e} (<= {TOL[lvl]:g}), "
+          f"launches {counts}", flush=True)
+    if not (torch.isfinite(G).all() and e_g <= TOL[lvl]):
+        fail(f"solve serve: Gram at S={X.shape[-1]} vs plain path {e_g:.3e}")
+    del G, G_p
+    # where a coalesced iteration's time goes: the Gram apply alone at S =
+    # 16 and 64 (median of 5 events), and on the plain path at S = 64
+    gram = op_t.gram(space="parameter").apply
+    out["gram_ms"] = {str(S): time_fn(gram, X[..., :S].contiguous(),
+                                      repeats=5, warmup=1)
+                      for S in SOLVE_SIZES[2:]}
+    out["gram_S64"]["plain_ms"] = time_fn(
+        plain_path(op_t).gram(space="parameter").apply, X, repeats=5,
+        warmup=1)
+    print(f"solve serve: Gram apply {out['gram_ms']} ms (plain path at "
+          f"S={X.shape[-1]} {out['gram_S64']['plain_ms']:.3f})", flush=True)
+    del X, op_t, gram
+
+    # a second engine on the same cache file: the warm path
+    reqs = fig6_serve.make_requests(op, 4, SOLVER_ITERS, damp=SOLVE_DAMP)
+    first = eng.serve(reqs)
+    eng2 = engine()
+    second = eng2.serve(reqs)
+    e_w = max(rel_l2(a.x, b.x) for a, b in zip(first, second))
+    out["warm_engine"] = {"stats": eng2.stats, "x_vs_first_max": e_w,
+                          "config": second[0].config}
+    print(f"solve serve: second engine {eng2.stats['warm_hits']} warm hits, "
+          f"{eng2.stats['cold_tunes']} cold tunes, config "
+          f"{second[0].config}, x vs the first engine {e_w:.3e}", flush=True)
+    if eng2.stats["warm_hits"] != 1 or eng2.stats["cold_tunes"] != 0 or \
+            {o.config for o in second} != {cfg.to_string()} or \
+            not e_w < 1e-10:
+        fail("solve serve: the second engine was not answered by the cache")
+    del first, second, eng2, eng, op
+    if dev.type == "cuda":
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["seconds"] = time.perf_counter() - t_start
+    for S, row in res["sweep"].items():
+        row["ms_per_iter_coalesced"] = 1e3 * row["t_coalesced_s"] / \
+            row["iters_max"]
+        print(f"  S={S}: coalesced {row['rps_coalesced']:.3f} requests/s "
+              f"({row['ms_per_iter_coalesced']:.3f} ms a serve's iteration), "
+              f"naive {row['rps_naive']:.3f} ({row['ratio']:.3f}x)",
+              flush=True)
+    print(f"solve serve phase: {out['seconds']:.1f} s, peak device memory "
+          f"{out.get('peak_memory_gb', 0.0):.2f} GB", flush=True)
+
+
 def plain_path(op):
     """``op`` with every contraction on the plain PyTorch code (the
     "torch" dispatch path); pad/unpad still launch their kernels."""
@@ -3143,6 +3346,9 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
         free(dev)
     drive_serve(dev, full, time_fn, report)
     free(dev)
+    # slice 15: the solve server at the paper shape
+    drive_solve_serve(dev, N_t, N_d, N_m, time_fn, report)
+    free(dev)
     return results, report
 
 
@@ -3238,6 +3444,7 @@ def main() -> int:
     report["peak_memory_gb"] = max(
         report.get("peak_memory_gb_before_autotune", 0.0),
         report.get("peak_memory_gb_before_serve", 0.0),
+        report.get("peak_memory_gb_before_solve_serve", 0.0),
         torch.cuda.max_memory_allocated(dev) / 1e9)
     print(f"peak device memory {report['peak_memory_gb']:.2f} GB", flush=True)
     report["seconds"] = time.perf_counter() - t_start

@@ -12,21 +12,8 @@
 // FP64 vector units), in the staged kernels of the f64 section below.  The
 // complex N, T/H and Gram of bf16 planes and the real N and T of bf16
 // planes, untiled and tiled, run on the bf16 tensor cores with f32 sums
-// (sbgemm_bf16.cuh), but for the tiled complex T/H; the complex
-// N, T/H and Gram and the real N and T of f32 planes, untiled and tiled,
-// in staged FP32 kernels (sbgemm_f32.cuh).  The tiled complex T/H of bf16
-// planes runs on the vector units, in the kernel described here:
-//
-//   T/H (sum over the short m): the paper's short-wide pathology with S
-//     columns.  One thread per output column j, blocks tiling the long n
-//     axis, as in sbgemv_th; the X panel (an m-chunk x SC columns) sits in
-//     shared memory, read as broadcasts, and loads of A[b, i, j] are
-//     coalesced along j.  Each A element is read once for all SC columns,
-//     in passes of SC = 1, 8 or 32 (the smallest that holds S, at most 32;
-//     wider blocks loop over passes inside the kernel and read A once per
-//     pass).  Columns past S are zero in the staged panel and never
-//     stored.  Sums run in float; outputs are stored in their dtype
-//     straight from the accumulator.
+// (sbgemm_bf16.cuh); the complex N, T/H and Gram and the real N and T of
+// f32 planes, untiled and tiled, in staged FP32 kernels (sbgemm_f32.cuh).
 //
 // Offsets are int64 and ragged edges are masked in the kernels, so no call
 // pads A.
@@ -42,8 +29,8 @@
 // Gram both factors of a product are rounded at their own cells.  They
 // move the untiled kernels' bytes: A stays stored at the carrier type.
 // At a bf16 carrier every cell's rounding is the identity, so the tiled
-// N and Gram of bf16 planes run their untiled builds (launch_n,
-// launch_gram).
+// N, T/H and Gram of bf16 planes run their untiled builds (launch_n,
+// launch_th, launch_gram).
 //
 // Real builds (REAL = true) replace the TPU kernels :sbgemm_n_real,
 // :sbgemm_th_real, :sbgemm_n_real_tiled and :sbgemm_th_real_tiled: the
@@ -63,98 +50,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // T/H: threads of a block
-constexpr int kPanel = 2048;    // T/H: staged X panel, elements per plane
-
 __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
-
-template <typename T, typename O, int SC, bool TILED>
-__global__ void __launch_bounds__(kThreads)
-sbgemm_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
-                 const T* __restrict__ Xr, const T* __restrict__ Xi,
-                 O* __restrict__ Yr, O* __restrict__ Yi,
-                 int64_t B, int64_t m, int64_t n, int64_t S, int conj, TileGrid tg) {
-  using A = typename AccOf<T>::type;
-  constexpr int MC = kPanel / SC;           // m-chunk of a staged panel
-  __shared__ A sxr[MC * SC];
-  __shared__ A sxi[MC * SC];
-  const int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const A sgn = conj ? A(-1) : A(1);        // conj(A): negate Im(A)
-  for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
-    const T* ar = Ar + b * m * n + j;
-    const T* ai = Ai + b * m * n + j;
-    const T* xr = Xr + b * m * S;
-    const T* xi = Xi + b * m * S;
-    const int lv = TILED ? tile_level(tg, tile_row(tg, b), j) : 2;
-    for (int64_t s0 = 0; s0 < S; s0 += SC) {
-      const int sc = (int)min64(SC, S - s0);
-      A acc_r[SC], acc_i[SC];
-#pragma unroll
-      for (int s = 0; s < SC; ++s) acc_r[s] = acc_i[s] = 0;
-      for (int64_t i0 = 0; i0 < m; i0 += MC) {
-        const int len = (int)min64(MC, m - i0);
-        __syncthreads();  // the previous panel is consumed
-#pragma unroll
-        for (int l = 0; l < MC * SC / kThreads; ++l) {
-          const int e = threadIdx.x + l * kThreads;
-          const int ii = e / SC, s = e % SC;
-          A vr = 0, vi = 0;
-          if (ii < len && s < sc) {
-            const int64_t off = (i0 + ii) * S + s0 + s;
-            vr = widen<A>(xr[off]);
-            vi = widen<A>(xi[off]);
-          }
-          sxr[e] = vr;
-          sxi[e] = vi;
-        }
-        __syncthreads();
-        auto sweep = [&](auto q) {
-          // four rows' loads in flight a step
-#pragma unroll 4
-          for (int k = 0; k < len; ++k) {
-            const int64_t off = (i0 + k) * n;
-            A a_r = widen<A>(ar[off]), a_i = widen<A>(ai[off]);
-            if constexpr (decltype(q)::value) {
-              a_r = quantize(a_r, lv);
-              a_i = quantize(a_i, lv);
-            }
-            a_i = sgn * a_i;
-#pragma unroll
-            for (int s = 0; s < SC; ++s) {
-              const A x_r = sxr[k * SC + s], x_i = sxi[k * SC + s];
-              acc_r[s] += a_r * x_r - a_i * x_i;
-              acc_i[s] += a_r * x_i + a_i * x_r;
-            }
-          }
-        };
-        if (j < n) {
-          if (TILED && rounds<A>(lv)) sweep(std::true_type{});
-          else sweep(std::false_type{});
-        }
-      }
-      if (j < n) {
-        O* yr = Yr + (b * n + j) * S + s0;
-        O* yi = Yi + (b * n + j) * S + s0;
-#pragma unroll
-        for (int s = 0; s < SC; ++s) {
-          if (s < sc) {
-            yr[s] = Store<O>::from(acc_r[s]);
-            yi[s] = Store<O>::from(acc_i[s]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// Run the statements in __VA_ARGS__ with SC bound to the column pass width
-// for S right-hand sides: 1, 8, or 32 (wider blocks take passes of 32).
-#define DISPATCH_PASS(S, SC, ...)                          \
-  if ((S) <= 1) { constexpr int SC = 1; __VA_ARGS__ }      \
-  else if ((S) <= 8) { constexpr int SC = 8; __VA_ARGS__ } \
-  else { constexpr int SC = 32; __VA_ARGS__ }
 
 unsigned batch_grid(int64_t B) { return (unsigned)(B < 65535 ? B : 65535); }
 
@@ -790,30 +688,16 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
     )
   }
   if (dt_in != DT_BF16) return (int)cudaErrorInvalidValue;
-  // bf16 planes: the tensor cores, but for the tiled complex build (the
-  // tiled real build runs the untiled build, as in launch_n).  The tiled
-  // complex T/H keeps the vector kernel, sbgemm_th_kernel: its sums run in
-  // another order than the tensor-core T/H's, so it cannot yet give their
-  // bits.
-  if constexpr (!TILED || REAL) {
-    DISPATCH_DTYPE(dt_out, O,
-      return bf16tc::launch_gemm<O, true, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj,
-                                                device, s);
-    )
-    return (int)cudaErrorInvalidValue;
-  } else {   // the tiled complex build of bf16 planes: the vector kernel
-    const int64_t bx = (n + kThreads - 1) / kThreads;
-    if (bx > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    const dim3 grid((unsigned)bx, batch_grid(B));
-    using T = __nv_bfloat16;
-    DISPATCH_DTYPE(dt_out, O, DISPATCH_PASS(S, SC,
-      sbgemm_th_kernel<T, O, SC, TILED><<<grid, kThreads, 0, s>>>(
-          static_cast<const T*>(Ar), static_cast<const T*>(Ai),
-          static_cast<const T*>(Xr), static_cast<const T*>(Xi),
-          static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj, tg);
-    ))
-    return (int)cudaGetLastError();
-  }
+  // bf16 planes: the tensor cores, tiled or not.  A tiled build's map was
+  // checked by its entry; at a bf16 carrier every cell's rounding is the
+  // identity (rounds<float> holds only at h, and round_bf16 returns a bf16
+  // value as it is), so the tiled complex and real builds run the untiled
+  // build and give its bits by construction.
+  DISPATCH_DTYPE(dt_out, O,
+    return bf16tc::launch_gemm<O, true, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj,
+                                              device, s);
+  )
+  return (int)cudaErrorInvalidValue;
 }
 
 // G = A^H A, (B, n, n), or with data != 0 G = A A^H, (B, m, m).  The tiles

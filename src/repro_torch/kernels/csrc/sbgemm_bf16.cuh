@@ -13,10 +13,9 @@
 // sums.  zgemm_bf16_kernel with REAL also takes the real products
 // :sbgemm_n_real and :sbgemm_th_real.  At a bf16 carrier every cell's
 // rounding is the identity, so the tiled builds :sbgemm_n_real_tiled,
-// :sbgemm_th_real_tiled, :sbgemm_n_complex_tiled and :sbgemm_gram_tiled run
-// these kernels as their untiled builds do (sbgemm.cu's launch_n, launch_th
-// and launch_gram).  The tiled complex T/H stays on sbgemm.cu's vector
-// kernel.
+// :sbgemm_th_real_tiled, :sbgemm_n_complex_tiled, :sbgemm_th_complex_tiled
+// and :sbgemm_gram_tiled run these kernels as their untiled builds do
+// (sbgemm.cu's launch_n, launch_th and launch_gram).
 //
 // Included by sbgemm.cu inside its anonymous namespace, after the f64
 // section, whose smem_addr, min64 / aligned16 and launch_persistent it

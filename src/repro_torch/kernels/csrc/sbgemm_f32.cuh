@@ -12,7 +12,7 @@
 // :sbgemm_n_real, :sbgemm_th_real, :sbgemm_n_real_tiled and
 // :sbgemm_th_real_tiled.
 // "s" is IEEE f32: every product is an FFMA on the vector units (no TF32,
-// no tensor cores, no atomics), so the kernels compute the vector kernels'
+// no tensor cores, no atomics), so the kernels compute the TPU kernels'
 // function up to the order of the sums.  Every output sums its k products
 // in one thread, in k order, on every run: no split of a sum across
 // threads or blocks.  The tiled builds (TILED) round each A value at its
@@ -22,7 +22,7 @@
 // the untiled builds' bits: N as each lane reads it, T/H and the Gram once
 // for the block, in place, behind one more barrier (a value there feeds
 // few FFMAs a lane, so rounding it in each of the 8 or more lanes that
-// read it cost more than the parent's vector kernel).
+// read it would cost more than the products).
 //
 // Included by sbgemm.cu inside its anonymous namespace, after the f64 and
 // bf16 sections, whose stage(), smem_addr, min64, aligned16 and
