@@ -182,6 +182,23 @@ CUDA toolkit.  It:
    warm-up, a repeat serve at S = 64 launching the SBGEMMs once per
    iteration, one exact Gram at S = 64 under the served config against
    the plain path, and a second engine answered from the TuningCache.
+17. every other LM family at full width through ``ServeEngine.serve``
+   (``drive_families``; granite-moe-3b, falcon-mamba-7b, zamba2-1.2b,
+   whisper-base, one model at a time, 4 greedy requests of 8 new tokens;
+   prompts of 449-512 tokens, whisper's of 17-32 over 1500 stub frames):
+   exactly the prefill's attention calls on the wgmma flash kernel (32,
+   0, 6 and 18 a batch), none in decode; flash against chunked logits
+   within LOGIT_TOL (granite's chunked path on the flash path's routing,
+   the (token, layer) pairs whose own choice differs counted); the MoE FFN
+   at one full-width layer against a dense oracle at a prefill and a
+   decode shape (dropped pairs equal); Mamba-1's selective scan and its
+   LTI FFT convolution against f64 loops, the LTI-FFT block against the
+   direct convolution's; Mamba-2's SSD against its f64 recurrence;
+   falcon's prefill + decode against its forward (gated at ``FULL_F32``);
+   tokens/s, prefill ms, decode ms a step and its idle share (a profiled
+   decode step), peak memory, seconds.  The
+   wgmma flash checks (11) also take granite's GQA groups of 3 and
+   whisper's non-causal 1500-key calls.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -806,9 +823,10 @@ def check_f32_kernels(dev):
 def check_wgmma_kernels(dev):
     """The wgmma kernels at ragged shapes, each call's launch counted.
     Flash (bf16, Dh 64 and 128): Sq and Skv around the 64-row blocks, the
-    64-key tiles and 128, causal and not, Sq != Skv both ways, on folded
-    heads; the 4-D entry with 2 key heads in groups of 1, 2 and 8 against
-    the plain version of the repeated heads; within FLASH_TOL.  The Gram
+    64-key tiles and 128, causal and not, Sq != Skv both ways, and
+    whisper's non-causal 1500 x 1500 and 30 x 1500 calls, on folded heads;
+    the 4-D entry with 2 key heads in groups of 1, 2, 3 (granite's) and 8
+    against the plain version of the repeated heads; within FLASH_TOL.  The Gram
     (data space, bf16 planes): P = 31 .. 128 around the two 64-row
     warpgroups, n odd (element copies), n % 8 != 0, one k-chunk and
     several with a ragged last one (16-byte copies), bf16 and f32 outputs
@@ -849,7 +867,20 @@ def check_wgmma_kernels(dev):
                          f"causal={causal}: {got.dtype}, max abs err "
                          f"{err:.3e} > {FLASH_TOL[dt]:g}")
                 worst, n_f = max(worst, err), n_f + 1
-        for G in (1, 2, 8):
+        # whisper's encoder (1500 x 1500) and cross-attention (a prompt over
+        # 1500 frames), both non-causal, on folded heads
+        for Sq, Skv in ((1500, 1500), (30, 1500)):
+            q, k, v = randn(3, Sq, Dh), randn(3, Skv, Dh), randn(3, Skv, Dh)
+            got = counted("flash_attention_bh_wgmma",
+                          lambda: fa.flash_attention_bh(q, k, v, causal=False))
+            err = max_abs(got, fa.flash_attention_bh_plain(q, k, v,
+                                                           causal=False))
+            if not err <= FLASH_TOL[dt]:
+                fail(f"flash_attention_bh_wgmma at {(3, Sq, Skv, Dh)} "
+                     f"non-causal: max abs err {err:.3e} > {FLASH_TOL[dt]:g}")
+            worst, n_f = max(worst, err), n_f + 1
+        # granite's GQA is 24 query heads over 8 key heads: groups of 3
+        for G in (1, 2, 3, 8):
             B, S, Hkv = 2, 150, 2
             q, k, v = randn(B, S, Hkv * G, Dh), randn(B, S, Hkv, Dh), \
                 randn(B, S, Hkv, Dh)
@@ -2649,45 +2680,163 @@ def _left_padded(reqs):
     return toks
 
 
-def _logit_gap(a, b) -> float:
-    """max |a - b| / max |b| (f32 logits)."""
+def _batch_of(reqs, dev) -> dict:
+    """The requests as one model batch, as ``ServeEngine.run_batch`` builds
+    it: left-padded tokens and each extras key stacked."""
+    import numpy as np
+    batch = {"tokens": torch.as_tensor(_left_padded(reqs), device=dev)}
+    for k in sorted(reqs[0].extras or ()):
+        batch[k] = torch.as_tensor(np.stack([r.extras[k] for r in reqs]),
+                                   device=dev)
+    return batch
+
+
+def _logit_gap(a, b, rows=None) -> float:
+    """max |a - b| / max |b| (f32 logits), over the (B, S) rows of ``rows``
+    where given."""
+    if rows is not None:
+        a, b = a[rows], b[rows]
     return (a - b).abs().max().item() / b.abs().max().item()
+
+
+class _Router:
+    """While entered, stands in for ``moe.route``: records each call's own
+    ``Routing``.  With ``force`` set to another run's calls, each call
+    takes the next one's experts, slots and keep (its gates renormalised
+    from its own probabilities), so both runs route alike; its own
+    decisions are still what it records."""
+
+    def __init__(self):
+        self.calls, self.force = [], None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe.route
+
+        def route(xg, router_w, **kw):
+            r = self._route(xg, router_w, **kw)
+            self.calls.append(r)
+            if self.force is None:
+                return r
+            f = self.force.pop(0)
+            gate = r.probs.gather(-1, f.idx)
+            return f._replace(probs=r.probs, gate=gate / gate.sum(
+                -1, keepdim=True).clamp_min(1e-9))
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def _route_agreement(a, b, B, n):
+    """Rows (B, n) whose token chose and kept the same experts in every
+    call of ``a`` and ``b`` (one a layer), and the count of (token, layer)
+    pairs that differ."""
+    ok, differ = None, 0
+    for ra, rb in zip(a, b, strict=True):
+        E = ra.probs.shape[-1]
+        masks = [(oh.any(-2), (oh & r.keep[..., None]).any(-2))
+                 for r in (ra, rb)
+                 for oh in [torch.nn.functional.one_hot(r.idx, E).bool()]]
+        (c1, k1), (c2, k2) = masks
+        same = ((c1 == c2).all(-1) & (k1 == k2).all(-1)).reshape(-1)
+        differ += int((~same).sum())
+        ok = same if ok is None else ok & same
+    return ok.reshape(B, n), differ
 
 
 def compare_paths(dev, cfg, model, reqs, max_seq, steps, tol, what):
     """Prefill logits of the flash path against the chunked path on one
-    batch, then ``steps`` teacher-forced decode steps feeding both the
-    flash path's greedy tokens: each step's logits within ``tol`` of max
-    |logit|.  Returns the gaps and the share of greedy tokens that agree."""
+    batch (the requests' extras included), then ``steps`` teacher-forced
+    decode steps feeding both the flash path's greedy tokens: each step's
+    logits within ``tol`` of max |logit|.  With experts, a router near tie
+    can route a token differently under the two paths, and a different
+    expert moves the token's hidden state far more than the attention
+    paths' rounding does; so the chunked path runs on the flash path's
+    routing (``_Router.force``), and the (token, layer) pairs where its own
+    choice differs are counted, with the rows whose choices agree in
+    every layer.  An unforced chunked prefill counts the same for routing
+    left free.  Returns the gaps, the share of greedy tokens that agree
+    and (with experts) the routing counts."""
     from repro_torch.models import api
     cfg_c = cfg.replace(attn_impl="chunked")
-    toks = torch.as_tensor(_left_padded(reqs), device=dev)
+    batch = _batch_of(reqs, dev)
+    B, S = batch["tokens"].shape
     gaps, agree, n = [], 0, 0
-    with torch.inference_mode():
-        lf, sf = api.prefill_step(cfg, model, {"tokens": toks}, max_seq)
-        lc, sc = api.prefill_step(cfg_c, model, {"tokens": toks}, max_seq)
-        gaps.append(_logit_gap(lf, lc))
-        lf, lc = lf[:, -1:], lc[:, -1:]
-        for i in range(steps):
-            tf, tc = lf[:, -1].argmax(-1), lc[:, -1].argmax(-1)
-            agree += int((tf == tc).sum())
-            n += tf.numel()
-            if i == steps - 1:
-                break
-            lf, sf = api.decode_step(cfg, model, sf, tf[:, None])
-            lc, sc = api.decode_step(cfg_c, model, sc, tf[:, None])
+    differ, held, free_run = [], [], None
+    router = _Router().__enter__() if cfg.n_experts else None
+
+    def chunked(call):
+        """The chunked path's call, forced onto the flash call's routing
+        just taken; counts the pairs where its own routing differs."""
+        if router is None:
+            return call()
+        flash = router.take()
+        router.force = list(flash)
+        out = call()
+        router.force = None
+        ok, d = _route_agreement(flash, router.take(), *out[0].shape[:2])
+        differ.append(d)
+        held.append(int(ok.sum()))
+        return out
+    try:
+        with torch.inference_mode():
+            if router is not None:                 # routing left free
+                api.prefill_step(cfg, model, batch, max_seq)
+                flash = router.take()
+                api.prefill_step(cfg_c, model, batch, max_seq)
+                ok, d = _route_agreement(flash, router.take(), B, S)
+                free_run = {"routed_differently": d, "rows_agreeing":
+                            int(ok.sum()), "rows": B * S}
+            lf, sf = api.prefill_step(cfg, model, batch, max_seq)
+            lc, sc = chunked(lambda: api.prefill_step(cfg_c, model, batch,
+                                                      max_seq))
             gaps.append(_logit_gap(lf, lc))
+            lf, lc = lf[:, -1:], lc[:, -1:]
+            for i in range(steps):
+                tf, tc = lf[:, -1].argmax(-1), lc[:, -1].argmax(-1)
+                agree += int((tf == tc).sum())
+                n += tf.numel()
+                if i == steps - 1:
+                    break
+                lf, sf = api.decode_step(cfg, model, sf, tf[:, None])
+                lc, sc = chunked(lambda: api.decode_step(cfg_c, model, sc,
+                                                         tf[:, None]))
+                gaps.append(_logit_gap(lf, lc))
+    finally:
+        if router is not None:
+            router.__exit__()
     del sf, sc, lf, lc
     worst = max(gaps)
+    routed = "" if router is None else (
+        f"; chunked on the flash routing, its own choice differs in (token, "
+        f"layer) pairs: prefill {differ[0]} of {B * S * cfg.n_layers}, "
+        f"decode {sum(differ[1:])} of {B * (steps - 1) * cfg.n_layers}; rows "
+        f"whose choice agrees in every layer: prefill {held[0]} of {B * S}, "
+        f"decode {sum(held[1:])} of {B * (steps - 1)}; routing left free, a "
+        f"prefill: {free_run['routed_differently']} pairs differ, "
+        f"{free_run['rows_agreeing']} rows agree")
     print(f"{what}: flash vs chunked logits, prefill {gaps[0]:.3e}, worst "
           f"of {steps - 1} teacher-forced decode steps "
           f"{max(gaps[1:], default=0.0):.3e} (<= {tol:g}); greedy tokens "
-          f"agree {agree}/{n}", flush=True)
+          f"agree {agree}/{n}{routed}", flush=True)
     if not worst <= tol:
         fail(f"{what}: flash vs chunked logits differ by {worst:.3e} of max "
              f"|logit| > {tol:g}")
-    return {"prefill_gap": gaps[0], "decode_gaps": gaps[1:],
-            "greedy_agree": agree / n}
+    out = {"prefill_gap": gaps[0], "decode_gaps": gaps[1:],
+           "greedy_agree": agree / n}
+    if router is not None:
+        out.update({"routed_differently": differ, "rows_agreeing": held,
+                    "rows": [B * S] + [B] * (steps - 1),
+                    "pairs": [B * S * cfg.n_layers]
+                    + [B * cfg.n_layers] * (steps - 1),
+                    "free_prefill": free_run})
+    return out
 
 
 def profile_decode(dev, cfg, model, reqs, max_seq, steps: int = 4):
@@ -2697,9 +2846,8 @@ def profile_decode(dev, cfg, model, reqs, max_seq, steps: int = 4):
     no device time (the CPU)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import api
-    toks = torch.as_tensor(_left_padded(reqs), device=dev)
     with torch.inference_mode():
-        logits, state = api.prefill_step(cfg, model, {"tokens": toks},
+        logits, state = api.prefill_step(cfg, model, _batch_of(reqs, dev),
                                          max_seq)
         tok = logits[:, -1].argmax(-1)[:, None]
         del logits
@@ -3084,6 +3232,354 @@ def drive_solve_serve(dev, N_t, N_d, N_m, time_fn, report):
           f"{out.get('peak_memory_gb', 0.0):.2f} GB", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 9. Slice 16: the MoE, SSM, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("granite_moe_3b", "falcon_mamba_7b", "zamba2_1p2b",
+                "whisper_base")
+FAMILY_NEW = 8                    # new tokens a request
+# moe_ffn against its dense oracle, of max |y|: the h tolerance (bf16
+# operands; the oracle rounds where the port does, summed in another order)
+MOE_TOL = 2e-2
+# an f32 recurrence (the chunked scans, the FFT convolution) against its
+# f64 loop or direct convolution on the same inputs, of max |y|
+SSM_TOL = 1e-4
+LAYER_T = 256                     # positions of the one-layer SSM checks
+
+
+def family_plan(arch: str, full: bool):
+    """A family phase's config and traffic: full width, ``attn_impl=
+    "flash"`` where the family has attention, 4 greedy requests made from
+    SEED with FAMILY_NEW new tokens: prompts of 449-512 tokens (one bucket
+    of 128) and max_seq 1024; whisper prompts of 17-32 tokens with stub
+    frames (enc_positions, d_model), max_seq 64.  ``full=False`` (the CPU
+    rehearsal): the smoke config, prompts of 9-16 tokens in a bucket of
+    16, max_seq 64, 4 new tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.runtime import Request
+    cfg = (get_config if full else get_smoke_config)(arch)
+    if cfg.n_heads:
+        cfg = cfg.replace(attn_impl="flash")
+    encdec = cfg.family == "encdec"
+    (lo, hi), bucket, max_seq, new = (
+        (((17, 32) if encdec else (449, 512)), 128, 64 if encdec else 1024,
+         FAMILY_NEW) if full else ((9, 16), 16, 64, 4))
+    rng = np.random.default_rng(SEED)
+    reqs = []
+    for i, n in enumerate(rng.integers(lo, hi + 1, 4)):
+        prompt = rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
+        extras = ({"frames": rng.standard_normal(
+            (cfg.enc_positions, cfg.d_model), dtype=np.float32)}
+            if encdec else None)
+        reqs.append(Request(uid=i, prompt=prompt, max_new_tokens=new,
+                            extras=extras))
+    return cfg, reqs, bucket, max_seq
+
+
+def flash_calls_per_prefill(cfg) -> int:
+    """The attention calls one prefill batch makes through
+    ``layers.attention`` with more than one query, each a flash call: the
+    transformer's one a layer; the hybrid's one a shared-block invocation
+    (``hybrid.group_slices``); the encoder-decoder's one an encoder layer
+    and two a decoder layer (causal self-attention, and cross-attention
+    over the encoder output: ``encdec._mha`` without a cache); the SSM LM
+    none.  A decode step reads its caches through chunked attention."""
+    from repro_torch.models import hybrid
+    if cfg.family == "hybrid":
+        return hybrid.group_slices(cfg)[1]
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def _rel(a, b) -> float:
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+def check_moe_layer(dev, cfg, lp, gen, shapes) -> dict:
+    """``moe_ffn`` at one full-width layer, for each (B, S) of ``shapes``,
+    against a dense oracle: every expert on every token (f32 sums of the
+    compute-dtype operands, h and each expert's output rounded to it as
+    the port rounds them), weighted by gate * keep, with keep recomputed
+    apart from the port's cumsum by ranking each expert's (token, slot)
+    pairs in token-major order (a stable sort).  The dropped pair counts
+    must be equal and y within MOE_TOL of max |y|."""
+    from repro_torch.models import moe
+    F_ = torch.nn.functional
+    out = {}
+    E, k, D = cfg.n_experts, cfg.top_k, cfg.d_model
+    for B, S in shapes:
+        x = torch.randn((B, S, D), generator=gen, device=dev).to(
+            cfg.policy.c())
+        with torch.inference_mode():
+            y, _ = moe.moe_ffn(x, lp.router, lp.wg, lp.wu, lp.wd, top_k=k,
+                               capacity_factor=cfg.capacity_factor,
+                               group_size=cfg.moe_group)
+            T = B * S
+            gs = moe.pick_group(T, cfg.moe_group)
+            r = moe.route(x.reshape(T // gs, gs, D), lp.router, top_k=k,
+                          capacity_factor=cfg.capacity_factor)
+            flat = r.idx.reshape(T // gs, gs * k)
+            srt, order = torch.sort(flat, dim=1, stable=True)
+            first = torch.searchsorted(srt, srt)
+            rank = torch.empty_like(flat).scatter_(
+                1, order, torch.arange(gs * k, device=dev).expand_as(flat)
+                - first)
+            keep = (rank < r.C).reshape(r.idx.shape)
+            drops, port_drops = int((~keep).sum()), int((~r.keep).sum())
+            w = torch.zeros((T, E), device=dev).scatter_add_(
+                1, r.idx.reshape(T, k), (r.gate * keep).reshape(T, k).float())
+            xf, want = x.reshape(T, D).float(), torch.zeros((T, D),
+                                                             device=dev)
+            c = x.dtype
+            for e in range(E):
+                wg, wu, wd = (p[e].to(c).float() for p in (lp.wg, lp.wu,
+                                                           lp.wd))
+                h = (F_.silu(xf @ wg) * (xf @ wu)).to(c).float()
+                want += w[:, e:e + 1] * (h @ wd).to(c).float()
+            err = _rel(y.reshape(T, D).float(), want)
+        what = f"moe_ffn {cfg.name} layer 0 at {(B, S, D)} (C = {r.C})"
+        print(f"{what}: vs the dense oracle {err:.3e} of max |y| (<= "
+              f"{MOE_TOL:g}); dropped (token, slot) pairs {port_drops} of "
+              f"{T * k}, oracle {drops}", flush=True)
+        if port_drops != drops or not err <= MOE_TOL:
+            fail(f"{what}: {port_drops} dropped pairs against the oracle's "
+                 f"{drops}, y off it by {err:.3e} > {MOE_TOL:g}")
+        out[f"{B}x{S}"] = {"capacity": r.C, "group": gs, "dropped": drops,
+                           "pairs": T * k, "max_rel_err": err}
+    return out
+
+
+def check_mamba1_layer(dev, cfg, lp, gen, T) -> dict:
+    """One full-width Mamba-1 layer on T positions of a random hidden
+    state: the chunked selective scan (``_ssm_selective``, two chunks at
+    T = 256) against the sequential recurrence in f64 on the same f32
+    inputs, y and the last state; the LTI kernel's causal convolution by
+    FFT (``lti_conv_fft``) against the direct convolution in f64 with the
+    f64 impulse response; the LTI-FFT block against the block with that
+    direct convolution.  The recurrences within SSM_TOL, the block within
+    the h tolerance, of their max |value|."""
+    from repro_torch.models import mamba
+    F_ = torch.nn.functional
+    h = torch.randn((1, T, cfg.d_model), generator=gen, device=dev).to(
+        cfg.policy.c())
+    with torch.inference_mode():
+        xi, z, _ = mamba.conv_inputs(cfg, lp, h)
+        dt, Bc, Cc = mamba.selective_inputs(cfg, lp, xi, h.dtype)
+        y, s_last = mamba._ssm_selective(xi, dt, Bc, Cc, lp.A_log, lp.D_skip,
+                                         cfg.ssm_chunk)
+        A = -torch.exp(lp.A_log.double())
+        s = torch.zeros_like(A)[None]
+        ys = []
+        for t in range(T):
+            s = torch.exp(dt[:, t, :, None].double() * A) * s + \
+                (dt[:, t] * xi[:, t]).double()[..., None] * \
+                Bc[:, t, None, :].double()
+            ys.append((s * Cc[:, t, None, :].double()).sum(-1))
+        y_ref = torch.stack(ys, 1) + lp.D_skip.double() * xi.double()
+        scan = {"y": _rel(y.double(), y_ref), "state": _rel(s_last.double(),
+                                                            s)}
+        dtl = F_.softplus(lp.dt_bias.double())
+        decay = torch.exp(dtl[:, None] * -torch.exp(lp.A_log.double()))
+        steps = torch.arange(T, device=dev, dtype=torch.float64)
+        kern = (dtl[:, None] / cfg.ssm_state * decay[None]
+                ** steps[:, None, None]).sum(-1)                # (T, Di)
+        direct = F_.conv1d(F_.pad(xi.double().transpose(1, 2), (T - 1, 0)),
+                           kern.T.flip(-1)[:, None, :],
+                           groups=kern.shape[1]).transpose(1, 2)
+        fft = mamba.lti_conv_fft(mamba.lti_kernel(cfg, lp, T), xi)
+        conv = _rel(fft.double(), direct)
+        block = mamba.mamba1_block_lti_fft(cfg, lp, h)
+        block_direct = mamba._out(lp, h, direct.float() + lp.D_skip * xi, z)
+        blk = _rel((block - h).float(), (block_direct - h).float())
+    what = f"mamba1 {cfg.name} layer 0 at (1, {T}, {cfg.d_model})"
+    print(f"{what}: selective scan vs the f64 recurrence y {scan['y']:.3e}, "
+          f"last state {scan['state']:.3e}; LTI FFT convolution vs the f64 "
+          f"direct one {conv:.3e} (<= {SSM_TOL:g}); LTI-FFT block vs the "
+          f"block on the direct convolution {blk:.3e} (<= {TOL['h']:g})",
+          flush=True)
+    if not max(scan.values()) <= SSM_TOL or not conv <= SSM_TOL \
+            or not blk <= TOL["h"]:
+        fail(f"{what}: scan {scan}, LTI convolution {conv:.3e}, block "
+             f"{blk:.3e}")
+    return {"scan": scan, "lti_conv": conv, "lti_block": blk,
+            "chunk": mamba._pick_chunk(T, cfg.ssm_chunk)}
+
+
+def check_ssd_layer(dev, cfg, lp, gen, T) -> dict:
+    """The Mamba-2 SSD chunked form (``_ssd_chunked``) at one full-width
+    layer's heads (its A_log and dt_bias), on random f32 inputs over T
+    positions, against the naive per-step recurrence in f64, as
+    ``tests/test_models_smoke.py`` does on the CPU: y and the last state
+    within SSM_TOL of their max |value|."""
+    from repro_torch.models import mamba
+    Di = cfg.ssm_expand * cfg.d_model
+    Ph, N = cfg.ssm_head_dim, cfg.ssm_state
+    H = Di // Ph
+    rnd = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                     device=dev)
+    x, Bc, Cc = rnd(1, T, H, Ph), rnd(1, T, N), rnd(1, T, N)
+    dt = torch.nn.functional.softplus(rnd(1, T, H) + lp.dt_bias)
+    with torch.inference_mode():
+        y, S_last = mamba._ssd_chunked(x, dt, Bc, Cc, lp.A_log,
+                                       cfg.ssm_chunk)
+        a = dt.double() * -torch.exp(lp.A_log.double())
+        s = torch.zeros((1, H, Ph, N), dtype=torch.float64, device=dev)
+        ys = []
+        for t in range(T):
+            s = s * torch.exp(a[:, t])[..., None, None] + torch.einsum(
+                "bhp,bn->bhpn", (x[:, t] * dt[:, t][..., None]).double(),
+                Bc[:, t].double())
+            ys.append(torch.einsum("bhpn,bn->bhp", s, Cc[:, t].double()))
+        errs = {"y": _rel(y.double(), torch.stack(ys, 1)),
+                "state": _rel(S_last.double(), s)}
+    what = f"SSD {cfg.name} at (1, {T}, {H}, {Ph}), N {N}"
+    print(f"{what}: vs the f64 recurrence y {errs['y']:.3e}, last state "
+          f"{errs['state']:.3e} (<= {SSM_TOL:g})", flush=True)
+    if not max(errs.values()) <= SSM_TOL:
+        fail(f"{what}: {errs}")
+    return errs
+
+
+def check_decode_vs_forward(dev, cfg, model, reqs, cont, tol, what) -> dict:
+    """Prefill of the left-padded prompts, then one decode step a token of
+    ``cont`` (B, n): each step's logits against the teacher-forced
+    ``forward`` of prompt + ``cont`` at that position, within ``tol`` of
+    max |logit| (``tol`` None: reported, not gated)."""
+    from repro_torch.models import api
+    toks = torch.as_tensor(_left_padded(reqs), device=dev)
+    S = toks.shape[1]
+    full = torch.cat([toks, cont], dim=1)
+    with torch.inference_mode():
+        want, _ = api.forward(cfg, model, {"tokens": full})
+        logits, state = api.prefill_step(cfg, model, {"tokens": toks}, 0)
+        gaps = [_logit_gap(logits[:, -1], want[:, S - 1])]
+        for i in range(cont.shape[1] - 1):
+            logits, state = api.decode_step(cfg, model, state,
+                                            cont[:, i:i + 1])
+            gaps.append(_logit_gap(logits[:, 0], want[:, S + i]))
+    print(f"{what}: prefill + {len(gaps) - 1} decode steps vs the teacher-"
+          f"forced forward, worst {max(gaps):.3e} of max |logit| ("
+          + (f"<= {tol:g})" if tol is not None else "reported, not gated)"),
+          flush=True)
+    if tol is not None and not max(gaps) <= tol:
+        fail(f"{what}: decode off the forward by {max(gaps):.3e} > {tol:g}")
+    return {"gaps": gaps, "tol": tol}
+
+
+def drive_families(dev, full, time_fn, report):
+    """The slice's main paths: granite-moe-3b, falcon-mamba-7b, zamba2-1.2b
+    and whisper-base at full width through ``ServeEngine.serve``
+    (``family_plan``), weights from a seeded generator on the device, one
+    model at a time.  For each: the layer checks of its family (the MoE
+    FFN, Mamba-1 with the LTI-FFT path, Mamba-2's SSD); a warm-up serve,
+    then the counted serve with the counters set to 0 just before it:
+    ``flash_calls_per_prefill`` wgmma flash launches a prefill batch and
+    none in decode; flash against chunked (prefill and teacher-forced
+    decode logits within LOGIT_TOL; granite's chunked path on the flash
+    path's routing, the pairs routed differently counted); falcon's
+    prefill + decode against its forward, gated at ``FULL_F32`` and
+    reported at the default policy.  Tokens/s, prefill ms, the median
+    decode ms a step, peak memory and the phase's seconds."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.models.policy import FULL_F32
+    out = report["families"] = {}
+    if dev.type == "cuda":
+        report["peak_memory_gb_before_families"] = \
+            torch.cuda.max_memory_allocated(dev) / 1e9
+    for arch in FAMILY_ARCHS:
+        free(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cfg, reqs, bucket, max_seq = family_plan(arch, full)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+        model = api.init_params(cfg, gen, device=dev)
+        fam = out[cfg.name] = {
+            "family": cfg.family, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "attn_impl": cfg.attn_impl,
+            "max_seq": max_seq, "bucket": bucket,
+            "prompt_lens": [len(r.prompt) for r in reqs]}
+        if cfg.family == "moe":
+            fam["moe_layer"] = check_moe_layer(
+                dev, cfg, model.layers[0], gen,
+                ((4, 512), (4, 1)) if full else ((4, 16), (4, 1)))
+        if cfg.family == "ssm":
+            fam["mamba1_layer"] = check_mamba1_layer(
+                dev, cfg, model.layers[0], gen, LAYER_T if full else 16)
+        if cfg.family == "hybrid":
+            fam["ssd_layer"] = check_ssd_layer(
+                dev, cfg, model.layers[0], gen, LAYER_T if full else 16)
+        _serve_once(dev, cfg, model, reqs, bucket, max_seq)      # warm-up
+        _build.reset_launch_counts()
+        res, run = _serve_once(dev, cfg, model, reqs, bucket, max_seq)
+        counts = {k: v for k, v in _build.launch_counts.items() if v}
+        fam.update({"launches": counts, "serve": run})
+        n_batches = len(run["prefill_ms"])
+        expect = flash_calls_per_prefill(cfg) * n_batches
+        steps = sorted(run["decode_ms_per_step"])
+        print(f"serve {cfg.name} ({cfg.family}, {cfg.n_layers} layers, "
+              f"d_model {cfg.d_model}, {cfg.attn_impl}): {len(reqs)} "
+              f"requests in {n_batches} batch(es) of prompts "
+              f"{fam['prompt_lens']}, {run['tokens']} tokens in "
+              f"{run['wall_s']:.3f} s ({run['tokens_per_s']:.1f} tok/s); "
+              f"prefill ms {[round(t, 3) for t in run['prefill_ms']]}; "
+              f"decode ms/step median {steps[len(steps) // 2]:.3f}; "
+              f"launches {counts} (prefill {run['prefill_launches']}, decode "
+              f"{run['decode_launches']}, expected {expect} and 0)",
+              flush=True)
+        check_launches(counts, {"flash_attention_bh_wgmma": expect,
+                                "flash_attention_bh": 0,
+                                "flash_attention_bh_f32": 0})
+        check_launches({"flash": run["prefill_launches"]}, {"flash": expect})
+        check_launches({"flash": run["decode_launches"]}, {"flash": 0})
+        if len(res) != len(reqs) or any(
+                len(r.tokens) != q.max_new_tokens or r.tokens.min() < 0
+                or r.tokens.max() >= cfg.vocab for r, q in zip(res, reqs)):
+            fail(f"serve {cfg.name}: results of the wrong length or outside "
+                 f"the vocabulary")
+        # how far the host holds decode back, as drive_serve measures it
+        prof = profile_decode(dev, cfg, model, reqs, max_seq)
+        if prof is not None:
+            prof["idle_share"] = 1 - prof["device_ms_per_step"] / \
+                steps[len(steps) // 2]
+            print(f"{cfg.name} decode step: {prof['kernels_per_step']:.0f} "
+                  f"kernels, {prof['device_ms_per_step']:.3f} ms of device "
+                  f"time; idle share {prof['idle_share']:.3f}", flush=True)
+        fam["decode_profile"] = prof
+        new = reqs[0].max_new_tokens
+        if cfg.n_heads:
+            fam["check_default"] = compare_paths(
+                dev, cfg, model, reqs, max_seq, new, LOGIT_TOL["default"],
+                f"{cfg.name} default policy")
+        if cfg.family == "ssm":
+            import numpy as np
+            cont = torch.as_tensor(np.stack([r.tokens for r in res]),
+                                   device=dev, dtype=torch.long)
+            # gated at FULL_F32, as the reference's own decode-against-
+            # forward check (tests/test_models_smoke.py) runs in f32; at
+            # the default policy the prefill, decode and forward GEMMs of
+            # other row counts round bf16 differently, and 64 layers carry
+            # it: reported
+            fam["decode_vs_forward"] = {
+                pol: check_decode_vs_forward(
+                    dev, c, model, reqs, cont, tol, f"{cfg.name} {pol}")
+                for pol, c, tol in (
+                    ("full_f32", cfg.replace(policy=FULL_F32),
+                     LOGIT_TOL["full_f32"]),
+                    ("default", cfg, None))}
+        if dev.type == "cuda":
+            fam["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        fam["seconds"] = time.perf_counter() - t0
+        print(f"{cfg.name} phase: {fam['seconds']:.1f} s, peak device memory "
+              f"{fam.get('peak_memory_gb', 0.0):.2f} GB", flush=True)
+        del model, res
+    free(dev)
+
+
 def plain_path(op):
     """``op`` with every contraction on the plain PyTorch code (the
     "torch" dispatch path); pad/unpad still launch their kernels."""
@@ -3349,6 +3845,8 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     # slice 15: the solve server at the paper shape
     drive_solve_serve(dev, N_t, N_d, N_m, time_fn, report)
     free(dev)
+    # slice 16: the MoE, SSM, hybrid and encoder-decoder families
+    drive_families(dev, full, time_fn, report)
     return results, report
 
 
@@ -3445,6 +3943,8 @@ def main() -> int:
         report.get("peak_memory_gb_before_autotune", 0.0),
         report.get("peak_memory_gb_before_serve", 0.0),
         report.get("peak_memory_gb_before_solve_serve", 0.0),
+        report.get("peak_memory_gb_before_families", 0.0),
+        *(f.get("peak_memory_gb", 0.0) for f in report["families"].values()),
         torch.cuda.max_memory_allocated(dev) / 1e9)
     print(f"peak device memory {report['peak_memory_gb']:.2f} GB", flush=True)
     report["seconds"] = time.perf_counter() - t_start
@@ -3475,7 +3975,11 @@ def main() -> int:
                              "flash_attention_bh")},
                 "flash_attention_bh_f32": report["serve"]["full_f32_launches"]
                     .get("flash_attention_bh_f32", 0)}
-    line = kernel_line(results, launches, {"fig1": report["fig1"]["launches"]})
+    # the other serve paths' flash launches (slice 16) are kept apart too
+    line = kernel_line(results, launches, {
+        "fig1": report["fig1"]["launches"],
+        **{f"serve {name}": f["launches"]
+           for name, f in report["families"].items()}})
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -58,21 +58,43 @@ def gram_from_numpy(op: FFTMatvec, G_hat_re, G_hat_im, *,
     return GramOperator(op, space, "circulant", G_re, G_im)
 
 
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, (*path, k))
+    else:
+        yield path, tree
+
+
 def lm_params_from_numpy(cfg: ModelConfig, params, device=None):
     """The port's LM weights module holding the JAX package's params pytree
-    (numpy leaves; ``layers`` stacked on a leading layer axis, as
-    ``transformer.init_params`` builds it), at the policy's parameter
-    dtype on ``device`` (None = the card).  bf16 leaves widen exactly."""
-    mod = family_module(cfg)
+    (numpy leaves, per-layer stacks on a leading layer axis as the
+    reference's ``init_params`` builds them), at each parameter's dtype on
+    ``device`` (None = the card).  Every family: a parameter named
+    ``a.i.b.c`` (``i`` an index into a layer list: ``layers``,
+    ``enc_layers``, ``dec_layers``) takes the pytree's ``[a][b][c][i]``,
+    any other name ``a.b`` takes ``[a][b]``.  Every leaf of the pytree
+    must be taken, and bf16 leaves widen exactly."""
     dev = default_device(device)
-    model = mod.Transformer(cfg, device=dev)
-    stacked = params["layers"]
+    model = family_module(cfg).Model(cfg, device=dev)
+    taken = set()
     with torch.no_grad():
-        for i, lyr in enumerate(model.layers):
-            for name, p in lyr.named_parameters():
-                p.copy_(_plane(np.asarray(stacked[name])[i], p.dtype, dev))
-        for name in ("embed", "ln_f", "lm_head"):
-            p = getattr(model, name)
-            if p is not None:
-                p.copy_(_plane(params[name], p.dtype, dev))
+        for name, p in model.named_parameters():
+            path = name.split(".")
+            i = int(path.pop(1)) if len(path) > 1 and path[1].isdigit() \
+                else None
+            leaf = params
+            for k in path:
+                leaf = leaf[k]
+            leaf = np.asarray(leaf) if i is None else np.asarray(leaf)[i]
+            if tuple(leaf.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: the pytree's leaf is "
+                                 f"{tuple(leaf.shape)}, the port's "
+                                 f"parameter {tuple(p.shape)}")
+            p.copy_(_plane(leaf, p.dtype, dev))
+            taken.add(tuple(path))
+    left = [".".join(k) for k, _ in _leaves(params) if k not in taken]
+    if left:
+        raise ValueError(f"pytree leaves with no parameter in the port: "
+                         f"{left}")
     return model

@@ -6,6 +6,10 @@ unless ``--full``) and run a synthetic batched-request workload.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1p5_0p5b \
       --full                       # full widths on the card
 
+Every architecture of ``configs`` serves, each family through its decode
+state; the VLM gets stub patch embeddings, the encoder-decoder stub
+frames.
+
 Runs on the card unless ``--device`` names another device.  The line
 ``[serve] ... tok/s`` times the whole serve call on the host clock,
 synchronised with the device.
@@ -49,6 +53,9 @@ def main(argv=None):
     if cfg.family == "vlm":
         extras = {"patch_embeds": rng.standard_normal(
             (cfg.n_patches, cfg.d_model), dtype=np.float32)}
+    if cfg.family == "encdec":
+        extras = {"frames": rng.standard_normal(
+            (cfg.enc_positions, cfg.d_model), dtype=np.float32)}
 
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab, args.prompt_len,

@@ -5,11 +5,12 @@ Twin of the serving half of ``src/repro/models/api.py``:
     prefill_step(cfg, params, batch, max_seq) -> (logits, decode_state)
     decode_step(cfg, params, decode_state, tokens) -> (logits, decode_state)
 
-``params`` is the family's weights module (``transformer.Transformer``)
-and ``batch`` a dict of tensors.  The dense and VLM families are ported;
-every other family raises ``NotImplementedError`` naming its ROADMAP item.
-The training half (``loss_fn``, ``make_train_step``, the train-state
-helpers) comes with the training slice.
+``params`` is the family's weights module (``transformer.Transformer``,
+``ssm_lm.SSMLM``, ``hybrid.Hybrid``, ``encdec.EncDec``) and ``batch`` a
+dict of tensors: ``tokens``, and the VLM's ``patch_embeds`` or the
+encoder-decoder's ``frames``.  Every family is ported; the training half
+(``loss_fn``, ``make_train_step``, the train-state helpers) comes with the
+training slice.
 """
 
 from __future__ import annotations
@@ -18,29 +19,22 @@ import torch
 
 from ..backend import default_device
 from ..configs.base import ModelConfig
-from . import transformer
+from . import encdec, hybrid, ssm_lm, transformer
 
-_NOT_PORTED = {
-    "moe": transformer.MOE_ITEM,
-    "ssm": "the SSM family (models/mamba.py, ssm_lm.py) is not ported yet: "
-           "ROADMAP.md queue 1 item 15",
-    "hybrid": "the hybrid family (models/hybrid.py) is not ported yet: "
-              "ROADMAP.md queue 1 item 15",
-    "encdec": "the encoder-decoder family (models/encdec.py) is not ported "
-              "yet: ROADMAP.md queue 1 item 15",
-}
+FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "ssm": ssm_lm, "hybrid": hybrid, "encdec": encdec}
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family in ("dense", "vlm"):
-        return transformer
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[cfg.family])
-    raise ValueError(f"unknown model family {cfg.family!r}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    return FAMILIES[cfg.family]
 
 
 def forward(cfg: ModelConfig, params, batch):
     mod = family_module(cfg)
+    if cfg.family == "encdec":
+        return mod.forward(cfg, params, batch)
     if cfg.family == "vlm":
         return mod.forward(cfg, params, batch["tokens"],
                            extra_embeds=batch["patch_embeds"])
@@ -64,9 +58,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, *,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device=None):
-    family_module(cfg)
-    return transformer.init_cache(cfg, batch, max_seq,
-                                  device=default_device(device))
+    mod, dev = family_module(cfg), default_device(device)
+    if mod is transformer:
+        return transformer.init_cache(cfg, batch, max_seq, device=dev)
+    return mod.init_decode_state(cfg, batch, max_seq, device=dev)
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens):
@@ -75,6 +70,8 @@ def decode_step(cfg: ModelConfig, params, state, tokens):
 
 def prefill_step(cfg: ModelConfig, params, batch, max_seq: int):
     mod = family_module(cfg)
+    if cfg.family == "encdec":
+        return mod.prefill(cfg, params, batch, max_seq)
     if cfg.family == "vlm":
         return mod.prefill(cfg, params, batch["tokens"], max_seq,
                            extra_embeds=batch["patch_embeds"])

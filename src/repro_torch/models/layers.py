@@ -1,6 +1,7 @@
-"""Neural-net primitives of the transformer path: RMS norm, RoPE, GQA
-attention (chunked online softmax, a block-causal variant, the flash
-kernel) and the gated MLP.
+"""Neural-net primitives of the LM families: RMS and layer norm, RoPE and
+sinusoid positions, GQA attention (chunked online softmax, a block-causal
+variant, the flash kernel), the gated and the GELU MLP, and
+:class:`Weights`, the holder of a block's named parameters.
 
 Twin of ``src/repro/models/layers.py``.  Products of the attention
 softmax run on f32 operands (a bf16 operand widens exactly, so each
@@ -11,8 +12,11 @@ constraints are no-ops on one device and have no twin here.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..kernels.flash_attention import flash_attention
 
@@ -23,6 +27,24 @@ def rms_norm(x, gamma, eps: float = 1e-5):
     h = x.to(F32)
     scale = torch.rsqrt((h * h).mean(dim=-1, keepdim=True) + eps)
     return (h * scale).to(x.dtype) * gamma.to(x.dtype)
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    h = x.to(F32)
+    mu = h.mean(dim=-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (h - mu) * torch.rsqrt(var + eps)
+    return out.to(x.dtype) * gamma.to(x.dtype) + beta.to(x.dtype)
+
+
+def sinusoid_positions(positions, d: int, max_scale: float = 1e4):
+    """Sinusoidal positional embedding, length-agnostic.  positions:
+    (..., S) int -> (..., S, d) f32."""
+    half = d // 2
+    freqs = torch.exp(-math.log(max_scale) * torch.arange(
+        half, dtype=F32, device=positions.device) / half)
+    ang = positions[..., None].to(F32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def matmul_f32(x, w):
@@ -40,6 +62,19 @@ def matmul_f32(x, w):
         return torch.matmul(x.to(F32), w.to(F32))
     y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def bmm_f32(x, w):
+    """Batched x (E, M, K) @ w (E, K, N) (cast to x's dtype) with f32 sums
+    and an f32 result, as :func:`matmul_f32` for one product: on the card
+    ``torch.bmm(..., out_dtype=torch.float32)`` for bf16/f16 operands, on
+    the CPU the operands widened to f32."""
+    w = w.to(x.dtype)
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return torch.bmm(x, w).to(F32)
+    if x.device.type == "cpu":
+        return torch.bmm(x.to(F32), w.to(F32))
+    return torch.bmm(x, w, out_dtype=F32)
 
 
 def dense(x, w, b=None):
@@ -219,9 +254,59 @@ def swiglu(x, wg, wu, wd):
     return dense(F.silu(g.to(F32)).to(x.dtype) * u, wd)
 
 
+def gelu_mlp(x, w1, b1, w2, b2):
+    """The reference's ``jax.nn.gelu`` is the tanh approximation."""
+    h = dense(x, w1, b1)
+    return dense(F.gelu(h.to(F32), approximate="tanh").to(x.dtype), w2, b2)
+
+
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
+
+class Weights(nn.Module):
+    """A block's named parameters, made empty from a spec ``{name: (shape,
+    dtype, init)}`` in the reference's per-block shapes and drawn by
+    :meth:`reset_`.  ``init`` is "one", "zero", "dense" (:func:`init_dense`),
+    a float (:func:`init_dense` at that scale), "embed" (:func:`init_embed`)
+    or a function ``(shape, device) -> tensor``.  Submodules added after
+    ``__init__`` keep their own parameters and draws."""
+
+    def __init__(self, spec: dict, device=None):
+        super().__init__()
+        self._init = {}
+        for name, (shape, dtype, init) in spec.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device),
+                requires_grad=False))
+            self._init[name] = init
+
+    def reset_(self, gen: torch.Generator) -> None:
+        """Draw this block's own parameters (not its submodules') from
+        ``gen``, in spec order."""
+        with torch.no_grad():
+            for name, init in self._init.items():
+                p = getattr(self, name)
+                if init == "one":
+                    p.fill_(1.0)
+                elif init == "zero":
+                    p.zero_()
+                elif init == "embed":
+                    p.copy_(init_embed(gen, *p.shape, p.dtype))
+                elif init == "dense" or isinstance(init, float):
+                    p.copy_(init_dense(gen, p.shape, p.dtype,
+                                       None if init == "dense" else init))
+                else:
+                    p.copy_(init(p.shape, p.device))
+
+
+def reset_all_(model: nn.Module, gen: torch.Generator) -> None:
+    """Draw every :class:`Weights` block of ``model`` from ``gen``, in
+    module order."""
+    for m in model.modules():
+        if isinstance(m, Weights):
+            m.reset_(gen)
+
 
 def init_dense(gen: torch.Generator, shape, dtype, scale: float | None = None):
     """N(0, 1) / sqrt(fan_in) (or ``scale``) drawn in f32 from ``gen`` on

@@ -1,6 +1,7 @@
 """Decoder-only transformer LM: the dense GQA family (qwen1.5, llama3,
-minicpm) and the phi-3-vision backbone (stub patch embeddings prepended to
-the token embeddings).
+minicpm, grok-1), the MoE family (granite-moe: the FFN is ``moe.moe_ffn``)
+and the phi-3-vision backbone (stub patch embeddings prepended to the
+token embeddings).
 
 Twin of ``src/repro/models/transformer.py``.  The parameters are an
 ``nn.Module``, :class:`Transformer`: a ``ModuleList`` of decoder layers,
@@ -16,7 +17,8 @@ shape (n_layers, B, max_seq, n_kv, Dh) at the policy's cache dtype, and
 its position ``pos`` as a Python int, so attention's dispatch is decided
 on the host.  ``decode_step`` writes the new key and value rows into the
 cache's buffers in place (no copy of the cache a step) and returns them
-with ``pos + 1``.
+with ``pos + 1``.  :func:`_layer` is also the hybrid family's shared
+attention block.
 """
 
 from __future__ import annotations
@@ -27,52 +29,55 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import layers as L
 from .layers import F32
-
-MOE_ITEM = ("the MoE FFN (models/moe.py) is not ported yet: ROADMAP.md "
-            "queue 1 item 15")
+from .moe import moe_ffn
 
 
-class DecoderLayer(nn.Module):
-    """One pre-norm attention + SwiGLU block's weights, in the reference's
-    per-layer shapes (its stacked arrays without the layer axis)."""
+class DecoderLayer(L.Weights):
+    """One pre-norm attention + FFN block's weights, in the reference's
+    per-layer shapes (its stacked arrays without the layer axis): a SwiGLU
+    FFN, or with ``n_experts`` the f32 router (D, E) and the expert stacks
+    wg/wu (E, D, F), wd (E, F, D)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        super().__init__()
         dt = cfg.policy.p()
         Dh = cfg.head_dim()
         Hq, Hkv, D, Fd = cfg.n_heads, cfg.n_kv, cfg.d_model, cfg.d_ff
         shapes = {"ln1": (D,), "wq": (D, Hq * Dh), "wk": (D, Hkv * Dh),
-                  "wv": (D, Hkv * Dh), "wo": (Hq * Dh, D), "ln2": (D,),
-                  "wg": (D, Fd), "wu": (D, Fd), "wd": (Fd, D)}
+                  "wv": (D, Hkv * Dh), "wo": (Hq * Dh, D), "ln2": (D,)}
+        E = cfg.n_experts
+        shapes |= ({"wg": (E, D, Fd), "wu": (E, D, Fd), "wd": (E, Fd, D)}
+                   if E else {"wg": (D, Fd), "wu": (D, Fd), "wd": (Fd, D)})
         if cfg.qkv_bias:
             shapes |= {"bq": (Hq * Dh,), "bk": (Hkv * Dh,), "bv": (Hkv * Dh,)}
-        for name, shape in shapes.items():
-            self.register_parameter(name, nn.Parameter(
-                torch.empty(shape, dtype=dt, device=device),
-                requires_grad=False))
+        spec = {n: (shape, dt, "one" if n.startswith("ln") else
+                    "zero" if n.startswith("b") else "dense")
+                for n, shape in shapes.items()}
+        if E:
+            spec["router"] = ((D, E), F32, "dense")
+        super().__init__(spec, device)
 
     def bias(self, name: str):
         return getattr(self, name, None)
 
 
-class Transformer(nn.Module):
-    """The LM's weights (see the module docstring); the methods run the
-    module-level functions under the config it was built with."""
+class Transformer(L.Weights):
+    """The LM's weights (see the module docstring): embedding, final norm
+    and untied head (where the config asks for one) here, the decoder
+    layers in ``layers``; the methods run the module-level functions under
+    the config it was built with."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError(MOE_ITEM)
+        dt, D = cfg.policy.p(), cfg.d_model
+        spec = {"embed": ((cfg.vocab, D), dt, "embed"),
+                "ln_f": ((D,), dt, "one")}
+        if not cfg.tie_embeddings:
+            spec["lm_head"] = ((D, cfg.vocab), dt, "dense")
+        super().__init__(spec, device)
         self.cfg = cfg
-        dt = cfg.policy.p()
-        mk = lambda *shape: nn.Parameter(                     # noqa: E731
-            torch.empty(shape, dtype=dt, device=device), requires_grad=False)
-        self.embed = mk(cfg.vocab, cfg.d_model)
         self.layers = nn.ModuleList(DecoderLayer(cfg, device)
                                     for _ in range(cfg.n_layers))
-        self.ln_f = mk(cfg.d_model)
-        self.lm_head = None if cfg.tie_embeddings else mk(cfg.d_model,
-                                                          cfg.vocab)
+        if cfg.tie_embeddings:
+            self.lm_head = None
 
     @property
     def device(self) -> torch.device:
@@ -99,6 +104,9 @@ class Transformer(nn.Module):
         return decode_step(self.cfg, self, cache, tokens)
 
 
+Model = Transformer       # each family module's weights class
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -109,23 +117,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device=None):
     own device, on ``device`` (default: ``gen``'s).  The stream is not
     ``jax.random``'s: a test hands the reference's weights over with
     ``convert.lm_params_from_numpy``."""
-    device = torch.device(device) if device is not None else gen.device
-    model = Transformer(cfg, device=device)
-    with torch.no_grad():
-        for lyr in model.layers:
-            for name, p in lyr.named_parameters():
-                if name.startswith("ln"):
-                    p.fill_(1.0)
-                elif name.startswith("b"):
-                    p.zero_()
-                else:
-                    p.copy_(L.init_dense(gen, p.shape, p.dtype))
-        model.embed.copy_(L.init_embed(gen, cfg.vocab, cfg.d_model,
-                                       model.embed.dtype))
-        model.ln_f.fill_(1.0)
-        if model.lm_head is not None:
-            model.lm_head.copy_(L.init_dense(gen, model.lm_head.shape,
-                                             model.lm_head.dtype))
+    model = Transformer(cfg, device=device if device is not None
+                        else gen.device)
+    L.reset_all_(model, gen)
     return model
 
 
@@ -159,16 +153,23 @@ def _attn_block(cfg: ModelConfig, lp: DecoderLayer, h, positions, *,
 
 
 def _ffn_block(cfg: ModelConfig, lp: DecoderLayer, h):
+    """The FFN and its aux loss (0.0 without experts)."""
     x = L.rms_norm(h, lp.ln2, cfg.norm_eps)
-    return L.swiglu(x, lp.wg, lp.wu, lp.wd)
+    if cfg.n_experts:
+        return moe_ffn(x, lp.router, lp.wg, lp.wu, lp.wd, top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor,
+                       group_size=cfg.moe_group)
+    return L.swiglu(x, lp.wg, lp.wu, lp.wd), 0.0
 
 
 def _layer(cfg: ModelConfig, h, lp: DecoderLayer, positions, cache=None,
            cache_pos: int = 0):
+    """One block: returns (h, aux, (k, v) of this call)."""
     a, kv = _attn_block(cfg, lp, h, positions, cache=cache,
                         cache_pos=cache_pos)
     h = h + a
-    return h + _ffn_block(cfg, lp, h), kv
+    f, aux = _ffn_block(cfg, lp, h)
+    return h + f, aux, kv
 
 
 def embed_tokens(cfg: ModelConfig, params: Transformer, tokens,
@@ -189,21 +190,22 @@ def unembed(cfg: ModelConfig, params: Transformer, h):
     return L.matmul_f32(x, head).to(cfg.policy.l())
 
 
-def _positions(B: int, S: int, start: int, device):
+def position_ids(B: int, S: int, start: int, device):
     return torch.arange(start, start + S, device=device).expand(B, S)
 
 
 def forward(cfg: ModelConfig, params: Transformer, tokens, *,
             extra_embeds=None):
-    """Training/prefill forward: logits (B, S_total, V) and the aux loss
-    (0 for the dense family)."""
+    """Training/prefill forward: logits (B, S_total, V) and the mean aux
+    loss over the layers (0 for the dense family)."""
     h = embed_tokens(cfg, params, tokens, extra_embeds)
     B, S, _ = h.shape
-    positions = _positions(B, S, 0, h.device)
+    positions = position_ids(B, S, 0, h.device)
+    aux = torch.zeros((), dtype=F32, device=h.device)
     for lp in params.layers:
-        h, _ = _layer(cfg, h, lp, positions)
-    return unembed(cfg, params, h), torch.zeros((), dtype=F32,
-                                                device=h.device)
+        h, a, _ = _layer(cfg, h, lp, positions)
+        aux = aux + a
+    return unembed(cfg, params, h), aux / cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -227,10 +229,10 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache, tokens):
                          f"{cache['k'].shape[2]}")
     h = embed_tokens(cfg, params, tokens)
     B, S, _ = h.shape
-    positions = _positions(B, S, pos, h.device)
+    positions = position_ids(B, S, pos, h.device)
     for i, lp in enumerate(params.layers):
-        h, _ = _layer(cfg, h, lp, positions,
-                      cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+        h, _, _ = _layer(cfg, h, lp, positions,
+                         cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
     logits = unembed(cfg, params, h)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + S}
 
@@ -242,10 +244,10 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens, max_seq: int, *,
     B, S, _ = h.shape
     if S > max_seq:
         raise ValueError(f"prompt of {S} positions exceeds max_seq={max_seq}")
-    positions = _positions(B, S, 0, h.device)
+    positions = position_ids(B, S, 0, h.device)
     cache = init_cache(cfg, B, max_seq, device=h.device)
     for i, lp in enumerate(params.layers):
-        h, (k, v) = _layer(cfg, h, lp, positions)
+        h, _, (k, v) = _layer(cfg, h, lp, positions)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     cache["pos"] = S

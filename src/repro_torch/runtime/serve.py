@@ -5,7 +5,10 @@ sampling.
 
 Twin of ``src/repro/runtime/serve.py``, with the same bucketing, extras
 partitioning, left-padding (with token 0, unmasked, as the reference
-does) and EOS handling.  The model runs eagerly under
+does) and EOS handling.  Every family serves through ``models.api``: KV
+cache transformers (dense, MoE, VLM), SSM-state decoders (ssm, hybrid)
+and the encoder-decoder with its cross-attention cache; the engine never
+reads the decode state.  The model runs eagerly under
 ``torch.inference_mode()`` on the device its weights lie on.  Greedy
 decoding takes ``torch.argmax`` (the first maximum, as ``jnp.argmax``);
 temperature sampling draws from the engine's own ``torch.Generator`` and
@@ -28,7 +31,7 @@ class Request:
     uid: int
     prompt: np.ndarray              # (S,) int32
     max_new_tokens: int = 16
-    extras: dict | None = None      # vlm patch embeds
+    extras: dict | None = None      # vlm patch embeds / encdec frames
 
 
 @dataclasses.dataclass

@@ -1,4 +1,4 @@
-"""The port's transformer primitives (``repro_torch.models.layers``) on the
+"""The port's LM primitives (``repro_torch.models.layers``) on the
 CPU, against the JAX package's ``repro.models.layers``: the same numpy
 inputs through both.  Tolerances: 1e-5 at f32 (two summation orders);
 2e-2 at bf16, where the two frameworks' f32 sums may round to
@@ -7,6 +7,7 @@ inputs whose products and sums are exact in f32, where both must give
 the same single rounding of (sum + bias) to bf16.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,6 +107,50 @@ def test_swiglu(rng, dt):
           for s in ((32, 40), (32, 40), (40, 32))]
     _close(L.swiglu(x, *(w for w, _ in ws)),
            JL.swiglu(jx, *(jw for _, jw in ws)), tol)
+
+
+def test_layer_norm(rng, dt):
+    tdt, jdt, tol = dt
+    x, jx = _pair(rng.standard_normal((2, 7, 32)) * 3 + 1, tdt, jdt)
+    g, jg = _pair(rng.standard_normal(32), torch.float32, jnp.float32)
+    b, jb = _pair(rng.standard_normal(32), torch.float32, jnp.float32)
+    _close(L.layer_norm(x, g, b, 1e-5), JL.layer_norm(jx, jg, jb, 1e-5), tol)
+
+
+def test_sinusoid_positions(rng):
+    pos = rng.integers(0, 1500, (2, 11))
+    got = L.sinusoid_positions(torch.from_numpy(pos), 64)
+    assert got.dtype == torch.float32 and got.shape == (2, 11, 64)
+    _close(got, JL.sinusoid_positions(jnp.asarray(pos), 64), 1e-5)
+
+
+def test_gelu_mlp_is_the_tanh_gelu(rng, dt):
+    """``jax.nn.gelu`` defaults to the tanh approximation; so does the
+    port's, not torch's exact default."""
+    tdt, jdt, tol = dt
+    x, jx = _pair(rng.standard_normal((2, 5, 32)), tdt, jdt)
+    (w1, jw1), (b1, jb1), (w2, jw2), (b2, jb2) = (
+        _pair(rng.standard_normal(s) / 6, torch.float32, jnp.float32)
+        for s in ((32, 40), (40,), (40, 32), (32,)))
+    _close(L.gelu_mlp(x, w1, b1, w2, b2), JL.gelu_mlp(jx, jw1, jb1, jw2, jb2),
+           tol)
+    h = torch.linspace(-4, 4, 81)
+    gelu = L.gelu_mlp(h[:, None], torch.eye(1), torch.zeros(1), torch.eye(1),
+                      torch.zeros(1))[:, 0]
+    np.testing.assert_allclose(gelu.numpy(), np.asarray(
+        jax.nn.gelu(jnp.asarray(h.numpy()))), rtol=1e-6, atol=1e-6)
+
+
+def test_bmm_f32_keeps_the_f32_sums(rng):
+    """``bmm_f32`` on bf16 operands equals the f64 product of the same bf16
+    values to f32 resolution, as ``matmul_f32`` for one product."""
+    x = torch.from_numpy(rng.standard_normal((5, 7, 48))).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((5, 48, 40)) / 7).float()
+    got = L.bmm_f32(x, w)
+    want = x.double() @ w.to(torch.bfloat16).double()
+    assert got.dtype == torch.float32 and got.shape == (5, 7, 40)
+    err = (got.double() - want).abs().max() / want.abs().max()
+    assert err <= 1e-6, err
 
 
 def _qkv(rng, B, Sq, Skv, Hq, Hkv, Dh, tdt, jdt):
