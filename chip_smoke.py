@@ -199,6 +199,23 @@ CUDA toolkit.  It:
    decode step), peak memory, seconds.  The
    wgmma flash checks (11) also take granite's GQA groups of 3 and
    whisper's non-causal 1500-key calls.
+18. the dispatch crossover and training (``drive_dispatch_calibration``,
+   ``drive_train``): ``calibrate_dispatch`` on the card into a temp-dir
+   TuningCache (the kernel and plain ms of the complex "H" SBGEMV at B =
+   8, m = 16 at every ratio, the ratio found, a second call answered from
+   the cache, the calibrated table's routing by launch counts, the
+   default table launching the kernel at the paper shape); qwen1.5-0.5b
+   at full width and depth trained by ``runtime.Trainer`` for 6 steps
+   (AdamW, cosine schedule, ``remat="full"``, chunked attention, batches
+   of 2 x 4096 from ``SyntheticPipeline``): step ms, tokens/s, peak
+   memory, loss and grad norm a step, the final checkpoint's seconds and
+   GB, a profiled step's device time, no hand-written kernel launched;
+   checks: 4 AdamW steps lower one batch's loss, the head product's
+   backward against f64, and on a 2-layer model at ``FULL_F32`` the loss
+   and grad norm against a plain f64 model (1e-4), a crash resumed to the
+   uninterrupted run's parameters (rtol 1e-5, atol 1e-6), an int8-
+   compressed step with nonzero error feedback, a grad-enabled flash call
+   raising.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -211,6 +228,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -3580,6 +3598,498 @@ def drive_families(dev, full, time_fn, report):
     free(dev)
 
 
+# ---------------------------------------------------------------------------
+# slice 17: the dispatch crossover and training
+# ---------------------------------------------------------------------------
+
+def drive_dispatch_calibration(dev, report):
+    """``backend.calibrate_dispatch`` on the card (the complex "H" SBGEMV
+    at B = 8, m = 16 on the kernel and the plain path, CUDA-event
+    medians) into a TuningCache under a temp dir: the ms of both paths at
+    every ratio and the ratio found; a second call answered from the
+    cache with nothing measured; the calibrated table's routing shown by
+    launch counts (the kernel from the ratio up, none below); the
+    default (uncalibrated) table launching the kernel at the paper
+    shape's block."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.backend import (DispatchTable, calibrate_dispatch,
+                                     probe_backend)
+    from repro_torch.backend.dispatch import (CALIBRATION_RATIOS,
+                                              CALIBRATION_ROWS)
+    from repro_torch.configs import PAPER_SINGLE
+    from repro_torch.kernels import _build, ops
+    from repro_torch.tune import TuningCache
+    out = report["dispatch_calibration"] = {}
+    if dev.type != "cuda":
+        return
+    spec = probe_backend(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dispatch_")
+    try:
+        path = pathlib.Path(tmp) / "tune.json"
+        times = {}
+        t0 = time.perf_counter()
+        table = calibrate_dispatch(spec, cache=TuningCache(path),
+                                   times=times)
+        out["seconds"] = time.perf_counter() - t0
+        out["ratio"] = table.short_wide_ratio
+        out["ms"] = {str(r): t for r, t in times.items()}
+        for r, t in times.items():
+            print(f"dispatch calibration: m={CALIBRATION_ROWS} n="
+                  f"{int(CALIBRATION_ROWS * r)} (ratio {r}): kernel "
+                  f"{t['kernel']:.4f} ms, torch {t['torch']:.4f} ms")
+        print(f"dispatch calibration: short-wide ratio {table.short_wide_ratio}"
+              f" ({out['seconds']:.1f} s)", flush=True)
+        if not table.calibrated or sorted(times) != list(CALIBRATION_RATIOS):
+            fail("dispatch calibration: no calibrated table or missing "
+                 "ratios")
+
+        def boom(path_, m, n):
+            raise AssertionError("measured despite a cached table")
+
+        if calibrate_dispatch(spec, cache=TuningCache(path),
+                              measure=boom) != table:
+            fail("dispatch calibration: the cached table differs")
+
+        gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+        routed = {}
+        for r in CALIBRATION_RATIOS:
+            m, n = CALIBRATION_ROWS, int(CALIBRATION_ROWS * r)
+            A = [torch.randn((8, m, n), generator=gen, device=dev)
+                 for _ in range(2)]
+            x = [torch.randn((8, m), generator=gen, device=dev)
+                 for _ in range(2)]
+            _build.reset_launch_counts()
+            y = ops.sbgemv(*A, *x, "H", dispatch=table)
+            sync(dev)
+            launched = _build.launch_counts.get("sbgemv_th_complex", 0)
+            want = int(m * table.short_wide_ratio <= n)
+            routed[str(r)] = launched
+            if launched != want or sum(_build.launch_counts.values()) != \
+                    launched:
+                fail(f"calibrated table at m={m}, n={n}: "
+                     f"{dict(_build.launch_counts)} launches, expected "
+                     f"{want} of sbgemv_th_complex")
+            plain = ops.sbgemv(*A, *x, "H",
+                               dispatch=DispatchTable(force="torch"))
+            check_planes(f"calibrated sbgemv m={m} n={n}", y, plain,
+                         torch.float32)
+        out["launches_by_ratio"] = routed
+        cfg = PAPER_SINGLE
+        shape = (cfg.N_t + 1, cfg.N_d, cfg.N_m)
+        A = [torch.randn(shape, generator=gen, device=dev) for _ in range(2)]
+        x = [torch.randn(shape[:2], generator=gen, device=dev)
+             for _ in range(2)]
+        _build.reset_launch_counts()
+        ops.sbgemv(*A, *x, "H", dispatch=DispatchTable())
+        sync(dev)
+        check_launches(dict(_build.launch_counts), {"sbgemv_th_complex": 1})
+        out["default_table_paper_launches"] = dict(_build.launch_counts)
+        out["paper_shape_ratio"] = shape[2] / shape[1]
+        out["paper_shape_on_kernel_when_calibrated"] = \
+            math.isfinite(table.short_wide_ratio) and \
+            shape[1] * table.short_wide_ratio <= shape[2]
+        del A, x
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+TRAIN_ARCH = "qwen1p5_0p5b"
+TRAIN_SEQ = 4096          # train_4k's length (src/repro/configs/shapes.py)
+TRAIN_BATCH = 2           # train_4k's global batch of 256, cut to one card
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-4
+LEARN_LR = 1e-3           # the learning check: 4 steps on one batch
+CHECK_LAYERS = 2          # the autograd, resume and compression checks
+CHECK_SEQ = 256
+GRAD_TOL = 1e-4           # loss and grad norm, FULL_F32 against f64
+HEAD_GRAD_TOL = 1e-2      # the f32-output product's gradients (bf16)
+RESUME_TOL = {"rtol": 1e-5, "atol": 1e-6}   # tests/test_runtime.py
+
+
+def plain_dense_loss(cfg, P: dict, tokens, labels):
+    """The dense family's next-token cross entropy written out plainly
+    (full-score causal softmax attention, rotary positions on halves,
+    RMS norm, SwiGLU, the tied or untied head), in the dtype of the
+    parameters ``P`` (the port's names): the f64 oracle of the autograd
+    check."""
+    import torch.nn.functional as F
+    B, S = tokens.shape
+    H, Hk, Dh = cfg.n_heads, cfg.n_kv, cfg.head_dim()
+    dt, dev = P["embed"].dtype, tokens.device
+    inv = 1.0 / cfg.rope_theta ** (torch.arange(0, Dh, 2, dtype=dt,
+                                                device=dev) / Dh)
+    ang = torch.arange(S, dtype=dt, device=dev)[:, None] * inv
+    cos, sin = ang.cos()[:, None], ang.sin()[:, None]
+
+    def rope(x):
+        x1, x2 = x[..., :Dh // 2], x[..., Dh // 2:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+    def norm(x, g):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True)
+                               + cfg.norm_eps) * g
+
+    def proj(x, i, name):
+        b = P.get(f"layers.{i}.b{name}")
+        y = x @ P[f"layers.{i}.w{name}"]
+        return y if b is None else y + b
+
+    mask = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+    h = P["embed"][tokens]
+    for i in range(cfg.n_layers):
+        x = norm(h, P[f"layers.{i}.ln1"])
+        q = rope(proj(x, i, "q").view(B, S, H, Dh))
+        k = rope(proj(x, i, "k").view(B, S, Hk, Dh)).repeat_interleave(
+            H // Hk, 2)
+        v = proj(x, i, "v").view(B, S, Hk, Dh).repeat_interleave(H // Hk, 2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / Dh ** 0.5
+        p = s.masked_fill(~mask, float("-inf")).softmax(-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, S, H * Dh)
+        h = h + o @ P[f"layers.{i}.wo"]
+        x = norm(h, P[f"layers.{i}.ln2"])
+        h = h + (F.silu(x @ P[f"layers.{i}.wg"]) * (x @ P[f"layers.{i}.wu"])) \
+            @ P[f"layers.{i}.wd"]
+    x = norm(h, P["ln_f"])
+    head = P["embed"].T if cfg.tie_embeddings else P["lm_head"]
+    logits = x @ head
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+
+
+def check_head_backward(dev, gen) -> dict:
+    """The head's f32-output product (``layers.matmul_f32`` on bf16
+    operands: ``torch.mm(..., out_dtype=torch.float32)``) differentiated
+    on the card through ``layers._ProductF32``, against f64 autograd of
+    the same bf16 operands; and whether the overload has a derivative of
+    its own in this torch."""
+    from repro_torch.models import layers
+    x = torch.randn((512, 1024), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((1024, 4096), generator=gen, device=dev) / 32).bfloat16()
+    r = torch.randn((512, 4096), generator=gen, device=dev)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    y = layers.matmul_f32(x, w)
+    gx, gw = torch.autograd.grad((y * r).sum(), (x, w))
+    xd = x.detach().double().requires_grad_(True)
+    wd = w.detach().double().requires_grad_(True)
+    yd = xd @ wd
+    gxd, gwd = torch.autograd.grad((yd * r.double()).sum(), (xd, wd))
+    out = {"forward": rel(y, yd), "grad_x": rel(gx, gxd),
+           "grad_w": rel(gw, gwd)}
+    try:
+        torch.mm(x, w, out_dtype=torch.float32).sum().backward()
+        out["mm_dtype_has_derivative"] = True
+    except RuntimeError:
+        out["mm_dtype_has_derivative"] = False
+    if out["forward"] > HEAD_TOL or out["grad_x"] > HEAD_GRAD_TOL \
+            or out["grad_w"] > HEAD_GRAD_TOL:
+        fail(f"the f32-output product's gradient on the card: {out}")
+    print(f"head product backward: forward {out['forward']:.2e}, grad x "
+          f"{out['grad_x']:.2e}, grad w {out['grad_w']:.2e} (f64 oracle); "
+          f"aten::mm.dtype has a derivative: "
+          f"{out['mm_dtype_has_derivative']}", flush=True)
+    return out
+
+
+class _CrashOnce:
+    def __init__(self, at):
+        self.at, self.done = at, False
+
+    def __call__(self, step):
+        if step == self.at and not self.done:
+            self.done = True
+            raise RuntimeError("injected node failure")
+
+
+def check_train_small(dev, cfg, out) -> None:
+    """The checks on a CHECK_LAYERS-layer model of ``cfg``'s widths at
+    ``FULL_F32`` (batch 1, CHECK_SEQ tokens): loss and grad norm against
+    ``plain_dense_loss`` in f64 on the same weights (remat full, chunked
+    attention); a crash by ``fault_hook`` after a checkpoint, resumed to
+    the uninterrupted run's parameters; one int8-compressed step with
+    nonzero error-feedback buffers; a grad-enabled flash call raising."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.models.policy import FULL_F32
+    from repro_torch.optim import AdamW, Compressor, constant_schedule
+    from repro_torch.runtime import Trainer, TrainerConfig
+    small = cfg.replace(n_layers=CHECK_LAYERS, policy=FULL_F32)
+    pipe = SyntheticPipeline(small, 1, CHECK_SEQ, seed=SEED + 5, device=dev)
+    batch = pipe.generate(0)
+    model = api.init_params(small, seed=SEED + 6, device=dev)
+    names, params = zip(*model.named_parameters())
+    loss, _ = api.loss_fn(small, model, batch)
+    grads = torch.autograd.grad(loss, params)
+    gnorm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    P = {n: p.detach().double().requires_grad_(True)
+         for n, p in zip(names, params)}
+    want = plain_dense_loss(small, P, batch["tokens"], batch["labels"])
+    gd = torch.autograd.grad(want, [P[n] for n in names])
+    gnorm_d = torch.stack([g.square().sum() for g in gd]).sum().sqrt()
+    grad_rel = (torch.stack([(g.double() - h).square().sum()
+                             for g, h in zip(grads, gd)]).sum().sqrt()
+                / gnorm_d).item()
+    ag = out["autograd_f64"] = {
+        "loss": loss.item(), "loss_f64": want.item(),
+        "loss_rel": abs(loss.item() - want.item()) / abs(want.item()),
+        "grad_norm": gnorm.item(), "grad_norm_f64": gnorm_d.item(),
+        "grad_norm_rel": abs(gnorm.item() - gnorm_d.item()) / gnorm_d.item(),
+        "grads_rel": grad_rel}
+    print(f"autograd ({CHECK_LAYERS} layers, FULL_F32, remat full, chunked) "
+          f"vs f64: loss rel {ag['loss_rel']:.2e}, grad norm rel "
+          f"{ag['grad_norm_rel']:.2e}, gradients rel {grad_rel:.2e}",
+          flush=True)
+    if ag["loss_rel"] > GRAD_TOL or ag["grad_norm_rel"] > GRAD_TOL:
+        fail(f"autograd on the card against f64: {ag}")
+    del grads, gd, P, want, loss
+
+    # flash refuses gradients on the card, and runs under no_grad
+    fl = small.replace(attn_impl="flash")
+    try:
+        api.loss_fn(fl, model, batch)
+        fail("a grad-enabled flash call did not raise")
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        api.loss_fn(fl, model, batch)
+    sync(dev)
+    check_launches(dict(_build.launch_counts),
+                   {"flash_attention_bh_f32": CHECK_LAYERS})
+    out["flash_refuses_gradients"] = True
+
+    # one int8-compressed step: nonzero error feedback
+    opt = AdamW(constant_schedule(TRAIN_LR))
+    state = {"params": model, "opt": opt.init(dict(zip(names, params))),
+             "step": torch.zeros((), dtype=torch.int32),
+             "efb": {n: torch.zeros_like(p, requires_grad=False)
+                     for n, p in zip(names, params)}}
+    state, m = api.make_train_step(small, opt, grad_compressor=Compressor(
+        "int8"))(state, batch)
+    efb_max = max(e.abs().max().item() for e in state["efb"].values())
+    out["int8_step"] = {"loss": m["loss"].item(), "efb_max": efb_max,
+                        "grad_norm": m["grad_norm"].item()}
+    if not efb_max > 0 or not math.isfinite(m["loss"].item()):
+        fail(f"int8-compressed step: {out['int8_step']}")
+    del state, model, params
+
+    # crash after the step-2 checkpoint, resume, against an uninterrupted run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        def trainer(d, hook=None):
+            tcfg = TrainerConfig(total_steps=4, checkpoint_every=2,
+                                 log_every=100, lr=TRAIN_LR, warmup=1)
+            return Trainer(small, tcfg, SyntheticPipeline(
+                small, 1, CHECK_SEQ, seed=SEED + 7, device=dev),
+                Checkpointer(d, keep_last=1), fault_hook=hook)
+        t0 = time.perf_counter()
+        try:
+            trainer(f"{tmp}/a", _CrashOnce(3)).run()
+            fail("the injected crash did not raise")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        t2 = trainer(f"{tmp}/a")
+        resumed, status = t2.run()
+        plain, _ = trainer(f"{tmp}/b").run()
+        diffs = [((a - b).abs().max().item(), b.abs().max().item())
+                 for a, b in zip(resumed["params"].parameters(),
+                                 plain["params"].parameters())]
+        bitwise = all(d == 0 for d, _ in diffs)
+        out["resume"] = {"status": status, "steps_after_resume":
+                         len(t2.step_times), "bitwise": bitwise,
+                         "max_abs_diff": max(d for d, _ in diffs),
+                         "deterministic_algorithms":
+                             torch.are_deterministic_algorithms_enabled(),
+                         "seconds": time.perf_counter() - t0}
+        print(f"crash at step 3, resumed from step 2: {len(t2.step_times)} "
+              f"steps, final parameters {'bit for bit' if bitwise else 'not bit for bit'}"
+              f" with the uninterrupted run's (max abs diff "
+              f"{out['resume']['max_abs_diff']:.3e}; "
+              f"torch.use_deterministic_algorithms "
+              f"{'on' if out['resume']['deterministic_algorithms'] else 'off'})",
+              flush=True)
+        if status != "done" or len(t2.step_times) != 2:
+            fail(f"resume: {out['resume']}")
+        for (a, b) in zip(resumed["params"].parameters(),
+                          plain["params"].parameters()):
+            if not torch.allclose(a, b, **RESUME_TOL):
+                fail(f"resumed parameters differ: {out['resume']}")
+        del resumed, plain
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def drive_train(dev, full, time_fn, report):
+    """The training main path: qwen1.5-0.5b at full width and depth
+    (``remat="full"``, chunked attention, the default policy, seeded
+    random init) through ``runtime.Trainer.run`` for TRAIN_STEPS steps of
+    AdamW on the cosine schedule, ``SyntheticPipeline`` batches of
+    TRAIN_BATCH x TRAIN_SEQ, the checkpointer in a temp dir (no
+    checkpoint before the run's final one).  Prints the step ms (median
+    of steps 2-6), tokens/s, peak memory, loss and grad norm a step, the
+    final checkpoint's seconds and GB, a profiled step's device time and
+    kernel count (its host-bound share), and that no hand-written kernel
+    ran (chunked attention).  Checks: 4 AdamW steps at LEARN_LR on one
+    batch lower its loss (a fresh model); the head's product backward
+    (:func:`check_head_backward`); :func:`check_train_small`."""
+    import math
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.optim import AdamW, constant_schedule
+    from repro_torch.runtime import Trainer, TrainerConfig
+    out = report["train"] = {}
+    free(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    cfg = (get_config(TRAIN_ARCH) if full else get_smoke_config(TRAIN_ARCH))
+    cfg = cfg.replace(remat="full", attn_impl="chunked")
+    B, S = (TRAIN_BATCH, TRAIN_SEQ) if full else (2, 32)
+    out.update(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab, batch=B, seq=S, steps=TRAIN_STEPS,
+               remat=cfg.remat, attn_impl=cfg.attn_impl,
+               reduced={"global_batch": "256 -> 2 (one card's memory)"})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        pipe = SyntheticPipeline(cfg, B, S, seed=SEED, device=dev)
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS,
+                             checkpoint_every=TRAIN_STEPS + 1, log_every=1,
+                             lr=TRAIN_LR, warmup=2)
+        trainer = Trainer(cfg, tcfg, pipe, Checkpointer(tmp, keep_last=1))
+        saves = []
+        save = trainer._save
+
+        def timed_save(state, pstate):
+            sync(dev)
+            t0 = time.perf_counter()
+            save(state, pstate)
+            trainer.ckpt.wait()
+            saves.append(time.perf_counter() - t0)
+
+        trainer._save = timed_save
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, status = trainer.run(seed=SEED)
+        out["run_seconds"] = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        out["launches"] = counts
+        if sum(counts.values()):
+            fail(f"the training path (chunked attention) launched "
+                 f"hand-written kernels: {counts}")
+        if status != "done" or int(state["step"]) != TRAIN_STEPS:
+            fail(f"train run: {status} at step {int(state['step'])}")
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        steps = trainer.step_times
+        med = sorted(steps[1:])[len(steps[1:]) // 2]
+        out.update(
+            n_params=n_params, step_ms=[t * 1e3 for t in steps],
+            step_ms_median=med * 1e3, tokens_per_s=B * S / med,
+            loss=[m["loss"] for m in trainer.metrics_log],
+            grad_norm=[m["grad_norm"] for m in trainer.metrics_log],
+            checkpoint_seconds=saves[-1],
+            checkpoint_gb=os.path.getsize(os.path.join(
+                trainer.ckpt.step_dir(TRAIN_STEPS), "arrays.npz")) / 1e9)
+        if dev.type == "cuda":
+            out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        for m in trainer.metrics_log:
+            print(f"train step {m['step']}: loss {m['loss']:.4f}, grad norm "
+                  f"{m['grad_norm']:.4f}, {m['ms']:.1f} ms", flush=True)
+        if not all(math.isfinite(x) for x in out["loss"] + out["grad_norm"]):
+            fail(f"train run: non-finite loss or grad norm {out}")
+        print(f"train {cfg.name} ({n_params / 1e6:.1f} M parameters, "
+              f"{cfg.n_layers} layers) at batch {B} x {S}: step "
+              f"{out['step_ms_median']:.1f} ms (median of steps 2-"
+              f"{TRAIN_STEPS}), {out['tokens_per_s']:.0f} tokens/s, peak "
+              f"{out.get('peak_memory_gb', 0.0):.2f} GB; final checkpoint "
+              f"{out['checkpoint_gb']:.2f} GB in "
+              f"{out['checkpoint_seconds']:.1f} s", flush=True)
+
+        # one more step profiled: device time and kernels a step
+        model = state["params"]
+        step_fn = trainer.step_fn
+        batch = pipe.generate(TRAIN_STEPS)
+        if dev.type == "cuda":
+            sync(dev)
+            t0 = time.perf_counter()
+            # device activity only: the host's ~10^5 op events a step would
+            # cost more to gather than the step
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, _ = step_fn(state, batch)
+                sync(dev)
+            wall = time.perf_counter() - t0
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+            if busy_ms:
+                out["profile"] = {
+                    "device_ms": busy_ms, "kernels": sum(e.count
+                                                         for e in kern),
+                    "idle_share_of_median_step": 1 - busy_ms / (med * 1e3),
+                    "profiled_step_ms": wall * 1e3,
+                    "seconds": time.perf_counter() - t0}
+                print(f"train step profiled: {busy_ms:.1f} ms of device "
+                      f"time, {out['profile']['kernels']} kernels; idle "
+                      f"share of the median step "
+                      f"{out['profile']['idle_share_of_median_step']:.3f}",
+                      flush=True)
+        del state, trainer, model
+        free(dev)
+
+        # learning: 4 AdamW steps at LEARN_LR on one fixed batch, from a
+        # fresh model (after the run's 6 steps on the cosine schedule the
+        # random tied head's logits, std ~32, leave lr 1e-3 chaotic)
+        t0 = time.perf_counter()
+        model = api.init_params(cfg, seed=SEED + 3, device=dev)
+        opt = AdamW(constant_schedule(LEARN_LR))
+        named = dict(model.named_parameters())
+        lstate = {"params": model, "opt": opt.init(named),
+                  "step": torch.zeros((), dtype=torch.int32)}
+        learn = api.make_train_step(cfg, opt)
+        with torch.no_grad():
+            before = api.loss_fn(cfg, model, batch)[0].item()
+        for _ in range(4):
+            lstate, _ = learn(lstate, batch)
+        with torch.no_grad():
+            after = api.loss_fn(cfg, model, batch)[0].item()
+        out["learning"] = {"loss_before": before, "loss_after": after,
+                           "seconds": time.perf_counter() - t0}
+        print(f"learning check: one batch's loss {before:.4f} -> "
+              f"{after:.4f} after 4 AdamW steps at lr {LEARN_LR}",
+              flush=True)
+        if not after < before:
+            fail(f"4 AdamW steps did not lower the batch's loss: "
+                 f"{out['learning']}")
+        del lstate, model, named, batch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free(dev)
+    if dev.type == "cuda":
+        gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+        out["head_backward"] = check_head_backward(dev, gen)
+    t0 = time.perf_counter()
+    check_train_small(dev, (get_config(TRAIN_ARCH) if full
+                            else get_smoke_config(TRAIN_ARCH)), out)
+    out["small_checks_seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"train phase: {out['seconds']:.1f} s", flush=True)
+    free(dev)
+
+
 def plain_path(op):
     """``op`` with every contraction on the plain PyTorch code (the
     "torch" dispatch path); pad/unpad still launch their kernels."""
@@ -3847,6 +4357,10 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     free(dev)
     # slice 16: the MoE, SSM, hybrid and encoder-decoder families
     drive_families(dev, full, time_fn, report)
+    # slice 17: the dispatch crossover, and training at full width
+    drive_dispatch_calibration(dev, report)
+    free(dev)
+    drive_train(dev, full, time_fn, report)
     return results, report
 
 
@@ -3945,6 +4459,7 @@ def main() -> int:
         report.get("peak_memory_gb_before_solve_serve", 0.0),
         report.get("peak_memory_gb_before_families", 0.0),
         *(f.get("peak_memory_gb", 0.0) for f in report["families"].values()),
+        report["train"].get("peak_memory_gb", 0.0),
         torch.cuda.max_memory_allocated(dev) / 1e9)
     print(f"peak device memory {report['peak_memory_gb']:.2f} GB", flush=True)
     report["seconds"] = time.perf_counter() - t_start

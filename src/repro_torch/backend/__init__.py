@@ -5,4 +5,6 @@ from .spec import (BackendSpec, UnsupportedOnBackend,  # noqa: F401
                    KERNEL_DTYPES, TORCH_REF)
 from .registry import (BACKEND_ENV, default_device,  # noqa: F401
                        known_backends, probe_backend, resolve_backend)
-from .dispatch import DispatchTable, default_table  # noqa: F401
+from .dispatch import (DispatchTable, calibrate_dispatch,  # noqa: F401
+                       calibrate_short_wide_ratio, default_gemv_measure,
+                       default_table)

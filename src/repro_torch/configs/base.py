@@ -1,9 +1,11 @@
 """Model configuration schema + registry for the assigned architectures.
 
 Every field and default is the JAX package's, so a config compares field
-for field.  The port runs eagerly with its layers looped in Python, so
-``scan_layers``, ``remat`` and ``analysis_mode`` change nothing here; they
-stay for that parity."""
+for field.  ``remat`` selects each layer's rematerialisation in training
+(``models.layers.remat``: "full" recomputes the layer in backward, "dots"
+keeps its products' outputs, "none" keeps everything).  The port runs
+eagerly with its layers looped in Python, so ``scan_layers`` and
+``analysis_mode`` change nothing here; they stay for that parity."""
 
 from __future__ import annotations
 

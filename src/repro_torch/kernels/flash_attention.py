@@ -137,11 +137,25 @@ def _launch(q, k, v, o, B, Hq, Hkv, qs, ks, vs, os, causal: bool) -> None:
     _build.launch_counts[entry] += 1
 
 
+def _refuse_grad(q, k, v, what: str) -> None:
+    """The kernel has no backward (nor has the reference's: ``jax.grad``
+    through its Pallas kernel fails), so a call that autograd would have
+    to differentiate raises instead of training as if attention were
+    absent."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            f"{what}: the flash kernel has no backward; train with "
+            f"attn_impl='chunked' or 'block_causal', or call it under "
+            f"torch.no_grad() / torch.inference_mode()")
+
+
 def flash_attention_bh(q, k, v, *, causal: bool = True, q_block: int = 256,
                        kv_block: int = 256):
     """Attention on folded heads: q (BH, Sq, Dh); k, v (BH, Skv, Dh) ->
-    (BH, Sq, Dh) in q's dtype.  Any Sq, Skv >= 1 and Dh <= 128."""
+    (BH, Sq, Dh) in q's dtype.  Any Sq, Skv >= 1 and Dh <= 128.  Raises
+    under grad mode when an input requires grad (no backward)."""
     _check(q, k, v, 3, "flash_attention_bh")
+    _refuse_grad(q, k, v, "flash_attention_bh")
     if q.device.type == "cpu":
         return flash_attention_bh_plain(q, k, v, causal=causal,
                                         q_block=q_block, kv_block=kv_block)
@@ -157,8 +171,10 @@ def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 256,
                     kv_block: int = 256):
     """GQA wrapper: q (B, Sq, Hq, Dh); k, v (B, Skv, Hkv, Dh) ->
     (B, Sq, Hq, Dh).  On the CPU it folds heads, repeats kv heads and
-    shrinks the blocks to divisors of the lengths, as the reference does."""
+    shrinks the blocks to divisors of the lengths, as the reference does.
+    Raises under grad mode when an input requires grad (no backward)."""
     _check(q, k, v, 4, "flash_attention")
+    _refuse_grad(q, k, v, "flash_attention")
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if Hq % Hkv:

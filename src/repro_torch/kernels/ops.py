@@ -76,7 +76,7 @@ def _contract(A_re, A_im, x_re, x_im, mode, out_dtype, backend, dispatch,
     out_dtype = out_dtype or A_re.dtype
     spec, table = resolve_backend_dispatch(backend, dispatch, A_re.device)
     _check_tile_support(spec, tile_map)
-    path = table.gemv_path(A_re.dtype, spec)
+    path = table.gemv_path(*A_re.shape[-2:], mode, A_re.dtype, spec)
     if path == "ref":
         y_re, y_im = (oracle(A_re, A_im, x_re, x_im, mode) if tile_map is None
                       else _ref.sbgemm_tiled_ref(A_re, A_im, x_re, x_im,
@@ -144,7 +144,7 @@ def _contract_real(A, x, mode, out_dtype, backend, dispatch, kernels,
     out_dtype = out_dtype or A.dtype
     spec, table = resolve_backend_dispatch(backend, dispatch, A.device)
     _check_tile_support(spec, tile_map)
-    path = table.gemv_path(A.dtype, spec)
+    path = table.gemv_path(*A.shape[-2:], mode, A.dtype, spec)
     if path == "ref":
         y = (_ref.sbgemm_real_ref(A, x, mode) if tile_map is None
              else _ref.sbgemm_tiled_real_ref(A, x, tile_map, mode))
@@ -214,7 +214,11 @@ def sbgemm_gram(A_re, A_im, *, space: str = "parameter", out_dtype=None,
     out_dtype = out_dtype or A_re.dtype
     spec, table = resolve_backend_dispatch(backend, dispatch, A_re.device)
     _check_tile_support(spec, tile_map)
-    path = table.gemv_path(A_re.dtype, spec)
+    # the data space's Gram is the parameter space's of A^H (as the
+    # reference dispatches it)
+    m, n = A_re.shape[-2:]
+    path = table.gemv_path(*((m, n) if space == "parameter" else (n, m)),
+                           "H", A_re.dtype, spec)
     if path == "ref":
         G_re, G_im = (_ref.sbgemm_gram_ref(A_re, A_im, space) if tile_map is None
                       else _ref.sbgemm_gram_tiled_ref(A_re, A_im, tile_map,

@@ -136,10 +136,15 @@ def encode(cfg: ModelConfig, params: EncDec, frames):
     """frames: (B, enc_positions, D) stub embeddings -> encoder output."""
     c = cfg.policy.c()
     h = frames.to(c) + params.enc_pos.to(c)
-    for lp in params.enc_layers:
+
+    def body(h, lp):
         x = L.layer_norm(h, lp.ln1, lp.ln1_b, cfg.norm_eps)
         h = h + _mha(cfg, lp.attn, x, None, causal=False)[0]
-        h = _mlp_block(cfg, lp, h)
+        return _mlp_block(cfg, lp, h)
+
+    body = L.remat(cfg, body)
+    for lp in params.enc_layers:
+        h = body(h, lp)
     return L.layer_norm(h, params.enc_ln, params.enc_ln_b, cfg.norm_eps)
 
 
@@ -173,11 +178,13 @@ def _unembed(cfg: ModelConfig, params: EncDec, h):
 
 
 def forward(cfg: ModelConfig, params: EncDec, batch):
-    """batch: {"frames": (B, T_enc, D), "tokens": (B, S)} -> dec logits."""
+    """batch: {"frames": (B, T_enc, D), "tokens": (B, S)} -> dec logits;
+    the encoder's and the decoder's layers under ``cfg.remat``."""
     enc_out = encode(cfg, params, batch["frames"])
     h = _embed(cfg, params, batch["tokens"], 0)
+    body = L.remat(cfg, lambda h, lp: _decoder_layer(cfg, lp, h, enc_out)[0])
     for lp in params.dec_layers:
-        h, _, _ = _decoder_layer(cfg, lp, h, enc_out)
+        h = body(h, lp)
     return _unembed(cfg, params, h), torch.zeros((), dtype=F32,
                                                  device=h.device)
 
@@ -192,6 +199,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
             "cross_v": zeros(cfg.enc_positions), "pos": 0}
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: EncDec, state, tokens):
     pos = int(state["pos"])
     if pos + tokens.shape[1] > state["self_k"].shape[2]:
@@ -207,6 +215,7 @@ def decode_step(cfg: ModelConfig, params: EncDec, state, tokens):
     return _unembed(cfg, params, h), {**state, "pos": pos + tokens.shape[1]}
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: EncDec, batch, max_seq: int):
     """Encode and run the decoder over the prompt, filling the self and
     cross caches."""

@@ -75,9 +75,12 @@ def forward(cfg: ModelConfig, params: Hybrid, tokens):
     B, S = tokens.shape
     positions = position_ids(B, S, 0, h.device)
     slices, n_shared = group_slices(cfg)
+    # the Mamba-2 layers under cfg.remat, the shared block not (as the
+    # reference)
+    body = L.remat(cfg, lambda h, lp: mamba2_block(cfg, lp, h)[0])
     for gi, (start, length) in enumerate(slices):
         for lp in params.layers[start:start + length]:
-            h = mamba2_block(cfg, lp, h)[0]
+            h = body(h, lp)
         if gi < n_shared:
             h, _, _ = _layer(cfg, h, params.shared_attn, positions)
     return unembed(cfg, params, h), torch.zeros((), dtype=F32,
@@ -128,6 +131,7 @@ def _run_groups(cfg: ModelConfig, params: Hybrid, h, positions, state, *,
     return h
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Hybrid, state, tokens):
     pos = int(state["pos"])
     if pos + tokens.shape[1] > state["attn_k"].shape[2]:
@@ -140,6 +144,7 @@ def decode_step(cfg: ModelConfig, params: Hybrid, state, tokens):
     return unembed(cfg, params, h), {**state, "pos": pos + S}
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: Hybrid, tokens, max_seq: int):
     B, S = tokens.shape
     if S > max_seq:

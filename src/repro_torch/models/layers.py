@@ -1,7 +1,8 @@
 """Neural-net primitives of the LM families: RMS and layer norm, RoPE and
 sinusoid positions, GQA attention (chunked online softmax, a block-causal
-variant, the flash kernel), the gated and the GELU MLP, and
-:class:`Weights`, the holder of a block's named parameters.
+variant, the flash kernel), the gated and the GELU MLP, the layer
+rematerialisation of :func:`remat`, and :class:`Weights`, the holder of a
+block's named (trainable) parameters.
 
 Twin of ``src/repro/models/layers.py``.  Products of the attention
 softmax run on f32 operands (a bf16 operand widens exactly, so each
@@ -12,11 +13,13 @@ constraints are no-ops on one device and have no twin here.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from ..kernels.flash_attention import flash_attention
 
@@ -47,20 +50,46 @@ def sinusoid_positions(positions, d: int, max_scale: float = 1e4):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+class _ProductF32(torch.autograd.Function):
+    """``torch.mm``/``torch.bmm`` of two bf16/f16 operands with
+    ``out_dtype=torch.float32``, differentiable: that overload has no
+    derivative in autograd.  The backward runs the same f32-output
+    products on the cotangent rounded once to the operands' dtype, each
+    gradient rounded once to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return (torch.mm if x.dim() == 2 else torch.bmm)(x, w, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        prod = torch.mm if x.dim() == 2 else torch.bmm
+        g = g.to(x.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = prod(g, w.mT, out_dtype=F32).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = prod(x.mT, g, out_dtype=F32).to(w.dtype)
+        return gx, gw
+
+
 def matmul_f32(x, w):
     """x @ w(cast to x's dtype) with f32 sums and an f32 result, as the
     reference's ``preferred_element_type=F32``.  For bf16/f16 operands the
     device decides how: on the card the f32-output product
-    (``torch.mm(..., out_dtype=torch.float32)``, which runs or raises); on
-    the CPU, which has no kernel for that overload, the operands widened
-    to f32 and an f32 product.  A bf16 x bf16 product is exact in f32, so
-    both compute the same f32-summed function."""
+    (``torch.mm(..., out_dtype=torch.float32)``, which runs or raises,
+    through :class:`_ProductF32` for its gradient); on the CPU, which has
+    no kernel for that overload, the operands widened to f32 and an f32
+    product.  A bf16 x bf16 product is exact in f32, so both compute the
+    same f32-summed function."""
     w = w.to(x.dtype)
     if x.dtype not in (torch.bfloat16, torch.float16):
         return torch.matmul(x, w).to(F32)
     if x.device.type == "cpu":
         return torch.matmul(x.to(F32), w.to(F32))
-    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
+    y = _ProductF32.apply(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -74,7 +103,7 @@ def bmm_f32(x, w):
         return torch.bmm(x, w).to(F32)
     if x.device.type == "cpu":
         return torch.bmm(x.to(F32), w.to(F32))
-    return torch.bmm(x, w, out_dtype=F32)
+    return _ProductF32.apply(x, w)
 
 
 def dense(x, w, b=None):
@@ -261,12 +290,54 @@ def gelu_mlp(x, w1, b1, w2, b2):
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+# the products whose outputs remat="dots" keeps (jax's checkpoint_dots)
+_DOTS = tuple(op for op in (torch.ops.aten.mm.default,
+                            getattr(torch.ops.aten.mm, "dtype", None),
+                            torch.ops.aten.bmm.default,
+                            getattr(torch.ops.aten.bmm, "dtype", None))
+              if op is not None)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(cfg, fn):
+    """A layer body under ``cfg.remat``, as the reference's ``_remat``:
+    "full" keeps only the body's inputs for backward and runs it again
+    there (``torch.utils.checkpoint``, jax's ``nothing_saveable``), "dots"
+    keeps the outputs of its matrix products and recomputes the rest
+    (jax's ``checkpoint_dots``), "none" keeps everything.  Without grad
+    mode the body runs as it is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    kw = ({"context_fn": functools.partial(
+        _ckpt.create_selective_checkpoint_contexts, _dots_policy)}
+          if cfg.remat == "dots" else {})
+
+    @functools.wraps(fn)
+    def body(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return body
+
+
+# ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
 
 class Weights(nn.Module):
-    """A block's named parameters, made empty from a spec ``{name: (shape,
-    dtype, init)}`` in the reference's per-block shapes and drawn by
+    """A block's named trainable parameters, made empty from a spec
+    ``{name: (shape, dtype, init)}`` in the reference's per-block shapes
+    and drawn by
     :meth:`reset_`.  ``init`` is "one", "zero", "dense" (:func:`init_dense`),
     a float (:func:`init_dense` at that scale), "embed" (:func:`init_embed`)
     or a function ``(shape, device) -> tensor``.  Submodules added after
@@ -277,8 +348,7 @@ class Weights(nn.Module):
         self._init = {}
         for name, (shape, dtype, init) in spec.items():
             self.register_parameter(name, nn.Parameter(
-                torch.empty(shape, dtype=dtype, device=device),
-                requires_grad=False))
+                torch.empty(shape, dtype=dtype, device=device)))
             self._init[name] = init
 
     def reset_(self, gen: torch.Generator) -> None:

@@ -62,9 +62,10 @@ def _embed(cfg: ModelConfig, params: SSMLM, tokens):
 def forward(cfg: ModelConfig, params: SSMLM, tokens, *,
             lti_fft_mode: bool = False):
     h = _embed(cfg, params, tokens)
+    body = L.remat(cfg, mamba1_block_lti_fft if lti_fft_mode
+                   else lambda c, lp, h: mamba1_block(c, lp, h)[0])
     for lp in params.layers:
-        h = (mamba1_block_lti_fft(cfg, lp, h) if lti_fft_mode
-             else mamba1_block(cfg, lp, h)[0])
+        h = body(cfg, lp, h)
     return unembed(cfg, params, h), torch.zeros((), dtype=F32,
                                                 device=h.device)
 
@@ -76,6 +77,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int = 0,
                       for k, v in one.items()}, "pos": 0}
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: SSMLM, state, tokens):
     """tokens (B, 1) -> (logits, new state).  Constant work a token."""
     h = _embed(cfg, params, tokens)
@@ -88,6 +90,7 @@ def decode_step(cfg: ModelConfig, params: SSMLM, state, tokens):
                                      "pos": state["pos"] + tokens.shape[1]}
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: SSMLM, tokens, max_seq: int = 0):
     """Prompt processing, carrying out the final states for decode."""
     h = _embed(cfg, params, tokens)

@@ -9,8 +9,11 @@ the embedding, the final norm and an untied head where the config asks
 for one.  The functions take the config and that module, as the
 reference's take the config and its params pytree, so one set of weights
 can run under configs that differ in implementation knobs (``attn_impl``,
-``policy``).  The layers loop in Python and everything runs eagerly; call
-under ``torch.inference_mode()`` to serve.
+``policy``, ``remat``).  The layers loop in Python and everything runs
+eagerly.  The parameters are trainable: :func:`forward` is differentiable
+(each layer under ``cfg.remat``, ``layers.remat``), and the serving
+entry points (:func:`prefill`, :func:`decode_step`) run under
+``torch.no_grad()``, so they build no graph and take the flash path.
 
 The KV cache is a dict with the reference's layout, ``k`` and ``v`` of
 shape (n_layers, B, max_seq, n_kv, Dh) at the policy's cache dtype, and
@@ -197,13 +200,20 @@ def position_ids(B: int, S: int, start: int, device):
 def forward(cfg: ModelConfig, params: Transformer, tokens, *,
             extra_embeds=None):
     """Training/prefill forward: logits (B, S_total, V) and the mean aux
-    loss over the layers (0 for the dense family)."""
+    loss over the layers (0 for the dense family); each layer under
+    ``cfg.remat``."""
     h = embed_tokens(cfg, params, tokens, extra_embeds)
     B, S, _ = h.shape
     positions = position_ids(B, S, 0, h.device)
+
+    def body(h, lp):
+        h, a, _ = _layer(cfg, h, lp, positions)
+        return h, a
+
+    body = L.remat(cfg, body)
     aux = torch.zeros((), dtype=F32, device=h.device)
     for lp in params.layers:
-        h, a, _ = _layer(cfg, h, lp, positions)
+        h, a = body(h, lp)
         aux = aux + a
     return unembed(cfg, params, h), aux / cfg.n_layers
 
@@ -219,6 +229,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
             "v": torch.zeros(shape, dtype=kdt, device=device), "pos": 0}
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Transformer, cache, tokens):
     """One-token decode: tokens (B, 1) + cache -> (logits (B, 1, V), cache).
     Raises when the cache is full (the reference's update would clamp its
@@ -237,6 +248,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache, tokens):
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + S}
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: Transformer, tokens, max_seq: int, *,
             extra_embeds=None):
     """Prompt processing: returns (logits, filled cache)."""

@@ -27,6 +27,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.backend.dispatch import DispatchTable
 from repro_torch.core.pareto import ConfigRecord, optimal_config
 from repro_torch.core.precision import PrecisionConfig
 
@@ -149,6 +150,16 @@ class TuningCache:
             self._data = raw
         return self._data
 
+    @staticmethod
+    def _mergeable(key: str, entry) -> bool:
+        """Whether an entry is kept through a save: dispatch tables by
+        their schema, tuning entries by theirs."""
+        if key.startswith("dispatch/"):
+            return (isinstance(entry, dict)
+                    and entry.get("version") == SCHEMA_VERSION
+                    and isinstance(entry.get("table"), dict))
+        return _valid_entry(entry)
+
     def save(self) -> None:
         """Merge-on-write + atomic replace (tmp + rename).
 
@@ -165,7 +176,7 @@ class TuningCache:
         except (FileNotFoundError, ValueError, OSError):
             on_disk = {}
         union = {**on_disk, **data}
-        merged = {k: v for k, v in union.items() if _valid_entry(v)}
+        merged = {k: v for k, v in union.items() if self._mergeable(k, v)}
         self._data = merged
         fd, tmp = tempfile.mkstemp(dir=self.path.parent,
                                    prefix=self.path.name, suffix=".tmp")
@@ -230,3 +241,31 @@ class TuningCache:
             return optimal_config(recs, tol).config
         except ValueError:
             return None
+
+    # -- dispatch calibration ------------------------------------------------
+    # Calibrated dispatch tables (backend.calibrate_dispatch) live beside
+    # the tuning entries, keyed by the backend fingerprint: a crossover is
+    # a property of the card and the kernels, measured once.
+
+    @staticmethod
+    def _dispatch_key(spec) -> str:
+        return f"dispatch/{spec.fingerprint()}"
+
+    def get_dispatch(self, spec) -> Optional[DispatchTable]:
+        """The calibrated table stored for this backend, or None (a miss,
+        a stale schema version or a corrupt entry alike)."""
+        entry = self._load().get(self._dispatch_key(spec))
+        if not isinstance(entry, dict) \
+                or entry.get("version") != SCHEMA_VERSION:
+            return None
+        try:
+            return DispatchTable.from_dict(entry["table"])
+        except (KeyError, TypeError, ValueError, AttributeError):
+            return None
+
+    def put_dispatch(self, spec, table: DispatchTable) -> None:
+        self._load()[self._dispatch_key(spec)] = {
+            "version": SCHEMA_VERSION,
+            "backend": spec.fingerprint(),
+            "table": table.to_dict(),
+        }

@@ -284,12 +284,12 @@ def test_every_leaf_is_carried_bit_for_bit(arch):
             for i in range(leaf.shape[0]):
                 p = named[".".join((path[0], str(i), *path[1:]))]
                 assert str(p.dtype).split(".")[1] == leaf.dtype.name
-                np.testing.assert_array_equal(p.numpy(), leaf[i])
+                np.testing.assert_array_equal(p.detach().numpy(), leaf[i])
                 n += 1
         else:
             p = named[".".join(path)]
             assert str(p.dtype).split(".")[1] == leaf.dtype.name
-            np.testing.assert_array_equal(p.numpy(), leaf)
+            np.testing.assert_array_equal(p.detach().numpy(), leaf)
             n += 1
     assert n == len(named)
     with pytest.raises(ValueError, match="no parameter"):

@@ -238,10 +238,10 @@ def test_gemv_path_matches_jax_dispatch(mode, force):
                          (jnp.bfloat16, torch.bfloat16)):
             want = NAMES[jt.gemv_path(m, n, mode, jdt, TPU_PALLAS)]
             jax_paths.add(want)
-            got = tt.gemv_path(tdt, H100)
+            got = tt.gemv_path(m, n, mode, tdt, H100)
             assert got == ("kernel" if want == "torch" else want)
             # f64 is a native kernel datapath on the card
-            assert tt.gemv_path(torch.float64, H100) == got
+            assert tt.gemv_path(m, n, mode, torch.float64, H100) == got
     # the grid crosses the TPU table's crossover in auto mode
     assert jax_paths == ({"kernel", "torch"} if force is None else {"ref"})
 
@@ -249,24 +249,25 @@ def test_gemv_path_matches_jax_dispatch(mode, force):
 def test_paper_shape_takes_the_kernels():
     t = DispatchTable()
     for dt in (torch.float64, torch.float32, torch.bfloat16):
-        assert t.gemv_path(dt, H100) == "kernel"
+        assert t.gemv_path(100, 5000, "N", dt, H100) == "kernel"
     # auto dispatch on the card raises for a dtype the kernels do not take
     with pytest.raises(UnsupportedOnBackend):
-        t.gemv_path(torch.float16, H100)
-    assert DispatchTable(force="torch").gemv_path(torch.float16,
-                                                  H100) == "torch"
+        t.gemv_path(100, 5000, "N", torch.float16, H100)
+    assert DispatchTable(force="torch").gemv_path(
+        100, 5000, "N", torch.float16, H100) == "torch"
 
 
 def test_cpu_tensors_take_the_plain_paths():
     spec = probe_backend("cpu")
     assert spec.name == "cpu-torch" and not spec.kernels
     for dt in (torch.float64, torch.float32, torch.bfloat16):
-        assert DispatchTable().gemv_path(dt, spec) == "torch"
+        assert DispatchTable().gemv_path(4, 40, "N", dt, spec) == "torch"
     x = torch.randn(3, 10)
     assert torch.equal(ops.pad_cast(x, 16, torch.float32),
                        ref.pad_cast_ref(x, 16, torch.float32))
     ref_spec = resolve_backend("torch-ref", "cpu")
-    assert DispatchTable().gemv_path(torch.float32, ref_spec) == "ref"
+    assert DispatchTable().gemv_path(4, 40, "N", torch.float32,
+                                     ref_spec) == "ref"
 
 
 def test_backend_env_override(monkeypatch):
@@ -289,9 +290,10 @@ def test_forced_kernel_on_cpu_raises():
     with pytest.raises(UnsupportedOnBackend):
         ops.unpad_cast(x, 20, torch.float32, backend="h100")
     with pytest.raises(UnsupportedOnBackend):
-        DispatchTable(force="kernel").gemv_path(torch.float16, H100)
+        DispatchTable(force="kernel").gemv_path(4, 40, "N", torch.float16,
+                                                H100)
     with pytest.raises(UnsupportedOnBackend):
-        DispatchTable(force="kernel").gemv_path(torch.float32,
+        DispatchTable(force="kernel").gemv_path(4, 40, "N", torch.float32,
                                                 probe_backend("cpu"))
     with pytest.raises(ValueError):
         DispatchTable(force="pallas")

@@ -195,8 +195,8 @@ def test_lti_fft_block_matches_jax_and_a_direct_convolution():
         _layer(params, 0), jnp.asarray(h))
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
     lp = model.layers[0]
-    dt = _softplus(lp.dt_bias.numpy().astype(np.float64))
-    decay = np.exp(dt[:, None] * -np.exp(lp.A_log.numpy().astype(np.float64)))
+    dt = _softplus(lp.dt_bias.detach().numpy().astype(np.float64))
+    decay = np.exp(dt[:, None] * -np.exp(lp.A_log.detach().numpy().astype(np.float64)))
     direct = np.stack([(dt[:, None] / tc.ssm_state * decay ** t).sum(-1)
                        for t in range(12)])
     np.testing.assert_allclose(kern, direct, rtol=1e-5, atol=1e-6)
@@ -249,7 +249,7 @@ def test_init_draws_the_reference_layout():
                                device="cpu")
     lp = model.layers[2]
     N = tc.ssm_state
-    np.testing.assert_allclose(lp.A_log.numpy(), np.broadcast_to(
+    np.testing.assert_allclose(lp.A_log.detach().numpy(), np.broadcast_to(
         np.log(np.arange(1, N + 1, dtype=np.float32)), lp.A_log.shape))
     assert lp.A_log.dtype == torch.float32 and lp.in_proj.dtype == torch.float32
     assert torch.all(lp.D_skip == 1) and torch.all(lp.dt_bias == 0)
