@@ -216,6 +216,27 @@ CUDA toolkit.  It:
    uninterrupted run's parameters (rtol 1e-5, atol 1e-6), an int8-
    compressed step with nonzero error feedback, a grad-enabled flash call
    raising.
+19. the roofline and the dry run (``drive_roofline``): F and F* at the
+   paper shape for ddddd, sssss and hhhhh run once under
+   ``launch.roofline.OpCounter`` (FLOPs by dtype, raw and floor bytes,
+   the bound and its side, the ms measured in the phase, the share bound
+   over measured, which fails above 1.05; the GEMV's counted bytes equal
+   to PERF.md rows 3-4); qwen1.5-0.5b's train step at drive_train's 2 x
+   4096 counted under fake tensors, drive_serve's longer prefill batch
+   counted on the card on the flash path that phase times, ``train_mfu``
+   and ``prefill_mfu`` from those phases' median times, the fake-mode
+   peak of the train step within TRAIN_PEAK_BAND of the measured one.
+   The autotuner (5c) pre-flights every timed config through the plan
+   linter (``lint=True``).
+20. the plan linter (``drive_lint``): ``python -m repro_torch.analysis``
+   at the paper shape over every registered backend exits 0; the h100
+   matvec trace holds the three kernels' nodes; the seeded downgrading
+   ``unpad`` makes the CLI exit nonzero.
+21. the dry run (``drive_dryrun``), after every timed phase: ``python -m
+   repro_torch.launch.dryrun`` over every arch at train_4k, decode_32k
+   and long_500k on the single-card mesh (host work on fake tensors):
+   every cell ok or skipped.  The prefill_32k cells run once through the
+   chip tool instead (PERF.md, PR 28).
 
 It prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero before
@@ -238,13 +259,6 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet (dense, no sparsity), at the 700 W limit: the
-# fastest rate the card has for each input type (its memory rate is the
-# backend's H100_HBM_BYTES_PER_S).  f64: the FP64 tensor cores (67
-# TFLOP/s; the FP64 vector units give 34).  f32: the FP32 vector units
-# ("s" is IEEE f32; TF32 would round the inputs).  bf16: the tensor cores
-# with f32 accumulation.
-PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
 TOL = {"d": 1e-12, "s": 1e-5, "h": 2e-2}
 LEVEL_OF = {torch.float64: "d", torch.float32: "s", torch.bfloat16: "h"}
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
@@ -316,9 +330,12 @@ def sync(dev) -> None:
 
 
 def bound_ms(bytes_moved: float, flops: float, flop_dtype: str):
-    from repro_torch.backend import H100_HBM_BYTES_PER_S
-    t_bytes = bytes_moved / H100_HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[flop_dtype] if flops else 0.0
+    """The least time for the work on the H100: its bytes over the HBM
+    rate or its FLOPs over the peak for ``flop_dtype``, whichever is
+    larger (the data sheet's peaks, ``backend.H100``)."""
+    from repro_torch.backend import H100
+    t_bytes = bytes_moved / H100.hbm_bandwidth
+    t_ops = flops / H100.peak(flop_dtype) if flops else 0.0
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                       else "operations")
 
@@ -2012,7 +2029,8 @@ def drive_autotune(dev, N_t, N_d, N_m, report):
     def tune(name, op, x, tol, ladder, **kw):
         t0 = time.perf_counter()
         res = autotune(op, tol=tol, v=x, ladder=ladder,
-                       harness=TimingHarness(repeats=REPEATS, warmup=3), **kw)
+                       harness=TimingHarness(repeats=REPEATS, warmup=3),
+                       lint=True, **kw)
         wall = time.perf_counter() - t0
         r = {"tol": tol, "ladder": "".join(ladder), "choice": res.config.to_string(),
              "rel_error": res.record.rel_error, "ms": res.record.time_s * 1e3,
@@ -2393,14 +2411,6 @@ def serve_plan(full: bool):
     return cfg, reqs, bucket, max_seq, batch_lens
 
 
-def _attn_pairs(Sq: int, Skv: int, causal: bool) -> int:
-    """Key-query pairs a call computes (causal: key <= query)."""
-    if not causal:
-        return Sq * Skv
-    n = min(Sq, Skv)
-    return n * (n + 1) // 2 + (Sq - n) * Skv
-
-
 def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
     """The flash kernels against their plain version on the card, bf16 and
     f32 at each (BH, Sq, Skv, Dh, causal) of ``shapes``: the dtype and
@@ -2442,7 +2452,7 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
             if key is None:
                 continue
             nbytes = dt.itemsize * (2 * BH * Sq * Dh + 2 * BH * Skv * Dh)
-            flops = 4 * BH * Dh * _attn_pairs(Sq, Skv, causal)
+            flops = 4 * BH * Dh * fa.attn_pairs(Sq, Skv, causal)
             b_ms, b_by = bound_ms(nbytes, flops, name(dt))
             q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3003,6 +3013,8 @@ def drive_serve(dev, full, time_fn, report):
         print(f"serve peak device memory {out['peak_memory_gb']:.2f} GB; "
               f"kernel share of prefill "
               f"{[round(s['share'], 4) for s in shares]}", flush=True)
+        out["flash_prefill_count"] = count_flash_prefill(
+            dev, cfg, model, reqs[4:], max_seq)
 
     # correctness on the longer batch (serve_plan's last four), both policies
     big, steps = reqs[4:], reqs[0].max_new_tokens
@@ -3023,6 +3035,31 @@ def drive_serve(dev, full, time_fn, report):
             dev, cfg, model, big, max_seq, time_fn)
     out["seconds"] = time.perf_counter() - t_start
     del model
+
+
+def count_flash_prefill(dev, cfg, model, reqs, max_seq) -> dict:
+    """The work of the serve's second prefill batch (``reqs``, left-padded
+    as ``ServeEngine.run_batch`` pads them) on the path the serve phase
+    times, the flash kernel's: one untimed ``api.prefill_step`` under
+    ``launch.roofline.OpCounter`` (the kernel reports its own FLOPs and
+    bytes), the parameters, tokens and outputs counted once."""
+    from repro_torch.launch.roofline import OpCounter
+    from repro_torch.models import api
+    batch = {"tokens": torch.as_tensor(_left_padded(reqs), device=dev)}
+    with torch.inference_mode(), OpCounter() as c:
+        outs = api.prefill_step(cfg, model, batch, max_seq)
+    c.count_io((model, batch), outs)
+    del outs
+    flash = {k: v for k, v in c.by_op.items() if k.startswith("flash")}
+    print(f"flash prefill {list(batch['tokens'].shape)} counted: FLOPs "
+          f"{dict(c.flops_by_dtype)}, floor {c.floor_bytes / 1e9:.4f} GB; "
+          f"flash {flash}", flush=True)
+    if not flash:
+        fail("the counted prefill reported no flash kernel")
+    return {"tokens": list(batch["tokens"].shape),
+            "flops": c.flops, "flops_by_dtype": dict(c.flops_by_dtype),
+            "raw_bytes": c.raw_bytes, "floor_bytes": c.floor_bytes,
+            "flash": flash}
 
 
 def time_full_f32_prefill(dev, cfg, model, reqs, max_seq, time_fn) -> dict:
@@ -4090,6 +4127,327 @@ def drive_train(dev, full, time_fn, report):
     free(dev)
 
 
+# ---------------------------------------------------------------------------
+# 19-21. The roofline, the static plan linter, the dry run (slice 18)
+# ---------------------------------------------------------------------------
+
+ROOFLINE_CONFIGS = ("ddddd", "sssss", "hhhhh")
+SHARE_MAX = 1.05        # bound over measured: above it the count is wrong
+# the fake-mode peak of the train step over the measured peak of the 2 x
+# 4096 step: the fake run counts every live storage's bytes as the caching
+# allocator's allocated bytes do; the allocator rounds blocks up and cuBLAS
+# takes workspaces through it
+TRAIN_PEAK_BAND = (0.8, 1.1)
+# PERF.md section 6 rows 3 and 4: the Phase-3 GEMV's bytes at the paper
+# shape, by the gemv level's dtype
+GEMV_ROW_GB = {"d": 8.0897, "s": 4.0448, "h": 2.0224}
+# the dry run's shapes here: prefill_32k's ten cells, about two thirds of
+# the whole sweep's host time, run once through the chip tool instead
+# (PERF.md, PR 28)
+DRYRUN_SHAPES = ("train_4k", "decode_32k", "long_500k")
+DRYRUN_JOBS = 8          # cells at once, one process each (8 host cores)
+DRYRUN_TIMEOUT = 400     # seconds
+
+
+def drive_dryrun(report) -> None:
+    """The dry run, after every timed phase (its cells are host work on
+    fake tensors, and would slow the host-bound phases beside them):
+    ``python -m repro_torch.launch.dryrun`` over every arch at
+    DRYRUN_SHAPES on the single-card mesh, DRYRUN_JOBS cells at once,
+    records in ``chiprun_out/dryrun/``, output in
+    ``chiprun_out/dryrun.log``.  Every cell must end ``ok`` or
+    ``skipped``."""
+    import shutil
+    import signal
+    from repro_torch.configs import ARCH_IDS
+    out = report["roofline"]
+    rec_dir = ROOT / "chiprun_out" / "dryrun"
+    shutil.rmtree(rec_dir, ignore_errors=True)
+    rec_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with open(ROOT / "chiprun_out" / "dryrun.log", "w") as log:
+        # a session of its own, so a timeout stops its pool's workers too
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--arch", "all", "--shape", ",".join(DRYRUN_SHAPES),
+             "--jobs", str(DRYRUN_JOBS), "--out", str(rec_dir)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            fail(f"the dry run did not end within {DRYRUN_TIMEOUT} s "
+                 f"(chiprun_out/dryrun.log)")
+    seconds = time.perf_counter() - t0
+    cells, failed = {}, []
+    for arch in ARCH_IDS:
+        for shape in DRYRUN_SHAPES:
+            path = rec_dir / f"{arch}__{shape}__h100x1__baseline.json"
+            rec = json.loads(path.read_text()) if path.exists() else \
+                {"error": "no record"}
+            if "error" in rec:
+                failed.append(f"{arch} {shape}: {rec['error']}")
+                continue
+            r = rec.get("roofline")
+            cells[f"{arch} {shape}"] = (
+                {"skipped": rec["skipped"]} if "skipped" in rec else
+                {"bound_ms": r["step_time_bound_s"] * 1e3,
+                 "dominant": r["dominant"],
+                 "compute_ms": r["compute_s"] * 1e3,
+                 "memory_ms": r["memory_s"] * 1e3,
+                 "flops_by_dtype": r["flops_by_dtype"],
+                 "useful_flop_ratio": rec["useful_flop_ratio"],
+                 "roofline_fraction": rec["roofline_fraction"],
+                 "peak_gb": rec["memory"]["peak_bytes"] / 1e9,
+                 "memory_extrapolated": rec["memory_extrapolated"],
+                 "fits_80gb": rec["fits_80gb"],
+                 "seconds": rec["seconds"], "card": rec["card"]})
+    n_skip = sum("skipped" in c for c in cells.values())
+    out["dryrun"] = {"shapes": list(DRYRUN_SHAPES), "cells": cells,
+                     "ok": len(cells) - n_skip, "skipped": n_skip,
+                     "failed": failed, "rc": rc, "seconds": seconds}
+    for k, c in cells.items():
+        if "skipped" in c:
+            print(f"dryrun {k}: skipped ({c['skipped']})", flush=True)
+        else:
+            print(f"dryrun {k}: bound {c['bound_ms']:.2f} ms "
+                  f"({c['dominant']}), useful {c['useful_flop_ratio']:.2f}, "
+                  f"peak {c['peak_gb']:.2f} GB"
+                  f"{' (extrapolated)' if c['memory_extrapolated'] else ''}"
+                  f", fits 80 GB {c['fits_80gb']}", flush=True)
+    print(f"dry run: {len(cells) - n_skip} ok, {n_skip} skipped, "
+          f"{len(failed)} failed in {seconds:.1f} s", flush=True)
+    if failed or rc != 0:
+        fail(f"dry-run cells failed (rc {rc}): {failed}")
+
+
+def drive_roofline(dev, N_t, N_d, N_m, time_fn, report):
+    """The roofline phase.  (a) F and F* at the paper shape for ddddd,
+    sssss and hhhhh, run once under ``launch.roofline.OpCounter`` (the
+    kernels report their FLOPs and bytes): the FLOPs by dtype, raw and
+    floor bytes, the bound and its side, the ms measured here (median of
+    20 events) and the share, bound over measured (above SHARE_MAX fails:
+    the count is wrong); the GEMV's counted bytes must be PERF.md rows 3
+    and 4.  (b) qwen1.5-0.5b: the train step at drive_train's 2 x 4096
+    counted under fake tensors (``launch.dryrun``, the chunked path that
+    phase times), the prefill of drive_serve's longer batch as that phase
+    counted it on the flash path it times (``count_flash_prefill``);
+    ``train_mfu`` and ``prefill_mfu`` from those phases' measured times
+    (model FLOPs over seconds times the bf16 peak), each with its bound
+    over its measured time; the fake-mode peak of the train step against
+    drive_train's measured peak (TRAIN_PEAK_BAND)."""
+    from repro_torch.backend import H100
+    from repro_torch.configs import ShapeSpec, get_config, get_smoke_config
+    from repro_torch.configs.fftmatvec_paper import FFTMatvecConfig
+    from repro_torch.core import precision as prec
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import (CollectiveStats, model_flops,
+                                             roofline_terms)
+    out = report["roofline"] = {"card": dryrun.card_info()}
+    t_phase = time.perf_counter()
+    full = dev.type == "cuda"
+    dims = FFTMatvecConfig("roofline", N_t=N_t, N_d=N_d, N_m=N_m)
+    K = N_t + 1
+    cells = out["fftmatvec"] = {}
+    for cfg_s in ROOFLINE_CONFIGS:
+        op = dryrun.fftmatvec_operator(dims, cfg_s, dev, seed=SEED + 71)
+        level = op.precision.gemv
+        dt = prec.real_dtype(level)
+        for adjoint in (False, True):
+            name = f"{cfg_s} {'Fstar' if adjoint else 'F'}"
+            gemv = "sbgemv_th_complex" if adjoint else "sbgemv_n_complex"
+            _build.reset_launch_counts()
+            rec = dryrun.lower_fftmatvec_cell(
+                precision=cfg_s, adjoint=adjoint, dims=dims, device=dev,
+                op=op, time_fn=time_fn, seed=SEED + 71)
+            launches = dict(_build.launch_counts)
+            if full:
+                check_launched(launches, ("pad_cast", gemv, "unpad_cast"))
+            r, c = rec["roofline"], rec["counts"]
+            kernel = c["by_op"].get(gemv) if full else None
+            want = dt.itemsize * 2 * K * (N_d * N_m + N_m + N_d)
+            cell = cells[name] = {
+                "flops_by_dtype": c["flops_by_dtype"],
+                "raw_bytes": c["raw_bytes"], "floor_bytes": c["floor_bytes"],
+                "bound_ms": r["step_time_bound_s"] * 1e3,
+                "bound_by": r["dominant"], "ms": rec["ms"],
+                "share": rec["share"], "launches": launches,
+                "gemv_bytes": kernel["bytes"] if kernel else None,
+                "gemv_flops": kernel["flops"] if kernel else None,
+                "model_flops": rec["model_flops"], "card": rec["card"]}
+            print(f"roofline {name}: FLOPs {c['flops_by_dtype']}, raw "
+                  f"{c['raw_bytes'] / 1e9:.4f} GB, floor "
+                  f"{c['floor_bytes'] / 1e9:.4f} GB; bound "
+                  f"{cell['bound_ms']:.4f} ms ({r['dominant']}), measured "
+                  f"{rec['ms']:.4f} ms, share {rec['share']:.3f}"
+                  + (f"; GEMV {kernel['bytes'] / 1e9:.4f} GB, "
+                     f"{kernel['flops']:.4e} FLOPs" if kernel else ""),
+                  flush=True)
+            if not rec["share"] <= SHARE_MAX:
+                fail(f"roofline {name}: share {rec['share']:.3f} > "
+                     f"{SHARE_MAX}: the count misses work")
+            if full:
+                if kernel is None or kernel["bytes"] != want or \
+                        round(want / 1e9, 4) != GEMV_ROW_GB[level]:
+                    fail(f"roofline {name}: the GEMV counted {kernel}, "
+                         f"expected {want} bytes ({GEMV_ROW_GB[level]} GB, "
+                         f"PERF.md rows 3-4)")
+                if kernel["flops"] != 8 * K * N_d * N_m:
+                    fail(f"roofline {name}: GEMV FLOPs {kernel['flops']}, "
+                         f"expected 8 K N_d N_m")
+        del op
+        free(dev)
+
+    if full:
+        # the flash kernel reports from its launch (it is no custom op)
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.launch.roofline import OpCounter
+        gen = torch.Generator(device=dev).manual_seed(SEED + 73)
+        q, k, v = (torch.randn((2, 700, 4, 64), generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        with torch.no_grad(), OpCounter() as c:
+            o = fa.flash_attention(q, k, v, causal=True)
+        entry = next(iter(k for k in c.by_op if k.startswith("flash")), None)
+        got = c.by_op.get(entry, {})
+        want = (4 * 2 * 4 * 64 * fa.attn_pairs(700, 700, True),
+                4 * q.numel() * q.element_size())
+        out["flash_count"] = {"entry": entry, **got}
+        print(f"roofline flash count: {entry} {got}", flush=True)
+        if (got.get("flops"), got.get("bytes")) != want:
+            fail(f"the flash kernel reported {got}, expected FLOPs and "
+                 f"bytes {want}")
+        del q, k, v, o
+
+    # (b) qwen1.5-0.5b: the train step counted under fake tensors (the
+    # chunked path drive_train times), the prefill as drive_serve counted
+    # it on the flash path it times
+    t0 = time.perf_counter()
+    cfg = (get_config if full else get_smoke_config)(TRAIN_ARCH)
+    cfg = cfg.replace(remat="full", attn_impl="chunked")
+    B, S = (TRAIN_BATCH, TRAIN_SEQ) if full else (2, 32)
+    shape = ShapeSpec("drive_train", "train", S, B)
+    n, n_act = dryrun.param_counts(cfg)
+    lm = out["lm"] = {}
+    train = report.get("train", {})
+    serve = report.get("serve", {})
+    cost = dryrun.analysis_cost(cfg, shape)
+    mem = dryrun.memory_cost(cfg, shape)
+    counts = [("train", shape.batch, shape.seq, "train",
+               train.get("step_ms_median"),
+               {"flops": cost["flops"], "flops_by_dtype":
+                cost["flops_by_dtype"], "raw_bytes": cost["bytes"],
+                "floor_bytes": cost["bytes_floor"]})]
+    if "flash_prefill_count" in serve:
+        pc = serve["flash_prefill_count"]
+        counts.append(("prefill", *pc["tokens"], "prefill",
+                       serve["flash"]["prefill_ms"][1], pc))
+    for key, b, seq, kind, measured_ms, c in counts:
+        terms = roofline_terms({"flops": c["flops"],
+                                "flops_by_dtype": c["flops_by_dtype"],
+                                "bytes accessed": c["raw_bytes"]},
+                               CollectiveStats({}, {}, 0),
+                               bytes_floor=c["floor_bytes"])
+        mf = model_flops(n, n_act, b * seq, kind)
+        row = lm[key] = {
+            "shape": [b, seq], "model_flops": mf,
+            "path": "chunked, fake tensors" if key == "train" else
+            "flash, counted on the card",
+            "counted_flops_by_dtype": c["flops_by_dtype"],
+            "floor_bytes": c["floor_bytes"],
+            "bound_ms": terms["step_time_bound_s"] * 1e3,
+            "bound_by": terms["dominant"],
+            "measured_ms": measured_ms, "card": out["card"]}
+        if key == "train":
+            row["peak_gb"] = mem["peak_bytes"] / 1e9
+            row["memory_extrapolated"] = mem["memory_extrapolated"]
+        if measured_ms:
+            row[f"{key}_mfu"] = mf / (measured_ms / 1e3 * H100.peak())
+            row["share_of_bound"] = row["bound_ms"] / measured_ms
+        print(f"roofline qwen {key} {b} x {seq} ({row['path']}): model "
+              f"{mf:.4e} FLOPs, counted {c['flops_by_dtype']}; bound "
+              f"{row['bound_ms']:.1f} ms ({terms['dominant']})"
+              + (f"; fake peak {row['peak_gb']:.2f} GB" if key == "train"
+                 else "")
+              + (f"; measured {measured_ms:.1f} ms: {key}_mfu "
+                 f"{row[f'{key}_mfu']:.4f}, bound/measured "
+                 f"{row['share_of_bound']:.3f} ({out['card']})"
+                 if measured_ms else ""), flush=True)
+    measured_gb = train.get("peak_memory_gb")
+    if measured_gb:
+        ratio = lm["train"]["peak_gb"] / measured_gb
+        lm["train"]["peak_over_measured"] = ratio
+        print(f"train peak: fake {lm['train']['peak_gb']:.2f} GB against "
+              f"measured {measured_gb:.2f} GB: {ratio:.3f} (band "
+              f"{TRAIN_PEAK_BAND})", flush=True)
+        if not TRAIN_PEAK_BAND[0] <= ratio <= TRAIN_PEAK_BAND[1]:
+            fail(f"the fake-mode train peak is {ratio:.3f} of the measured "
+                 f"one, outside {TRAIN_PEAK_BAND}")
+    lm["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"roofline phase: {out['seconds']:.1f} s", flush=True)
+
+
+def drive_lint(dev, N_t, N_d, N_m, report):
+    """The plan linter: ``python -m repro_torch.analysis`` at the paper
+    shape over every registered backend (on the card ``h100`` too) exits
+    0; the ``h100`` matvec trace holds one node per kernel call (pad, the
+    SBGEMV, unpad), the kernels' custom ops; the reference's seeded bad
+    plan (an ``unpad`` that downgrades its output,
+    ``tests/test_analysis.py``) makes the CLI exit nonzero."""
+    from repro_torch import analysis
+    from repro_torch.analysis import cli
+    from repro_torch.core import ExecOpts, matvec_plan, pipeline
+    from repro_torch.core.precision import DOUBLE
+    out = report["lint"] = {}
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    args = [] if dev.type == "cuda" else ["--smoke"]
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis", *args],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=900)
+    tail = r.stdout.strip().splitlines()[-1:] or [r.stderr[-300:]]
+    out.update(rc=r.returncode, summary=tail[0],
+               sweep_seconds=time.perf_counter() - t0)
+    print(f"lint sweep: rc {r.returncode}, {tail[0]} "
+          f"({out['sweep_seconds']:.1f} s)", flush=True)
+    if r.returncode != 0:
+        fail(f"python -m repro_torch.analysis exited {r.returncode}:\n"
+             f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    if dev.type == "cuda":
+        ctx = analysis.PlanContext.from_plan(
+            matvec_plan(DOUBLE), ExecOpts(backend="h100"), N_t=N_t, N_d=N_d,
+            N_m=N_m)
+        kernels = [analysis.op_name(n) for n, _, _ in ctx.eqns()
+                   if analysis.op_name(n).startswith("repro_torch.")]
+        out["h100_matvec_kernel_nodes"] = kernels
+        print(f"lint h100 ddddd matvec trace: kernel nodes {kernels}",
+              flush=True)
+        if kernels != ["repro_torch.pad_cast", "repro_torch.sbgemv_n_complex",
+                       "repro_torch.unpad_cast"]:
+            fail(f"the h100 matvec trace holds kernel nodes {kernels}")
+    orig = pipeline._STAGE_IMPLS["unpad"]
+
+    def degraded(stage, x, operands, N_t, S, opts):
+        return orig(stage, x, operands, N_t, S, opts).to(torch.float32)
+
+    pipeline._STAGE_IMPLS["unpad"] = degraded
+    try:
+        backend = "h100" if dev.type == "cuda" else "cpu-torch"
+        rc = cli.main(["--backend", backend, "--config", "ddddd", "--plan",
+                       "matvec", *args])
+    finally:
+        pipeline._STAGE_IMPLS["unpad"] = orig
+    out["seeded_rc"] = rc
+    print(f"lint seeded downgrade on {backend}: rc {rc}", flush=True)
+    if rc == 0:
+        fail("the seeded downgrading unpad linted clean")
+    out["seconds"] = time.perf_counter() - t0
+
+
 def plain_path(op):
     """``op`` with every contraction on the plain PyTorch code (the
     "torch" dispatch path); pad/unpad still launch their kernels."""
@@ -4361,6 +4719,13 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     drive_dispatch_calibration(dev, report)
     free(dev)
     drive_train(dev, full, time_fn, report)
+    free(dev)
+    # slice 18: the roofline and the dry run, the plan linter
+    drive_roofline(dev, N_t, N_d, N_m, time_fn, report)
+    free(dev)
+    drive_lint(dev, N_t, N_d, N_m, report)
+    if dev.type == "cuda":
+        drive_dryrun(report)
     return results, report
 
 
@@ -4407,7 +4772,7 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.backend import H100_HBM_BYTES_PER_S
+    from repro_torch.backend import H100
     from repro_torch.configs import PAPER_SINGLE
     from repro_torch.core import time_callable
     from repro_torch.kernels import _build
@@ -4502,7 +4867,8 @@ def main() -> int:
         {"nvidia_smi": smi, "torch": torch.__version__,
          "cuda": torch.version.cuda, "build_s": build_s,
          "staged_ptxas": staged,
-         "hbm_bytes_per_s": H100_HBM_BYTES_PER_S, "peak_flops": PEAK_FLOPS,
+         "hbm_bytes_per_s": H100.hbm_bandwidth,
+         "peak_flops": dict(H100.peak_flops),
          "repeats": REPEATS, "kernels": line["kernels"], **report},
         indent=1))
     print(json.dumps(line))

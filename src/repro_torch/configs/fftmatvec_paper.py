@@ -15,3 +15,5 @@ class FFTMatvecConfig:
 
 
 PAPER_SINGLE = FFTMatvecConfig(name="fftmatvec_paper")
+# tiny dims for CPU smoke runs (the linter's --smoke sweep)
+SMOKE = FFTMatvecConfig(name="fftmatvec_smoke", N_t=16, N_d=4, N_m=32)

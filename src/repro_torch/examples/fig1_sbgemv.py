@@ -33,7 +33,7 @@ import time
 
 import torch
 
-from repro_torch.backend import H100_HBM_BYTES_PER_S, default_device
+from repro_torch.backend import H100, default_device
 from repro_torch.core.timing import time_callable
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import sbgemv as sk
@@ -112,7 +112,7 @@ def run_case(dev, m: int, n: int, dname: str, time_ms, seed: int = 0) -> dict:
         row[f"{name}_gbps"] = nbytes / ms / 1e6
         if dev.type == "cuda":
             row[f"{name}_hbm_share"] = (nbytes / ms / 1e-3
-                                         / H100_HBM_BYTES_PER_S)
+                                         / H100.hbm_bandwidth)
     return row
 
 

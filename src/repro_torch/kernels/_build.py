@@ -8,7 +8,13 @@ stale build is never loaded.  A missing ``nvcc`` or a failed build
 raises: there is no fallback.
 
 Every wrapper counts its launches in :data:`launch_counts`, so a run can
-show that the main path went through the kernels.
+show that the main path went through the kernels, and reports each
+launch's FLOPs and bytes to the active op counters
+(``launch.roofline.OpCounter``, :data:`active_counters`).  Under a
+dispatch mode or on fake tensors (:func:`traced`) the SBGEMV, SBGEMM and
+pad/unpad entries run as custom ops (:func:`kernel_op`), so a
+``FakeTensorMode`` run or a ``make_fx`` trace on card tensors holds one
+node per kernel call with its input and output dtypes.
 """
 
 from __future__ import annotations
@@ -24,6 +30,9 @@ import subprocess
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode as \
+    _current_mode
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # build/ at the root of the checkout (src/repro_torch/kernels -> root)
@@ -67,8 +76,63 @@ _libs: dict = {}
 _lock = threading.Lock()
 
 
+# Op counters (``launch.roofline.OpCounter``) that are counting.
+active_counters: list = []
+
+
 def reset_launch_counts() -> None:
     launch_counts.clear()
+
+
+def report(kernel: str, flops: int, dtype, tensors, nbytes=None) -> None:
+    """Report one call of ``kernel`` to the active op counters: ``flops``
+    at ``dtype``'s peak, ``tensors`` (its inputs and outputs) moved, each
+    byte once, or ``nbytes`` of them where the kernel reads only part."""
+    for c in active_counters:
+        c.add_kernel(kernel, flops, dtype, tensors, nbytes)
+
+
+def traced(t) -> bool:
+    """Whether a kernel call on ``t`` goes through its custom op (one node
+    in a trace, a report to the op counters): under a dispatch mode
+    (``FakeTensorMode``, ``make_fx``, an op counter) or on a fake tensor.
+    Otherwise the wrapper launches straight away: the op's dispatch adds
+    host time to every call, and an S = 1 ``matvec`` is host-bound."""
+    return _current_mode() is not None or isinstance(t, FakeTensor)
+
+
+def _tensors_of(args):
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif isinstance(a, (list, tuple)):
+            yield from _tensors_of(a)
+
+
+def kernel_op(name: str, schema: str, launch, fake, flops, nbytes=None):
+    """Register a kernel as the custom op ``repro_torch::<name>`` and
+    return it.  ``launch(*args)`` runs it on CUDA tensors, ``fake(*args)``
+    makes its outputs' shapes and dtypes, ``flops(*args)`` is its FLOP
+    count and ``nbytes(*args)``, where given, the bytes it moves (else
+    every input and output byte once).  Both implementations report to
+    the active op counters, the FLOPs at the first tensor's dtype.  A
+    wrapper calls the op only where :func:`traced` says so; the op's
+    dispatch pops every mode before ``launch`` runs."""
+    def reporting(fn):
+        def run(*args):
+            out = fn(*args)
+            if active_counters:
+                tensors = list(_tensors_of((args, out)))
+                report(name, flops(*args), tensors[0].dtype, tensors,
+                       nbytes and nbytes(*args))
+            return out
+        return run
+
+    op = torch.library.custom_op(f"repro_torch::{name}", reporting(launch),
+                                 mutates_args=(), device_types="cuda",
+                                 schema=schema)
+    op.register_fake(reporting(fake))
+    return op
 
 
 def _nvcc() -> str:

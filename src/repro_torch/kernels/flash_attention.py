@@ -118,9 +118,19 @@ def _check(q, k, v, ndim: int, what: str) -> None:
         raise ValueError(f"{what}: unsupported device {dev}")
 
 
+def attn_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """Key-query pairs a call computes (causal: key <= query)."""
+    if not causal:
+        return Sq * Skv
+    n = min(Sq, Skv)
+    return n * (n + 1) // 2 + (Sq - n) * Skv
+
+
 def _launch(q, k, v, o, B, Hq, Hkv, qs, ks, vs, os, causal: bool) -> None:
     """Launch the C entry that :func:`kernel_for` names on (batch, head,
-    row) strides; counts it."""
+    row) strides; counts it and reports it to the active op counters: 4
+    Dh FLOPs a key-query pair a head (the two products), q, k, v read
+    and o written once."""
     Sq, Skv, Dh = q.shape[1], k.shape[1], q.shape[-1]
     # 16-byte aligned starts and strides, none 0 on an axis of more than one
     # element (a tensor map steps each axis by its stride)
@@ -135,6 +145,9 @@ def _launch(q, k, v, o, B, Hq, Hkv, qs, ks, vs, os, causal: bool) -> None:
         q.device.index, _build.stream_of(q))
     _build.check(err, entry)
     _build.launch_counts[entry] += 1
+    if _build.active_counters:
+        _build.report(entry, 4 * B * Hq * Dh * attn_pairs(Sq, Skv, causal),
+                      q.dtype, (q, k, v, o))
 
 
 def _refuse_grad(q, k, v, what: str) -> None:

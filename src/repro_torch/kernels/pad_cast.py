@@ -53,6 +53,8 @@ def pad_cast(x: torch.Tensor, pad_to: int,
         raise ValueError(f"pad_cast: pad_to={pad_to} < T={T}")
     if x.device.type == "cpu":
         return pad_cast_plain(x, pad_to, out_dtype)
+    if _build.traced(x):
+        return _PAD(x, pad_to, out_dtype)
     y = torch.empty((R, pad_to), dtype=out_dtype, device=x.device)
     fn = _build.library("pad_cast").pad_cast
     err = fn(x.data_ptr(), y.data_ptr(), R, T, pad_to, x.stride(0),
@@ -73,6 +75,8 @@ def unpad_cast(x: torch.Tensor, keep: int,
         raise ValueError(f"unpad_cast: keep={keep} > P={P}")
     if x.device.type == "cpu":
         return unpad_cast_plain(x, keep, out_dtype)
+    if _build.traced(x):
+        return _UNPAD(x, keep, out_dtype)
     y = torch.empty((R, keep), dtype=out_dtype, device=x.device)
     fn = _build.library("pad_cast").unpad_cast
     err = fn(x.data_ptr(), y.data_ptr(), R, keep, x.stride(0),
@@ -81,3 +85,20 @@ def unpad_cast(x: torch.Tensor, keep: int,
     _build.check(err, "unpad_cast")
     _build.launch_counts["unpad_cast"] += 1
     return y
+
+
+def _fake(x, cols, out_dtype):
+    return x.new_empty((x.shape[0], cols), dtype=out_dtype)
+
+
+# the kernels as custom ops (``_build.kernel_op``), called under a dispatch
+# mode or on fake tensors: no FLOPs; pad reads its input and writes the
+# padded rows, unpad reads only the kept columns
+_PAD = _build.kernel_op(
+    "pad_cast", "(Tensor x, int pad_to, ScalarType out_dtype) -> Tensor",
+    pad_cast, _fake, lambda *a: 0)
+_UNPAD = _build.kernel_op(
+    "unpad_cast", "(Tensor x, int keep, ScalarType out_dtype) -> Tensor",
+    unpad_cast, _fake, lambda *a: 0,
+    nbytes=lambda x, keep, dt: x.shape[0] * keep * (x.element_size()
+                                                    + dt.itemsize))

@@ -39,6 +39,8 @@ only (``ops.sbgemv_real(tile_map=)`` runs the SBGEMM with S = 1).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -116,8 +118,16 @@ def _launch(source: str, entry: str, inputs, out_shape, out_dtype, sizes,
     """Launch C entry ``entry`` of ``csrc/<source>.cu`` on ``inputs`` (A
     planes first) into ``n_out`` new ``out_shape`` planes; counts the
     launch.  ``levels``, a tile map's grid, goes as a host array after the
-    outputs and its R and C after ``ints``."""
+    outputs and its R and C after ``ints``.  Under a dispatch mode or on
+    fake tensors (``_build.traced``) the call is the entry's custom op
+    instead (:func:`_op`)."""
     A = inputs[0]
+    if _build.traced(A):
+        if levels is not None:
+            levels = ["".join(row) for row in tile_levels(levels)]
+        return tuple(_op(source, entry)(list(inputs), list(out_shape),
+                                        out_dtype, list(sizes), list(ints),
+                                        levels, n_out))
     outs = [torch.empty(out_shape, dtype=out_dtype, device=A.device)
             for _ in range(n_out)]
     ptrs = [t.data_ptr() for t in (*inputs, *outs)]
@@ -131,6 +141,39 @@ def _launch(source: str, entry: str, inputs, out_shape, out_dtype, sizes,
     _build.check(err, entry)
     _build.launch_counts[entry] += 1
     return tuple(outs)
+
+
+_SCHEMA = ("(Tensor[] inputs, int[] out_shape, ScalarType out_dtype, "
+           "int[] sizes, int[] ints, str[]? levels, int n_out) -> Tensor[]")
+
+
+def _flops(entry: str, inputs, sizes, ints) -> int:
+    """A call's FLOPs: a product's B m n [S] multiply-adds at 8 FLOPs
+    complex, 2 real; a Gram's P (P + 1) / 2 entries on and above the
+    diagonal of each of B blocks (G is Hermitian), 8 K FLOPs each."""
+    if "gram" in entry:
+        B, m, n = sizes
+        P, K = (m, n) if ints[0] else (n, m)
+        return 4 * B * P * (P + 1) * K
+    return (8 if len(inputs) == 4 else 2) * math.prod(sizes)
+
+
+@functools.cache
+def _op(source: str, entry: str):
+    """``entry`` as the custom op ``repro_torch::<entry>`` on
+    :func:`_launch`'s arguments (``_build.kernel_op``)."""
+    def launch(inputs, out_shape, out_dtype, sizes, ints, levels, n_out):
+        return list(_launch(source, entry, inputs, out_shape, out_dtype,
+                            sizes, *ints, levels=levels, n_out=n_out))
+
+    def fake(inputs, out_shape, out_dtype, sizes, ints, levels, n_out):
+        return [inputs[0].new_empty(out_shape, dtype=out_dtype)
+                for _ in range(n_out)]
+
+    return _build.kernel_op(
+        entry, _SCHEMA, launch, fake,
+        lambda inputs, _s, _d, sizes, ints, *_: _flops(entry, inputs, sizes,
+                                                        ints))
 
 
 def sbgemv_n_complex(A_re, A_im, x_re, x_im,

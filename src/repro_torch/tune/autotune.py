@@ -91,6 +91,18 @@ def _input_tag(v) -> str:
     return "v" + hashlib.sha1(data).hexdigest()[:12]
 
 
+def _assert_op_clean(op) -> None:
+    """``lint=True`` pre-flight: statically lint the plans a candidate
+    operator would run and raise before any timing budget is spent on a
+    contract-violating config."""
+    from repro_torch import analysis  # deferred: tune imports without it
+    bad = analysis.errors(analysis.lint_operator(op))
+    if bad:
+        raise analysis.PlanLintError(
+            f"candidate config {op.precision.to_string()!r} failed "
+            f"static analysis:\n" + analysis.format_findings(bad), bad)
+
+
 def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
              variant: str = "matvec", harness: TimingHarness | None = None,
              repeats: int = 5, warmup: int = 2, mode: str = "throughput",
@@ -125,12 +137,15 @@ def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
     Persistence is opt-in: pass ``cache`` (a :class:`TuningCache`) or
     ``cache_path``; hits answer any tolerance from stored measurements.
 
-    ``lint`` (the static plan linter) and the mesh knobs ``p_r``, ``p_c``
-    and ``comm_level`` are not ported: setting one raises.
+    ``lint=True`` pre-flights every config that is about to be *timed*
+    (the baseline and each frontier candidate) through the static plan
+    linter (:func:`repro_torch.analysis.lint_operator`: abstract tracing,
+    nothing executes) and raises :class:`repro_torch.analysis.
+    PlanLintError` on an error finding before any timing is spent on it.
+
+    The mesh knobs ``p_r``, ``p_c`` and ``comm_level`` are not ported:
+    setting one raises.
     """
-    if lint:
-        raise NotImplementedError("autotune(lint=True) waits for ROADMAP.md "
-                                  "queue 1 item 14 (the plan linter)")
     if p_r is not None or p_c is not None or comm_level is not None:
         raise NotImplementedError("autotune's p_r, p_c and comm_level wait "
                                   "for ROADMAP.md queue 1 item 13 "
@@ -185,7 +200,10 @@ def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
                                 timer=timer)
 
     # 1. baseline: timing reference + error reference + fallback selection.
-    ref_out, base_t = harness.time(op.with_precision(base_cfg), v, variant)
+    base_op = op.with_precision(base_cfg)
+    if lint:
+        _assert_op_clean(base_op)
+    ref_out, base_t = harness.time(base_op, v, variant)
     errors: dict[str, float] = {base_cfg.to_string(): 0.0}
 
     def error_of(cfg: PrecisionConfig) -> float:
@@ -244,7 +262,10 @@ def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
     #    would over the exhaustive sweep.
     records = [ConfigRecord(base_cfg, 0.0, base_t, 1.0)]
     for cfg in frontier:
-        _, t = harness.time(op.with_precision(cfg), v, variant)
+        cand = op.with_precision(cfg)
+        if lint:
+            _assert_op_clean(cand)
+        _, t = harness.time(cand, v, variant)
         records.append(ConfigRecord(cfg, errors[cfg.to_string()], t,
                                     base_t / t))
     best = optimal_config(records, tol)

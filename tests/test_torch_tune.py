@@ -198,15 +198,33 @@ def test_cache_key_and_save_merge(tmp_path):
     assert TuningCache(path).get(k2) is not None
 
 
-def test_operator_autotune_and_unported_knobs():
+def test_operator_autotune_and_unported_knobs(monkeypatch):
     F, m = _skewed(18, 16, 3, 24)
     op = FFTMatvec.from_block_column(F, device="cpu")
     tuned = op.autotune(1e-5, timer=_rank_timer)
     assert isinstance(tuned, FFTMatvec)
     res = op.autotune(1e-5, timer=_rank_timer, full_result=True)
     assert tuned.precision == res.config
-    with pytest.raises(NotImplementedError, match="item 14"):
-        autotune(op, tol=1e-5, lint=True)
+    # lint=True (the twin of tests/test_analysis.py::
+    # test_autotune_lint_preflight): a clean pre-flight chooses as before;
+    # a contract-violating lowering fails it before anything is timed
+    linted = autotune(op, tol=1e-5, timer=_rank_timer, lint=True)
+    assert linted.config == res.config and linted.n_timed == res.n_timed
+    from repro_torch import analysis
+    from repro_torch.core import pipeline
+    orig = pipeline._STAGE_IMPLS["unpad"]
+
+    def degraded(stage, x, operands, N_t, S, opts):
+        return orig(stage, x, operands, N_t, S, opts).to(torch.float32)
+
+    monkeypatch.setitem(pipeline._STAGE_IMPLS, "unpad", degraded)
+    timed = []
+    with pytest.raises(analysis.PlanLintError,
+                       match="silent-output-downgrade"):
+        autotune(op, tol=1e-5, lint=True,
+                 timer=lambda cfg, fn, arg: timed.append(cfg) or 1.0)
+    assert timed == []
+    monkeypatch.undo()
     for kw in ({"p_r": 2}, {"p_c": 1}, {"comm_level": "s"}):
         with pytest.raises(NotImplementedError, match="item 13"):
             autotune(op, tol=1e-5, **kw)
