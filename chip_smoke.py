@@ -251,6 +251,7 @@ import ctypes
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -482,11 +483,14 @@ def entry_call(source, entry, tensors, sizes, dt_in, dt_out, defines=(),
     ``defines``) on ``tensors`` (inputs, then outputs) with no Python
     around it: no launch is counted.  ``levels``: a tiled entry's map,
     passed as the wrappers pass it (a host array after the outputs, its R
-    and C after ``sizes``)."""
+    and C after ``sizes``).  The entries that take A's strides get those
+    of ``tensors[0]`` after ``sizes``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import sbgemv as sk
     fn = getattr(_build.library(source, defines), entry)
     t0 = tensors[0]
+    if entry in sk.STRIDED_ENTRIES:
+        sizes = (*sizes, *sk._a_strides(t0))
     ptrs, grid = [t.data_ptr() for t in tensors], None
     if levels is not None:
         R, C, grid = sk._level_grid(levels)
@@ -1005,6 +1009,7 @@ def probe_bounds(dev, B, m, n, time_fn):
     reading after other work runs slow).  Called through the C entries,
     so no launch is counted.  Reported, not gated."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import sbgemv as sk
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
 
     def planes(dt, *shape, fill=True):
@@ -1040,6 +1045,8 @@ def probe_bounds(dev, B, m, n, time_fn):
         code = _build.DTYPE_CODES[dt]
         for what, (source, entry, tensors, sizes, ints) in cases.items():
             ptrs = [t.data_ptr() for t in tensors]
+            if entry in sk.STRIDED_ENTRIES:      # A's strides follow
+                sizes = (*sizes, *sk._a_strides(tensors[0]))
 
             def call_of(defines, source=source, entry=entry, ptrs=ptrs,
                         sizes=sizes, ints=ints):
@@ -2533,6 +2540,21 @@ def check_flash_kernel(dev, shapes, timed_keys, results, time_fn):
         del q, k, v, want
 
 
+def profiled_events(fn):
+    """(device event names, host event names) of one call of ``fn``,
+    from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return (sorted({e.key for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA}),
+            sorted({e.key for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU}))
+
+
 def profiled_kernels(fn) -> list:
     """The names of the CUDA kernels one call of ``fn`` runs, from
     ``torch.profiler`` (empty where it shows no device activity)."""
@@ -3285,6 +3307,510 @@ def drive_solve_serve(dev, N_t, N_d, N_m, time_fn, report):
               flush=True)
     print(f"solve serve phase: {out['seconds']:.1f} s, peak device memory "
           f"{out.get('peak_memory_gb', 0.0):.2f} GB", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 8b. Slice 19: the operator on a 2-D process grid (torch.distributed)
+# ---------------------------------------------------------------------------
+
+# (B, m, n, row chunk of N, column chunk of T/H): ragged views, one column
+# chunk starting off the 16-byte vectors, and a paper-shape chunk
+STRIDED_SHAPES = ((3, 77, 133, (5, 45), (3, 70)), (2, 9, 264, (1, 8), (8, 136)),
+                  (2, 100, 2500, (25, 50), (625, 1250)))
+MESH_KINDS = ("psum", "hierarchical", "reduce_scatter", "ring")
+MESH_LEVELS = ("ddddd", "sssss", "hhhhh")      # the one-rank NCCL part
+GLOO_LEVELS = ("ddddd", "hhhhh")
+GLOO_GRIDS = {4: ((2, 2), (1, 4)), 2: ((1, 2), (2, 1))}
+GLOO_S = 4                 # the gloo part's block of right-hand sides
+MESH_JOIN_S = 300          # seconds a spawn of ranks may take
+
+
+def check_strided_kernels(dev) -> dict:
+    """The four strided C entries (the untiled complex SBGEMV and SBGEMM,
+    N and T/H) on views of a larger plane, a chunk of its rows (N) or
+    columns (T/H) as the pipelined gemv_psum hands them over, each launch
+    bit for bit against the same launch on a contiguous copy, at every
+    dtype, S = 1, 8 and 33; each wrapper call one launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sbgemv as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    n_calls = 0
+    for B, m, n, rows, cols in STRIDED_SHAPES:
+        for dt in DTYPES:
+            A = [torch.randn((B, m, n), generator=gen, device=dev).to(dt)
+                 for _ in range(2)]
+            for mode in "NTH":
+                ax, (lo, hi) = (1, rows) if mode == "N" else (2, cols)
+                views = [a.narrow(ax, lo, hi - lo) for a in A]
+                copies = [v.contiguous() for v in views]
+                xlen = n if mode == "N" else m
+                for S in (1, 8, 33):
+                    shape = (B, xlen, S) if S > 1 else (B, xlen)
+                    X = [torch.randn(shape, generator=gen, device=dev).to(dt)
+                         for _ in range(2)]
+                    if mode == "N":
+                        fn = sk.sbgemm_n_complex if S > 1 \
+                            else sk.sbgemv_n_complex
+                        kw = {}
+                    else:
+                        fn = sk.sbgemm_th_complex if S > 1 \
+                            else sk.sbgemv_th_complex
+                        kw = {"conj": mode == "H"}
+                    _build.reset_launch_counts()
+                    got = fn(*views, *X, **kw)
+                    want = fn(*copies, *X, **kw)
+                    sync(dev)
+                    counts = dict(_build.launch_counts)
+                    if dev.type == "cuda" and counts != {fn.__name__: 2}:
+                        fail(f"strided {fn.__name__}: launches {counts}")
+                    if not same_bits(got, want):
+                        fail(f"strided {fn.__name__} {name(dt)} mode {mode} "
+                             f"S={S} at {(B, m, n)}: the view's launch "
+                             f"differs from the contiguous copy's")
+                    n_calls += 1
+            del A
+    print(f"strided entries: {n_calls} launches on views bit for bit "
+          f"against contiguous copies", flush=True)
+    return {"calls": n_calls}
+
+
+def _rehearsal_tol(dev, level: str, overlap) -> float:
+    """How far a chunked schedule may stray from the unchunked one: not at
+    all on the card, where each row's sum is the kernel's whatever the
+    chunk; in a CPU rehearsal the plain contraction may block a chunk's
+    sums by its row count, so the level's tolerance there."""
+    if dev.type == "cuda" or overlap in (None, 1):
+        return 0.0
+    return TOL[min(level, key="hsd".index)]
+
+
+def _mesh_data(dev, N_t, N_d, N_m, seed, S=GLOO_S):
+    """The block column and inputs (blocks of S columns) every rank and
+    the single-device reference share: drawn on the card from one seed."""
+    from repro_torch.core import random_block_column
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    F_col = random_block_column(gen, N_t, N_d, N_m)
+    x = {k: torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+         for k, shape in (("m", (N_m, N_t)), ("d", (N_d, N_t)),
+                          ("M", (N_m, N_t, S)), ("D", (N_d, N_t, S)))}
+    return F_col, x
+
+
+# entry point: (input, its space, the output's space)
+MESH_CALLS = {"matvec": ("m", "m", "d"), "rmatvec": ("d", "d", "m"),
+              "matmat": ("M", "m", "d"), "rmatmat": ("D", "d", "m"),
+              "gram_p": ("m", "m", "m"), "gram_d": ("d", "d", "d")}
+
+
+def _mesh_call(op, call: str, v):
+    if call == "gram_p":
+        return op.gram("parameter").apply(v)
+    if call == "gram_d":
+        return op.gram("data").apply(v)
+    return getattr(op, call)(v)
+
+
+def _mesh_rank(rank, world, store, tmp, N_t, N_d, N_m, dev_type):
+    """One rank of the gloo part (spawned): every grid of GLOO_GRIDS[world]
+    at GLOO_LEVELS, every collective kind and overlap K in (1, 4) on
+    matvec/rmatvec, the blocks and the exact Gram at both K, assembled on
+    every rank and held by rank 0 against the single-device outputs the
+    parent saved; with 2 ranks also calibrate_overlap and the weak-scaled
+    grid.  Each rank writes its launch, collective and host-staging
+    counts."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.backend import H100, calibrate_overlap
+    from repro_torch.core import (FFTMatvec, PrecisionConfig, record_stages,
+                                  time_callable)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_test_mesh
+    tmp = pathlib.Path(tmp)
+    dev = torch.device(dev_type, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_JOIN_S))
+    refs = torch.load(tmp / "refs.pt", weights_only=False)
+    out = {"checks": {}, "times": {}}
+    _build.reset_launch_counts()
+
+    def gathered(op, call, x):
+        key, space_in, space_out = MESH_CALLS[call]
+        y = _mesh_call(op, call, op.local_block(x[key], space_in))
+        return op.gather_block(y, space_out)
+
+    def in_turns(make):
+        """``make()`` on one rank after another (each Phase 0 transiently
+        takes several times its shard's bytes on the shared card)."""
+        made = None
+        for turn in range(world):
+            if turn == rank:
+                made = make()
+                free(dev)
+            dist.barrier()
+        return made
+
+    def check(what, got, want, tol):
+        e = rel(got, want.to(got.device))
+        if rank == 0:
+            out["checks"][what] = e
+        if not (torch.isfinite(got).all() and e <= tol):
+            raise AssertionError(f"{what}: rel {e:.3e} > {tol:g}")
+
+    try:
+        with record_stages() as census:
+            F_col, x = _mesh_data(dev, N_t, N_d, N_m, SEED + 29)
+            for grid in GLOO_GRIDS[world]:
+                mesh = make_test_mesh(grid, ("row", "col"), device_type=dev.type)
+                g = f"{grid[0]}x{grid[1]}"
+                for level in GLOO_LEVELS:
+                    tol = TOL[min(level, key="hsd".index)]
+                    # gloo's sum order follows the buffer's size, so a
+                    # chunked flat reduction regroups each row's sum: f64
+                    # within 1e-15 of the serial one, a bf16 carrier within
+                    # its level (the ring's fixed order keeps its bits)
+                    chunk_tol = 1e-15 if level == "ddddd" else tol
+                    base = in_turns(lambda: FFTMatvec.from_block_column(
+                        F_col, precision=PrecisionConfig.from_string(level),
+                        device=dev, mesh=mesh))
+                    want = refs[level]
+                    for kind in MESH_KINDS:
+                        ser = {}
+                        for K in (1, 4):
+                            op = base.with_comm(None, kind).with_overlap(K)
+                            for call in ("matvec", "rmatvec"):
+                                y = gathered(op, call, x)
+                                check(f"{g} {level} {kind} K={K} {call}", y,
+                                      want[call], tol)
+                                if K == 1:
+                                    ser[call] = y
+                                elif kind == "ring" and not torch.equal(
+                                        bits(y), bits(ser[call])) and \
+                                        rel(y, ser[call]) > _rehearsal_tol(
+                                            dev, level, K):
+                                    raise AssertionError(
+                                        f"{g} {level} ring {call}: K=4 not "
+                                        f"bit for bit the serial ring")
+                                elif kind != "ring" and rel(y, ser[call]) > \
+                                        max(chunk_tol, _rehearsal_tol(
+                                            dev, level, K)):
+                                    raise AssertionError(
+                                        f"{g} {level} {kind} {call}: K=4 vs "
+                                        f"serial {rel(y, ser[call]):.3e}")
+                    for K in (1, 4):
+                        op = base.with_overlap(K)
+                        for call in ("matmat", "rmatmat", "gram_p", "gram_d"):
+                            check(f"{g} {level} K={K} {call}",
+                                  gathered(op, call, x), want[call], tol)
+                    if level == "ddddd":
+                        # comm_level="h" on a d carrier: back at f64
+                        y = base.with_comm("h").matvec(
+                            base.local_block(x["m"], "m"))
+                        if y.dtype != torch.float64:
+                            raise AssertionError(f"{g}: comm h gave {y.dtype}")
+                        check(f"{g} comm=h on a d carrier, matvec",
+                              base.gather_block(y, "d"), want["matvec"], 2e-2)
+                        m_loc = base.local_block(x["m"], "m")
+                        for K in (1, 4):
+                            if dev.type == "cuda":
+                                out["times"][f"{g} ddddd matvec K={K}"] = \
+                                    time_callable(base.with_overlap(K).matvec,
+                                                  m_loc, 5, warmup=2)
+                    del base
+            del F_col, x
+            if world == 2:
+                # calibrate_overlap's real measurement, in a cache of its own
+                # that no other phase reads
+                from repro_torch.tune import TuningCache
+                if dev.type == "cuda":
+                    eff = calibrate_overlap(H100, cache=TuningCache(
+                        tmp / f"overlap{rank}.json"))
+                    out["overlap_efficiency"] = eff
+                # the weak-scaled grid: N_m a rank, fftmatvec_grid's default;
+                # each rank draws the global column in its turn
+                mesh = make_test_mesh((1, world), ("row", "col"),
+                                      device_type=dev.type)
+
+                def weak():
+                    F_col, inputs = _mesh_data(dev, N_t, N_d, N_m * world,
+                                               SEED + 39)
+                    return (FFTMatvec.from_block_column(F_col, device=dev,
+                                                        mesh=mesh), inputs)
+                op, x = in_turns(weak)
+                out["weak_fhat_gb_a_rank"] = 2 * op.F_hat_re.numel() * \
+                    op.F_hat_re.element_size() / 1e9
+                for call in ("matvec", "rmatvec"):
+                    check(f"weak 1x{world} ddddd {call}",
+                          gathered(op, call, x), refs["weak"][call], 1e-12)
+                if dev.type == "cuda":
+                    for call, key, space in (("matvec", "m", "m"),
+                                             ("rmatvec", "d", "d")):
+                        out["times"][f"weak 1x{world} ddddd {call}"] = \
+                            time_callable(getattr(op, call),
+                                          op.local_block(x[key], space), 5,
+                                          warmup=2)
+                del op, x
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out["launches"] = dict(_build.launch_counts)
+        out["collectives"] = {k: v for k, v in census.items()
+                              if k.startswith("collective:")}
+        (tmp / f"rank{world}_{rank}.json").write_text(json.dumps(out))
+    except BaseException:
+        # the parent prints every rank's, not only the first one to exit
+        import traceback
+        (tmp / f"rank{world}_{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_nccl(dev, N_t, N_d, N_m, time_fn, out) -> None:
+    """One NCCL rank in this process (gloo in a CPU rehearsal): a (1, 1)
+    DeviceMesh at the paper shape, every level of MESH_LEVELS, collective
+    kind and overlap (None, 4) through matvec, rmatvec, matmat/rmatmat
+    (S = 8) and the exact Gram in both spaces, each bit for bit the
+    single-device operator's; the profiler's kernels of one matvec and
+    one matmat; times beside the single-device operator."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import FFTMatvec, PrecisionConfig, record_stages
+    from repro_torch.kernels import _build
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh(dev.type, (1, 1),
+                                    mesh_dim_names=("row", "col"))
+            F_col, x = _mesh_data(dev, N_t, N_d, N_m, SEED + 19, S=S_BLOCK)
+            rows = out["nccl"] = {}
+            for level in MESH_LEVELS:
+                cfg = PrecisionConfig.from_string(level)
+                single = FFTMatvec.from_block_column(F_col, precision=cfg,
+                                                     device=dev)
+                meshed = FFTMatvec.from_block_column(F_col, precision=cfg,
+                                                     device=dev, mesh=mesh)
+                want = {c: _mesh_call(single, c, x[MESH_CALLS[c][0]])
+                        for c in MESH_CALLS}
+                for kind in MESH_KINDS:
+                    for ov in (None, 4):
+                        op = meshed.with_comm(None, kind).with_overlap(ov)
+                        _build.reset_launch_counts()
+                        with record_stages() as c:
+                            got = {k: _mesh_call(op, k, x[MESH_CALLS[k][0]])
+                                   for k in MESH_CALLS}
+                        sync(dev)
+                        launches = dict(_build.launch_counts)
+                        for k in MESH_CALLS:
+                            if torch.equal(bits(got[k]), bits(want[k])) or (
+                                    rel(got[k], want[k])
+                                    <= _rehearsal_tol(dev, level, ov)):
+                                continue
+                            fail(f"NCCL 1 rank {level} {kind} overlap {ov} "
+                                 f"{k}: not bit for bit the single-device "
+                                 f"operator (rel {rel(got[k], want[k]):.3e})")
+                        if dev.type == "cuda":
+                            check_launched(launches, [
+                                "sbgemv_n_complex", "sbgemv_th_complex",
+                                "sbgemm_n_complex", "sbgemm_th_complex",
+                                "pad_cast", "unpad_cast"])
+                        if c.get("collective:host_staged"):
+                            fail("a collective was staged through host "
+                                 f"memory under {backend}")
+                        rows[f"{level} {kind} {ov}"] = {
+                            "launches": launches,
+                            "collectives": {k: v for k, v in c.items()
+                                            if k.startswith("collective:")}}
+                del single, meshed, want
+                free(dev)
+            print(f"mesh NCCL, 1 rank: {len(rows)} (level, kind, overlap) "
+                  f"cases, every entry point bit for bit the single-device "
+                  f"operator", flush=True)
+            # the profiler: the NCCL calls and the SBGEMV/SBGEMM kernels.
+            # On one rank NCCL short-cuts a sum (ncclLaunchOneRank): in
+            # place it runs nothing on the device, out of place a copy;
+            # what is on record is the host side of each NCCL call
+            op = FFTMatvec.from_block_column(F_col, device=dev, mesh=mesh)
+            single = FFTMatvec.from_block_column(F_col, device=dev)
+            del F_col
+            if dev.type == "cuda":
+                for what, fn in (
+                        ("psum matvec", lambda: op.matvec(x["m"])),
+                        ("reduce_scatter matmat K=4",
+                         lambda: op.with_comm(None, "reduce_scatter")
+                         .with_overlap(4).matmat(x["M"])),
+                        ("psum rmatvec K=4",
+                         lambda: op.with_overlap(4).rmatvec(x["d"]))):
+                    device, host = profiled_events(fn)
+                    calls = sorted(k for k in host if "nccl" in k.lower())
+                    nccl_dev = [k for k in device if "nccl" in k.lower()
+                                or "memcpy" in k.lower()]
+                    gemv = sorted({re.search(r"(\w+_kernel)", k).group(1)
+                                   for k in device
+                                   if "sbgemv" in k or "zgemm" in k})
+                    out.setdefault("profiler", {})[what] = {
+                        "nccl_calls": calls, "nccl_device_work": nccl_dev,
+                        "gemv_kernels": gemv, "device_events": device}
+                    print(f"mesh NCCL, 1 rank, profiler {what}: NCCL calls "
+                          f"{calls}, their device work {nccl_dev or 'none'}, "
+                          f"SBGEMV/SBGEMM kernels {gemv}; {len(device)} "
+                          f"device event names", flush=True)
+                    if not gemv:
+                        # the launch counters above gate the kernels; this
+                        # is what the profiler saw of them
+                        print(f"  the profiler's device events: "
+                              f"{[k[:60] for k in device]}", flush=True)
+                    if not calls:
+                        fail(f"the profiler saw no NCCL call in the meshed "
+                             f"{what}")
+                if not any(r["gemv_kernels"]
+                           for r in out["profiler"].values()):
+                    fail("the profiler saw no SBGEMV/SBGEMM kernel in any "
+                         "meshed call")
+                times = out["nccl_ms"] = {}
+                for what, fn, arg in (
+                        ("single matvec", single.matvec, x["m"]),
+                        ("mesh psum matvec", op.matvec, x["m"]),
+                        ("mesh psum matvec K=4", op.with_overlap(4).matvec,
+                         x["m"]),
+                        ("single rmatvec", single.rmatvec, x["d"]),
+                        ("mesh psum rmatvec", op.rmatvec, x["d"]),
+                        ("mesh ring rmatvec K=4", op.with_comm(
+                            None, "ring").with_overlap(4).rmatvec, x["d"])):
+                    times[what] = time_fn(fn, arg)
+                print(f"mesh times (NCCL, 1 rank; {out['smi']}; ddddd, ms): "
+                      + json.dumps({k: round(v, 4) for k, v in times.items()}),
+                      flush=True)
+            del op, single, x
+        finally:
+            dist.destroy_process_group()
+    free(dev)
+
+
+def drive_mesh(dev, N_t, N_d, N_m, time_fn, report) -> None:
+    """The operator on a 2-D process grid, checked on the one card (NCCL
+    refuses two ranks on one GPU, so this checks correctness, not fabric
+    speed):
+
+    1. one NCCL rank in this process (:func:`_mesh_nccl`);
+    2. 4 ranks ((2, 2) and (1, 4)), then 2 ranks ((1, 2), (2, 1)),
+       sharing the card over gloo, spawned, each running the hand-written
+       kernels on its shard (:func:`_mesh_rank`), the assembled outputs
+       held against the single-device operator at the level's tolerance;
+       calibrate_overlap in the 2-rank group; the weak-scaled (1, 2) grid
+       at N_m a rank.
+
+    Times are printed labelled "NCCL, 1 rank" or "gloo on one card", with
+    the card's name and power limit: they are not fabric numbers."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import DOUBLE, FFTMatvec, PrecisionConfig
+    t_start = time.perf_counter()
+    out = report["mesh"] = {}
+    out["smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip() \
+        if dev.type == "cuda" else "cpu"
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out["strided"] = check_strided_kernels(dev)
+    free(dev)
+    _mesh_nccl(dev, N_t, N_d, N_m, time_fn, out)
+
+    # the single-device outputs the gloo ranks are held against
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        refs = {}
+        F_col, x = _mesh_data(dev, N_t, N_d, N_m, SEED + 29)
+        for level in GLOO_LEVELS:
+            op = FFTMatvec.from_block_column(
+                F_col, precision=PrecisionConfig.from_string(level),
+                device=dev)
+            refs[level] = {c: _mesh_call(op, c, x[MESH_CALLS[c][0]]).cpu()
+                           for c in MESH_CALLS}
+            del op
+        del F_col, x
+        F_col, x = _mesh_data(dev, N_t, N_d, 2 * N_m, SEED + 39)
+        op = FFTMatvec.from_block_column(F_col, precision=DOUBLE, device=dev)
+        del F_col
+        refs["weak"] = {c: _mesh_call(op, c, x[MESH_CALLS[c][0]]).cpu()
+                        for c in ("matvec", "rmatvec")}
+        del op, x
+        torch.save(refs, tmp / "refs.pt")
+        del refs
+        free(dev)
+        ranks = out["gloo"] = {}
+        for world in (4, 2):
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(
+                _mesh_rank, args=(world, str(tmp / f"store{world}"), str(tmp),
+                                  N_t, N_d, N_m, dev.type),
+                nprocs=world, join=False, start_method="spawn")
+            deadline = time.monotonic() + MESH_JOIN_S
+            try:
+                while not ctx.join(timeout=1.0):
+                    if time.monotonic() > deadline:
+                        fail(f"{world} gloo ranks did not finish in "
+                             f"{MESH_JOIN_S} s")
+            except (mp.ProcessRaisedException, mp.ProcessExitedException):
+                for err in sorted(tmp.glob(f"rank{world}_*.err")):
+                    print(f"{err.name}:\n{err.read_text()}", flush=True)
+                raise
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join(5)
+            per = [json.loads((tmp / f"rank{world}_{r}.json").read_text())
+                   for r in range(world)]
+            ranks[world] = {"seconds": time.perf_counter() - t0,
+                            "ranks": per}
+            for r, info in enumerate(per):
+                print(f"mesh gloo {world} ranks, rank {r}: launches "
+                      f"{info['launches']}, collectives "
+                      f"{info['collectives']}", flush=True)
+                staged = info["collectives"].get("collective:host_staged", 0)
+                if dev.type == "cuda" and not staged:
+                    fail(f"gloo rank {r} staged no collective through host "
+                         f"memory")
+                if dev.type == "cuda":
+                    check_launched(info["launches"], [
+                        "sbgemv_n_complex", "sbgemv_th_complex",
+                        "sbgemm_n_complex", "sbgemm_th_complex",
+                        "pad_cast", "unpad_cast"])
+            checks = per[0]["checks"]
+            worst = {lvl: max(e for k, e in checks.items() if lvl in k)
+                     for lvl in (*GLOO_LEVELS, "weak")
+                     if any(lvl in k for k in checks)}
+            print(f"mesh gloo {world} ranks: {len(checks)} assembled outputs "
+                  f"within the level's tolerance of the single-device "
+                  f"operator, worst rel {worst}; "
+                  f"{ranks[world]['seconds']:.1f} s", flush=True)
+            if per[0]["times"]:
+                print(f"mesh times (gloo on one card, {world} ranks sharing "
+                      f"it; {out['smi']}; ms): "
+                      + json.dumps({k: round(v, 4) for k, v in
+                                    per[0]["times"].items()}), flush=True)
+        eff = ranks[2]["ranks"][0].get("overlap_efficiency")
+        if eff is not None:
+            print(f"mesh calibrate_overlap efficiency {eff:.4f} (gloo staged "
+                  f"through host memory on one card, 2 ranks; not an NVLink "
+                  f"figure)", flush=True)
+    if dev.type == "cuda":
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"mesh phase: {out['seconds']:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4713,6 +5239,10 @@ def run(dev, N_t, N_d, N_m, timed, time_fn):
     # slice 15: the solve server at the paper shape
     drive_solve_serve(dev, N_t, N_d, N_m, time_fn, report)
     free(dev)
+    # slice 19: the operator on a process grid (one NCCL rank; gloo ranks
+    # sharing the card)
+    drive_mesh(dev, N_t, N_d, N_m, time_fn, report)
+    free(dev)
     # slice 16: the MoE, SSM, hybrid and encoder-decoder families
     drive_families(dev, full, time_fn, report)
     # slice 17: the dispatch crossover, and training at full width
@@ -4740,7 +5270,6 @@ def staged_ptxas(logs) -> dict:
     the bf16 tensor-core and the f32 N kernels, from the ``ptxas -v``
     lines of the build logs (mangled names shortened to the kernel and its
     template arguments)."""
-    import re
     out, cur = {}, None
     for log in logs.values():
         for line in log.splitlines():

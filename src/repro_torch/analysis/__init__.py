@@ -22,7 +22,7 @@ and ``python -m repro_torch.analysis`` to sweep the paper-shape plan
 families across the registered backends.
 
 Twin of ``src/repro/analysis``; the mesh rules and mesh plans wait for
-item 13 (multi-GPU).
+item 13b (multi-GPU).
 """
 
 from typing import List, Optional

@@ -19,9 +19,9 @@ so the card's plans trace only where a card is present
 Twin of ``src/repro/analysis/context.py``.  The reference traces under
 ``jax.experimental.enable_x64()`` so that an x64-disabled process cannot
 clamp the declared f64 levels before a rule sees them; torch has f64
-natively, so nothing here needs that switch.  Mesh plans (vmap-bound
-collective axes) wait for item 13: the port's plans carry no collective
-stage.
+natively, so nothing here needs that switch.  Linting mesh plans (their
+psum and gemv_psum stages) waits for item 13b: the linter takes
+single-device plans.
 
 Derived shape conventions: input rows follow the first contraction stage,
 ``N_m`` for a forward gemv, ``N_d`` for an adjoint one (``rows``
@@ -50,8 +50,8 @@ DATA_KINDS = ("pad", "fft", "reorder", "gemv", "ifft", "mask", "unpad")
 
 def expand(plan: Plan) -> Tuple[Tuple[Optional[int], Stage], ...]:
     """Each stage tagged with its index in the plan (the reference also
-    flattens ``gemv_psum`` super-stages here; the port's plans have none
-    until item 13)."""
+    flattens ``gemv_psum`` super-stages here; the port lints no mesh plan
+    until item 13b)."""
     return tuple(enumerate(plan))
 
 

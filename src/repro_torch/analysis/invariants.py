@@ -15,8 +15,8 @@ the whole traced plan:
 
 Twin of ``src/repro/analysis/invariants.py``.  Its four mesh rules
 (``collective-stage-valid``, ``collective-fallback``,
-``ring-permutation``, ``comm-restores-carrier``) judge collective stages,
-which the port's plans do not have: they wait for item 13.
+``ring-permutation``, ``comm-restores-carrier``) judge the collective
+stages of mesh plans: they wait for item 13b.
 """
 
 from __future__ import annotations

@@ -6,5 +6,7 @@ from .spec import (BackendSpec, UnsupportedOnBackend,  # noqa: F401
 from .registry import (BACKEND_ENV, default_device,  # noqa: F401
                        known_backends, probe_backend, resolve_backend)
 from .dispatch import (DispatchTable, calibrate_dispatch,  # noqa: F401
-                       calibrate_short_wide_ratio, default_gemv_measure,
-                       default_table)
+                       calibrate_overlap, calibrate_short_wide_ratio,
+                       calibrated_network, default_gemv_measure,
+                       default_overlap_measure, default_table,
+                       overlap_efficiency_from_times)

@@ -49,6 +49,11 @@ class BackendSpec:
     device memory rate and ``link_bandwidth`` one interconnect link's, in
     B/s per direction.  They feed the roofline (``launch.roofline``) and
     every bound the port reports.
+
+    ``overlap_chunks`` is how many chunks ``ExecOpts.overlap="auto"``
+    splits a pipelined gemv -> psum super-stage into when the dispatch
+    table decides pipelining pays (``DispatchTable.overlap_chunks``): a
+    count of collectives kept in flight, the JAX package's 4.
     """
 
     name: str
@@ -60,6 +65,7 @@ class BackendSpec:
     peak_flops: tuple = ()
     hbm_bandwidth: float = 0.0
     link_bandwidth: float = 0.0
+    overlap_chunks: int = 4
 
     def fingerprint(self) -> str:
         """Stable identity for cache keys: backend + hardware it bound to."""
@@ -91,7 +97,7 @@ _REAL_PART = {"complex64": "float32", "complex128": "float64",
 # with f32 sums.  f32: the FP32 vector units ("s" is IEEE f32; TF32 would
 # round the inputs).  f64: the FP64 tensor cores (the FP64 vector units
 # give 34 TFLOP/s).  HBM3: 3.35 TB/s.  NVLink 4: 900 GB/s a card over both
-# directions, so 450 GB/s each way (the collective term, item 13).
+# directions, so 450 GB/s each way (the collective term).
 H100_PEAK_FLOPS = (("bfloat16", 989e12), ("float32", 67e12),
                    ("float64", 67e12))
 H100_HBM_BYTES_PER_S = 3.35e12

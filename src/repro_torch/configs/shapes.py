@@ -81,4 +81,4 @@ def input_shard_specs(cfg: ModelConfig, shape: ShapeSpec, *, dp,
     """Batch-dim sharding of the inputs over a device mesh."""
     raise NotImplementedError(
         "input_shard_specs: sharding over a device mesh waits for ROADMAP.md "
-        "queue 1 item 13 (multi-GPU); the port runs on one card")
+        "queue 1 item 13b (multi-GPU); the port runs on one card")

@@ -2,8 +2,11 @@
 
 Public API:
     PrecisionConfig, ExecOpts, FFTMatvec       mixed-precision matvec
+                                               (one device or a DeviceMesh)
     pipeline.Stage / matvec_plan / gram_plan   stage graph + executor
     GramOperator (FFTMatvec.gram)              fused Fourier-domain Gram
+    choose_grid / paper_grid                   comm-aware 2-D partitioning
+                                               (FFTMatvec mesh="auto")
     GaussianInverseProblem                     MAP points, Hessians, EIG
     error_model.relative_error_bound           paper eq. (6)
     measure_configs / pareto_front             the Fig.-3 Pareto analysis
@@ -19,12 +22,17 @@ from .precision import (PrecisionConfig, TileMap, all_configs,  # noqa: F401
                         DOUBLE, SINGLE, TPU_BASELINE, TPU_FAST,
                         PAPER_OPT_F, PAPER_OPT_FSTAR, PAPER_OPT_F_LARGE,
                         TPU_OPT_F)
-from .pipeline import (ExecOpts, Stage, matvec_plan, gram_plan,  # noqa: F401
-                       run_plan, stage_counts, record_stages)
+from .pipeline import (ExecOpts, Stage, COLLECTIVE_KINDS,  # noqa: F401
+                       matvec_plan, gram_plan, run_plan, stage_counts,
+                       record_stages)
 from .fftmatvec import FFTMatvec, phase_callables  # noqa: F401
 from .gram import GramOperator  # noqa: F401
 from .hessian import GaussianInverseProblem  # noqa: F401
-from .error_model import relative_error_bound  # noqa: F401
+from .partition import (choose_grid, choose_chunks, paper_grid,  # noqa: F401
+                        matvec_comm_time, hierarchical_collective_time,
+                        NetworkModel, TPU_POD_NETWORK)
+from .error_model import (relative_error_bound, dominant_phase,  # noqa: F401
+                          lattice_bounds, phase_factors)
 from .toeplitz import (dense_from_block_column, dense_matvec,  # noqa: F401
                        dense_rmatvec, fourier_block_column,
                        random_block_column, random_unrepresentable,

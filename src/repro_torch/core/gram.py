@@ -22,7 +22,10 @@ pipeline, paying an unpad -> cast -> pad round trip between them.
     the composed operator's value.  At the paper shape only the data space
     fits: parameter-space G_hat is (1001, 5000, 5000) per plane.
 
-The operator is single-device, like :class:`FFTMatvec`.
+On a mesh the exact mode runs the same pipeline on each rank's shard,
+its two contractions completed by a mid and a final reduction; the
+circulant mode's setup contracts over the sharded operator axis and stays
+on one device.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from . import pipeline
 from . import precision as prec
-from .fftmatvec import FFTMatvec, as_tensor
+from .fftmatvec import FFTMatvec, _as_axes, _axis_key, _mesh_sizes
 from .precision import PrecisionConfig
 
 
@@ -65,6 +68,10 @@ class GramOperator:
             raise ValueError(f"unknown gram mode {mode!r}")
         G_re = G_im = None
         if mode == "circulant":
+            if op.mesh is not None:
+                raise NotImplementedError(
+                    "circulant Gram precompute contracts over the sharded "
+                    "operator axis; use mode='exact' on meshes")
             r = op.opts.resolve(op.device)
             G_re, G_im = kops.sbgemm_gram(
                 op.F_hat_re, op.F_hat_im, space=space,
@@ -102,6 +109,10 @@ class GramOperator:
         return self.op.io_dtype
 
     @property
+    def mesh(self):
+        return self.op.mesh
+
+    @property
     def rows(self) -> int:
         """Row count of the (square) Gram's SOTI domain."""
         return self.N_m if self.space == "parameter" else self.N_d
@@ -113,10 +124,40 @@ class GramOperator:
                                 space=self.space, mode=self.mode)
 
     # -- plan inspection -------------------------------------------------------
+    def _mesh_roles(self):
+        """(mid axes, out axes) of the mesh Gram pipeline.  Its input and
+        output are shards of the operator's "m" space (parameter) or "d"
+        space (data)."""
+        op = self.op
+        if self.space == "parameter":
+            # F then F*: the forward GEMM is partial over the cols (mid
+            # reduction), the adjoint one over the rows (final)
+            return _as_axes(op.col_axis), _as_axes(op.row_axis)
+        # F* then F: the roles swapped
+        return _as_axes(op.row_axis), _as_axes(op.col_axis)
+
     def plan(self) -> pipeline.Plan:
-        """The stage plan :meth:`apply` runs."""
-        return pipeline.gram_plan(self.precision, space=self.space,
-                                  mode=self.mode)
+        """The stage plan :meth:`apply` runs: on a mesh the same pipeline
+        with its mid and final reductions bound (axes, group sizes,
+        lowering and comm level)."""
+        if self.mesh is None:
+            return pipeline.gram_plan(self.precision, space=self.space,
+                                      mode=self.mode)
+        op = self.op
+        mid_axes, out_axes = self._mesh_roles()
+        sizes = _mesh_sizes(op.mesh)
+
+        def groups(axes):
+            return tuple(sizes[a] for a in axes) or None
+
+        widest = mid_axes if len(mid_axes) >= len(out_axes) else out_axes
+        return pipeline.gram_plan(
+            self.precision, space=self.space, mode=self.mode,
+            mid_psum_axis=_axis_key(mid_axes) if mid_axes else None,
+            psum_axis=_axis_key(out_axes) if out_axes else None,
+            mid_psum_groups=groups(mid_axes), psum_groups=groups(out_axes),
+            collective=op._collective_kind(widest),
+            comm_level=op.comm_level)
 
     def stage_counts(self):
         """Static stage census of :meth:`plan`."""
@@ -124,12 +165,16 @@ class GramOperator:
 
     # -- application -------------------------------------------------------------
     def apply(self, v):
-        """G v on an (rows, N_t[, S]) SOTI block; 2-D inputs stay 2-D."""
-        operands = {"F": (self.op.F_hat_re, self.op.F_hat_im)}
+        """G v on an (rows, N_t[, S]) SOTI block (on a mesh, this rank's
+        shard of it); 2-D inputs stay 2-D."""
+        op = self.op
+        operands = {"F": (op.F_hat_re, op.F_hat_im)}
         if self.mode == "circulant":
             operands["G"] = (self.G_hat_re, self.G_hat_im)
-        y = pipeline.run_plan(self.plan(), as_tensor(v, self.device),
-                              operands, N_t=self.N_t, opts=self.opts)
+        local = op.F_hat_re.shape[2 if self.space == "parameter" else 1]
+        x = op._local_input(v, local, "gram")
+        y = pipeline.run_plan(self.plan(), x, operands, N_t=self.N_t,
+                              opts=op.resolved_opts())
         return y.to(self.io_dtype)
 
     __call__ = apply

@@ -40,14 +40,16 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 # C entries per source (csrc/<source>.cu): (pointers, int64 sizes, ints),
 # then the stream.  A tiled entry takes one more pointer, to a host array of
-# tile-map levels, and the grid's R and C among its ints.
+# tile-map levels, and the grid's R and C among its ints.  The untiled
+# complex SBGEMV/SBGEMM entries take A's batch stride and leading dimension
+# after its sizes (csrc/common.cuh: AStrides).
 ENTRIES = {
     "pad_cast": {"pad_cast": (2, 4, 3), "unpad_cast": (2, 3, 3)},
-    "sbgemv": {"sbgemv_n_complex": (6, 3, 3), "sbgemv_th_complex": (6, 3, 4),
+    "sbgemv": {"sbgemv_n_complex": (6, 5, 3), "sbgemv_th_complex": (6, 5, 4),
                "sbgemv_n_complex_tiled": (7, 3, 5),
                "sbgemv_th_complex_tiled": (7, 3, 6),
                "sbgemv_n_real": (3, 3, 3), "sbgemv_th_real": (3, 3, 3)},
-    "sbgemm": {"sbgemm_n_complex": (6, 4, 3), "sbgemm_th_complex": (6, 4, 4),
+    "sbgemm": {"sbgemm_n_complex": (6, 6, 3), "sbgemm_th_complex": (6, 6, 4),
                "sbgemm_gram_complex": (4, 3, 4),
                "sbgemm_gram_complex_wgmma": (4, 3, 4),
                "sbgemm_n_complex_tiled": (7, 4, 5),

@@ -60,6 +60,22 @@ template <typename O, typename I> __device__ __forceinline__ O convert(I v) {
   return Store<O>::from(widen<W>(v));
 }
 
+// An A plane's batch stride and leading dimension, in elements; its column
+// stride is 1: element (b, i, j) at b * batch + i * ld + j.  The untiled
+// complex GEMV/GEMM entries take them, so a chunk of F_hat's rows or
+// columns runs as a view of the whole plane; the others pass {m * n, n}.
+struct AStrides {
+  int64_t batch, ld;
+};
+
+// Whether 16-byte copies of V-element vectors can read a (B, m, n) plane
+// with strides a: the row length, the leading dimension and the batch
+// stride all multiples of V (the plane's start is checked apart).
+template <int V>
+inline bool vec_rows(int64_t n, const AStrides& a) {
+  return n % V == 0 && a.ld % V == 0 && a.batch % V == 0;
+}
+
 // ---------------------------------------------------------------------------
 // Tile-centric precision.  A tile map's R x C grid partitions A's batch
 // axis B and column axis n element-wise: element (b, :, j) lies in cell

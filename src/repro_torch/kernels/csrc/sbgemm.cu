@@ -4,9 +4,14 @@
 //
 // Replaces the TPU kernels src/repro/kernels/sbgemv.py:sbgemm_n_complex
 // (Y = A X), :sbgemm_th_complex (Y = A^T X, or A^H X with conj) and
-// :sbgemm_gram_complex (G = A^H A).  A planes are (B, m, n) contiguous; X
-// and Y carry the right-hand-side axis last, (B, n|m, S).  At the paper
-// shape B = 1001 bins, m = N_d = 100, n = N_m = 5000, S = 8 .. 32.
+// :sbgemm_gram_complex (G = A^H A).  A planes are (B, m, n) with unit
+// column stride; the untiled complex N and T/H entries take A's batch
+// stride and leading dimension (common.cuh: AStrides), so a chunk of
+// F_hat's rows or columns runs as a view of the whole plane (the pipelined
+// gemv -> psum super-stage on a process grid), and every other entry,
+// the Grams' too, takes contiguous planes.  X and Y carry the
+// right-hand-side axis last, (B, n|m, S), contiguous.  At the paper shape
+// B = 1001 bins, m = N_d = 100, n = N_m = 5000, S = 8 .. 32.
 //
 // f64 planes run on the FP64 tensor cores (67 TFLOP/s against 34 for the
 // FP64 vector units), in the staged kernels of the f64 section below.  The
@@ -221,7 +226,8 @@ __global__ void __launch_bounds__(kGemmRows / 16 * 32, 1)
 zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
                  const double* __restrict__ Xr, const double* __restrict__ Xi,
                  O* __restrict__ Yr, O* __restrict__ Yi, int64_t B, int64_t m,
-                 int64_t n, int64_t S, int conj, int vec_a, int vec_x, TileGrid tg) {
+                 int64_t n, int64_t S, AStrides as, int conj, int vec_a, int vec_x,
+                 TileGrid tg) {
   using L = GemmLayout<NT, TRANS, REAL>;
   constexpr int BM = kGemmRows, KC = L::KC, NS = L::NS;
   constexpr int NTH = BM / 16 * 32, SP = L::SP, PL = L::PL;
@@ -267,12 +273,14 @@ zgemm_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
       double* st = smem + w.slot * L::STAGE;
 #pragma unroll
       for (int pl = 0; pl < PL; ++pl) {
-        const double* a = (pl ? Ai : Ar) + w.b * m * n;
+        const double* a = (pl ? Ai : Ar) + w.b * as.batch;
         double* sa = st + pl * L::A_TILE;
         if (TRANS)   // A's rows k0.. (k), its columns r0.. (output rows)
-          stage<KC, BM, L::ALD, NTH, true>(sa, a + k0 * n + w.r0, n, kv, w.rv, vec_a);
+          stage<KC, BM, L::ALD, NTH, true>(sa, a + k0 * as.ld + w.r0, as.ld, kv, w.rv,
+                                           vec_a);
         else         // A's rows r0.., its columns k0..
-          stage<BM, KC, L::ALD, NTH, false>(sa, a + w.r0 * n + k0, n, w.rv, kv, vec_a);
+          stage<BM, KC, L::ALD, NTH, false>(sa, a + w.r0 * as.ld + k0, as.ld, w.rv, kv,
+                                            vec_a);
         const double* x = (pl ? Xi : Xr) + (w.b * K + k0) * S + w.s0;
         stage<KC, SP, L::XLD, NTH, true>(st + PL * L::A_TILE + pl * L::X_TILE, x, S, kv,
                                          w.sv, vec_x);
@@ -570,8 +578,9 @@ zgram_f64_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
 template <typename O, bool TRANS, bool TILED, bool REAL>
 int launch_gemm_f64(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
                     void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
-                    int conj, const TileGrid& tg, int device, cudaStream_t s) {
-  const int vec_a = n % 2 == 0 && aligned16(Ar) && aligned16(Ai);
+                    AStrides as, int conj, const TileGrid& tg, int device,
+                    cudaStream_t s) {
+  const int vec_a = vec_rows<2>(n, as) && aligned16(Ar) && aligned16(Ai);
   const int vec_x = S % 2 == 0 && aligned16(Xr) && aligned16(Xi);
   const int64_t M = TRANS ? n : m;
   if ((TRANS ? m : n) == 0) {              // an empty sum: Y = 0
@@ -587,7 +596,8 @@ int launch_gemm_f64(const void* Ar, const void* Ai, const void* Xr, const void* 
         kernel, kGemmRows / 16 * 32, bytes, items, device, s,
         static_cast<const double*>(Ar), static_cast<const double*>(Ai),
         static_cast<const double*>(Xr), static_cast<const double*>(Xi),
-        static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj, vec_a, vec_x, tg);
+        static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, as, conj, vec_a, vec_x,
+        tg);
   };
   if (S <= 8)
     return go(zgemm_f64_kernel<O, 1, TRANS, TILED, REAL>, 1,
@@ -635,8 +645,8 @@ int launch_gram_f64(const void* Ar, const void* Ai, void* Gr, void* Gi, int64_t 
 // Y (B, m, S) = A (B, m, n) X (B, n, S); REAL: the planes Ar, Xr, Yr only.
 template <bool TILED, bool REAL>
 int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
-             void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, const TileGrid& tg,
-             int dt_in, int dt_out, int device, void* stream) {
+             void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, AStrides as,
+             const TileGrid& tg, int dt_in, int dt_out, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B == 0 || m == 0 || S == 0) return 0;
@@ -644,13 +654,13 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
   if (dt_in == DT_F64) {
     DISPATCH_DTYPE(dt_out, O,
       return launch_gemm_f64<O, false, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S,
-                                                    0, tg, device, s);
+                                                    as, 0, tg, device, s);
     )
   }
   if (dt_in == DT_F32) {
     DISPATCH_DTYPE(dt_out, O,
-      return f32simt::launch_n<O, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, tg,
-                                               device, s);
+      return f32simt::launch_n<O, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, as,
+                                               tg, device, s);
     )
   }
   if (dt_in != DT_BF16) return (int)cudaErrorInvalidValue;
@@ -660,8 +670,8 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
   // value as it is), so the tiled complex and real builds run the untiled
   // build and give its bits by construction.
   DISPATCH_DTYPE(dt_out, O,
-    return bf16tc::launch_gemm<O, false, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, 0,
-                                               device, s);
+    return bf16tc::launch_gemm<O, false, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, as,
+                                               0, device, s);
   )
   return (int)cudaErrorInvalidValue;
 }
@@ -669,8 +679,9 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
 // Y (B, n, S) = A^T X, or A^H X when conj != 0; X is (B, m, S).
 template <bool TILED, bool REAL>
 int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
-              void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, int conj,
-              const TileGrid& tg, int dt_in, int dt_out, int device, void* stream) {
+              void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, AStrides as,
+              int conj, const TileGrid& tg, int dt_in, int dt_out, int device,
+              void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B == 0 || n == 0 || S == 0) return 0;
@@ -678,13 +689,13 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
   if (dt_in == DT_F64) {
     DISPATCH_DTYPE(dt_out, O,
       return launch_gemm_f64<O, true, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S,
-                                                   conj, tg, device, s);
+                                                   as, conj, tg, device, s);
     )
   }
   if (dt_in == DT_F32) {
     DISPATCH_DTYPE(dt_out, O,
-      return f32simt::launch_th<O, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj,
-                                                tg, device, s);
+      return f32simt::launch_th<O, TILED, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, as,
+                                                conj, tg, device, s);
     )
   }
   if (dt_in != DT_BF16) return (int)cudaErrorInvalidValue;
@@ -694,8 +705,8 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
   // value as it is), so the tiled complex and real builds run the untiled
   // build and give its bits by construction.
   DISPATCH_DTYPE(dt_out, O,
-    return bf16tc::launch_gemm<O, true, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj,
-                                              device, s);
+    return bf16tc::launch_gemm<O, true, REAL>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, as,
+                                              conj, device, s);
   )
   return (int)cudaErrorInvalidValue;
 }
@@ -744,18 +755,22 @@ extern "C" {
 
 #ifndef SBGEMM_REAL_ENTRIES
 
+// Y (B, m, S) = A X and Y (B, n, S) = A^T X (A^H X with conj); A's element
+// (b, i, j) at b * sA + i * ldA + j (AStrides).
 int sbgemm_n_complex(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
                      void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
-                     int dt_in, int dt_out, int device, void* stream) {
-  return launch_n<false, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, TileGrid{}, dt_in,
-                                dt_out, device, stream);
+                     int64_t sA, int64_t ldA, int dt_in, int dt_out, int device,
+                     void* stream) {
+  return launch_n<false, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, AStrides{sA, ldA},
+                                TileGrid{}, dt_in, dt_out, device, stream);
 }
 
 int sbgemm_th_complex(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
                       void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
-                      int conj, int dt_in, int dt_out, int device, void* stream) {
-  return launch_th<false, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj, TileGrid{},
-                                 dt_in, dt_out, device, stream);
+                      int64_t sA, int64_t ldA, int conj, int dt_in, int dt_out,
+                      int device, void* stream) {
+  return launch_th<false, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, AStrides{sA, ldA},
+                                 conj, TileGrid{}, dt_in, dt_out, device, stream);
 }
 
 int sbgemm_gram_complex(const void* Ar, const void* Ai, void* Gr, void* Gi,
@@ -792,8 +807,8 @@ int sbgemm_n_complex_tiled(const void* Ar, const void* Ai, const void* Xr,
   TileGrid tg;
   const int err = make_tile_grid(levels, R, C, B, n, &tg);
   if (err) return err;
-  return launch_n<true, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, tg, dt_in, dt_out,
-                               device, stream);
+  return launch_n<true, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, AStrides{m * n, n},
+                               tg, dt_in, dt_out, device, stream);
 }
 
 int sbgemm_th_complex_tiled(const void* Ar, const void* Ai, const void* Xr,
@@ -804,8 +819,8 @@ int sbgemm_th_complex_tiled(const void* Ar, const void* Ai, const void* Xr,
   TileGrid tg;
   const int err = make_tile_grid(levels, R, C, B, n, &tg);
   if (err) return err;
-  return launch_th<true, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, conj, tg, dt_in,
-                                dt_out, device, stream);
+  return launch_th<true, false>(Ar, Ai, Xr, Xi, Yr, Yi, B, m, n, S, AStrides{m * n, n},
+                                conj, tg, dt_in, dt_out, device, stream);
 }
 
 int sbgemm_gram_tiled(const void* Ar, const void* Ai, void* Gr, void* Gi,
@@ -824,14 +839,16 @@ int sbgemm_n_real(const void* A, const void* X, void* Y, int64_t B, int64_t m,
                   int64_t n, int64_t S, int dt_in, int dt_out, int device,
                   void* stream) {
   return launch_n<false, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S,
-                               TileGrid{}, dt_in, dt_out, device, stream);
+                               AStrides{m * n, n}, TileGrid{}, dt_in, dt_out, device,
+                               stream);
 }
 
 int sbgemm_th_real(const void* A, const void* X, void* Y, int64_t B, int64_t m,
                    int64_t n, int64_t S, int dt_in, int dt_out, int device,
                    void* stream) {
-  return launch_th<false, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S, 0,
-                                TileGrid{}, dt_in, dt_out, device, stream);
+  return launch_th<false, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S,
+                                AStrides{m * n, n}, 0, TileGrid{}, dt_in, dt_out,
+                                device, stream);
 }
 
 int sbgemm_n_real_tiled(const void* A, const void* X, void* Y, const int* levels,
@@ -840,8 +857,8 @@ int sbgemm_n_real_tiled(const void* A, const void* X, void* Y, const int* levels
   TileGrid tg;
   const int err = make_tile_grid(levels, R, C, B, n, &tg);
   if (err) return err;
-  return launch_n<true, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S, tg, dt_in,
-                              dt_out, device, stream);
+  return launch_n<true, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S,
+                              AStrides{m * n, n}, tg, dt_in, dt_out, device, stream);
 }
 
 int sbgemm_th_real_tiled(const void* A, const void* X, void* Y, const int* levels,
@@ -850,8 +867,9 @@ int sbgemm_th_real_tiled(const void* A, const void* X, void* Y, const int* level
   TileGrid tg;
   const int err = make_tile_grid(levels, R, C, B, n, &tg);
   if (err) return err;
-  return launch_th<true, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S, 0, tg,
-                               dt_in, dt_out, device, stream);
+  return launch_th<true, true>(A, nullptr, X, nullptr, Y, nullptr, B, m, n, S,
+                               AStrides{m * n, n}, 0, tg, dt_in, dt_out, device,
+                               stream);
 }
 
 #endif  // SBGEMM_REAL_ENTRIES

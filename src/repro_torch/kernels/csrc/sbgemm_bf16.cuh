@@ -211,7 +211,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
                   const bf16* __restrict__ Xr, const bf16* __restrict__ Xi,
                   O* __restrict__ Yr, O* __restrict__ Yi, int64_t B, int64_t m,
-                  int64_t n, int64_t S, int conj, int vec_a, int vec_x) {
+                  int64_t n, int64_t S, AStrides as, int conj, int vec_a, int vec_x) {
   using L = ZLayout<NT, TRANS, REAL>;
   constexpr int KC = L::KC, NS = L::NS, SP = L::SP, PL = L::PL, RT = L::RT;
   constexpr int ROWS = L::ROWS;
@@ -256,13 +256,13 @@ zgemm_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
       bf16* st = sbf + w.slot * L::STAGE;
 #pragma unroll
       for (int pl = 0; pl < PL; ++pl) {
-        const bf16* a = (pl ? Ai : Ar) + w.b * m * n;
+        const bf16* a = (pl ? Ai : Ar) + w.b * as.batch;
         if (TRANS)   // A's rows k0.. (k), its columns r0.. (output rows)
-          stage<KC, ROWS, L::ALD, true>(st + pl * L::A_TILE, a + k0 * n + w.r0, n, kv,
-                                        w.rv, vec_a);
+          stage<KC, ROWS, L::ALD, true>(st + pl * L::A_TILE, a + k0 * as.ld + w.r0,
+                                        as.ld, kv, w.rv, vec_a);
         else         // A's rows r0.., its columns k0..
-          stage<ROWS, KC, L::ALD, false>(st + pl * L::A_TILE, a + w.r0 * n + k0, n, w.rv,
-                                         kv, vec_a);
+          stage<ROWS, KC, L::ALD, false>(st + pl * L::A_TILE, a + w.r0 * as.ld + k0,
+                                         as.ld, w.rv, kv, vec_a);
         const bf16* x = (pl ? Xi : Xr) + (w.b * K + k0) * S + w.s0;
         stage<KC, SP, L::XLD, true>(st + PL * L::A_TILE + pl * L::X_TILE, x, S, kv, w.sv,
                                     vec_x);
@@ -610,8 +610,8 @@ zgram_bf16_kernel(const bf16* __restrict__ Ar, const bf16* __restrict__ Ai,
 // columns; REAL: the planes Ar, Xr, Yr only (Ai, Xi, Yi null).
 template <typename O, bool TRANS, bool REAL>
 int launch_gemm(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
-                void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, int conj,
-                int device, cudaStream_t s) {
+                void* Yr, void* Yi, int64_t B, int64_t m, int64_t n, int64_t S,
+                AStrides as, int conj, int device, cudaStream_t s) {
   const int64_t M = TRANS ? n : m;
   if ((TRANS ? m : n) == 0) {                // an empty sum: Y = 0
     const size_t bytes = (size_t)(B * M * S) * sizeof(O);
@@ -619,7 +619,7 @@ int launch_gemm(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
     if (e == cudaSuccess && !REAL) e = cudaMemsetAsync(Yi, 0, bytes, s);
     return (int)e;
   }
-  const int vec_a = n % 8 == 0 && aligned16(Ar) && aligned16(Ai);
+  const int vec_a = vec_rows<8>(n, as) && aligned16(Ar) && aligned16(Ai);
   const int vec_x = S % 8 == 0 && aligned16(Xr) && aligned16(Xi);
   constexpr int rows = ZLayout<1, TRANS, REAL>::ROWS;   // an item's output rows
   const int64_t rts = (M + rows - 1) / rows;
@@ -628,8 +628,8 @@ int launch_gemm(const void* Ar, const void* Ai, const void* Xr, const void* Xi,
                              B * rts * ((S + 8 * nt - 1) / (8 * nt)), device, s,
                              static_cast<const bf16*>(Ar), static_cast<const bf16*>(Ai),
                              static_cast<const bf16*>(Xr), static_cast<const bf16*>(Xi),
-                             static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj,
-                             vec_a, vec_x);
+                             static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, as,
+                             conj, vec_a, vec_x);
   };
   if (S <= 8)
     return go(zgemm_bf16_kernel<O, 1, TRANS, REAL>, 1, ZLayout<1, TRANS, REAL>::BYTES);

@@ -270,7 +270,7 @@ __global__ void __launch_bounds__(Layout<C, REAL>::THREADS, Layout<C, REAL>::BLO
 zgemm_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
                  const float* __restrict__ Xr, const float* __restrict__ Xi,
                  O* __restrict__ Yr, O* __restrict__ Yi, int64_t B, int64_t m, int64_t n,
-                 int64_t S, int vec_a, int vec_x, TileGrid tg) {
+                 int64_t S, AStrides as, int vec_a, int vec_x, TileGrid tg) {
   using L = Layout<C, REAL>;
   constexpr int SP = L::SP, KC = L::KC, NS = L::NS, ALD = L::ALD, PL = L::PL;
   constexpr int LR = L::LR, CT = L::CT, NTH = L::THREADS;
@@ -304,8 +304,9 @@ zgemm_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
       float* st = sf + w.slot * L::STAGE;
 #pragma unroll
       for (int pl = 0; pl < PL; ++pl) {
-        const float* a = (pl ? Ai : Ar) + (w.b * m + w.r0) * n + k0;
-        stage<kRows, KC, ALD, NTH, false>(st + pl * L::A_TILE, a, n, w.rv, kv, vec_a);
+        const float* a = (pl ? Ai : Ar) + w.b * as.batch + w.r0 * as.ld + k0;
+        stage<kRows, KC, ALD, NTH, false>(st + pl * L::A_TILE, a, as.ld, w.rv, kv,
+                                          vec_a);
         const float* x = (pl ? Xi : Xr) + (w.b * n + k0) * S + w.s0;
         stage<KC, SP, L::XLD, NTH, true>(st + PL * L::A_TILE + pl * L::X_TILE, x, S, kv,
                                          w.sv, vec_x);
@@ -419,15 +420,15 @@ zgemm_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
 // 32 columns; REAL: the planes Ar, Xr, Yr only (Ai, Xi, Yi null).
 template <typename O, bool TILED, bool REAL>
 int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
-             void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, const TileGrid& tg,
-             int device, cudaStream_t s) {
+             void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, AStrides as,
+             const TileGrid& tg, int device, cudaStream_t s) {
   if (n == 0) {                              // an empty sum: Y = 0
     const size_t bytes = (size_t)(B * m * S) * sizeof(O);
     cudaError_t e = cudaMemsetAsync(Yr, 0, bytes, s);
     if (e == cudaSuccess && !REAL) e = cudaMemsetAsync(Yi, 0, bytes, s);
     return (int)e;
   }
-  const int vec_a = n % 4 == 0 && aligned16(Ar) && aligned16(Ai);
+  const int vec_a = vec_rows<4>(n, as) && aligned16(Ar) && aligned16(Ai);
   const int vec_x = S % 4 == 0 && aligned16(Xr) && aligned16(Xi);
   const int64_t rts = (m + kRows - 1) / kRows;
   auto go = [&](auto kernel, int c, int threads, int bytes) {
@@ -435,8 +436,8 @@ int launch_n(const void* Ar, const void* Ai, const void* Xr, const void* Xi, voi
                              B * rts * ((S + 8 * c - 1) / (8 * c)), device, s,
                              static_cast<const float*>(Ar), static_cast<const float*>(Ai),
                              static_cast<const float*>(Xr), static_cast<const float*>(Xi),
-                             static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, vec_a,
-                             vec_x, tg);
+                             static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, as,
+                             vec_a, vec_x, tg);
   };
   using L1 = Layout<1, REAL>;
   using L2 = Layout<2, REAL>;
@@ -476,8 +477,8 @@ __global__ void __launch_bounds__(kTHThreads, THLayout<C, REAL>::BLOCKS)
 zgemm_th_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
                     const float* __restrict__ Xr, const float* __restrict__ Xi,
                     O* __restrict__ Yr, O* __restrict__ Yi, int64_t B, int64_t m,
-                    int64_t n, int64_t S, int conj, int vec_a, int vec_x, int vec_y,
-                    TileGrid tg) {
+                    int64_t n, int64_t S, AStrides as, int conj, int vec_a, int vec_x,
+                    int vec_y, TileGrid tg) {
   using L = THLayout<C, REAL>;
   constexpr int SP = L::SP, KC = L::KC, NS = L::NS, PL = L::PL, LR = L::LR;
   constexpr int CT = L::CT, ROWS = L::ROWS, RPT = ROWS / kTHThreads;
@@ -513,8 +514,8 @@ zgemm_th_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
 #pragma unroll
       for (int pl = 0; pl < PL; ++pl) {
         // A's rows k0.. (k), its columns r0.. (the output rows)
-        const float* a = (pl ? Ai : Ar) + (w.b * m + k0) * n + w.r0;
-        stage<KC, ROWS, ROWS, kTHThreads, true>(st + pl * L::A_TILE, a, n, kv, w.rv,
+        const float* a = (pl ? Ai : Ar) + w.b * as.batch + k0 * as.ld + w.r0;
+        stage<KC, ROWS, ROWS, kTHThreads, true>(st + pl * L::A_TILE, a, as.ld, kv, w.rv,
                                                 vec_a);
         const float* x = (pl ? Xi : Xr) + (w.b * m + k0) * S + w.s0;
         stage<KC, SP, SP, kTHThreads, true>(st + PL * L::A_TILE + pl * L::X_TILE, x, S,
@@ -645,15 +646,15 @@ zgemm_th_f32_kernel(const float* __restrict__ Ar, const float* __restrict__ Ai,
 // 32 columns; REAL: the planes Ar, Xr, Yr only (Ai, Xi, Yi null; conj 0).
 template <typename O, bool TILED, bool REAL>
 int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, void* Yr,
-              void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, int conj,
-              const TileGrid& tg, int device, cudaStream_t s) {
+              void* Yi, int64_t B, int64_t m, int64_t n, int64_t S, AStrides as,
+              int conj, const TileGrid& tg, int device, cudaStream_t s) {
   if (m == 0) {                              // an empty sum: Y = 0
     const size_t bytes = (size_t)(B * n * S) * sizeof(O);
     cudaError_t e = cudaMemsetAsync(Yr, 0, bytes, s);
     if (e == cudaSuccess && !REAL) e = cudaMemsetAsync(Yi, 0, bytes, s);
     return (int)e;
   }
-  const int vec_a = n % 4 == 0 && aligned16(Ar) && aligned16(Ai);
+  const int vec_a = vec_rows<4>(n, as) && aligned16(Ar) && aligned16(Ai);
   const int vec_x = S % 4 == 0 && aligned16(Xr) && aligned16(Xi);
   const int vec_y = aligned16(Yr) && aligned16(Yi);
   constexpr int rows = THLayout<1, REAL>::ROWS;   // an item's output rows
@@ -663,8 +664,8 @@ int launch_th(const void* Ar, const void* Ai, const void* Xr, const void* Xi, vo
                              B * rts * ((S + 8 * c - 1) / (8 * c)), device, s,
                              static_cast<const float*>(Ar), static_cast<const float*>(Ai),
                              static_cast<const float*>(Xr), static_cast<const float*>(Xi),
-                             static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, conj,
-                             vec_a, vec_x, vec_y, tg);
+                             static_cast<O*>(Yr), static_cast<O*>(Yi), B, m, n, S, as,
+                             conj, vec_a, vec_x, vec_y, tg);
   };
   if (S <= 8)
     return go(zgemm_th_f32_kernel<O, 1, TILED, REAL>, 1, THLayout<1, REAL>::BYTES);

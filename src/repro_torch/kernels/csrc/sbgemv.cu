@@ -2,8 +2,13 @@
 //
 // Replaces the TPU kernels src/repro/kernels/sbgemv.py:sbgemv_n_complex
 // (y = A x, the forward F) and :sbgemv_th_complex (y = A^T x, or A^H x
-// with conj, the adjoint F*).  A planes are (B, m, n) contiguous; at the
-// paper shape B = 1001 bins, m = N_d = 100, n = N_m = 5000.
+// with conj, the adjoint F*).  A planes are (B, m, n) with unit column
+// stride: element (b, i, j) at b * sA + i * ldA + j.  The untiled complex
+// entries take sA and ldA, so a chunk of F_hat's rows (N) or columns (T/H)
+// is a view of the whole plane, with no copy (the pipelined gemv -> psum
+// super-stage on a process grid); every other entry passes the contiguous
+// strides m * n and n.  At the paper shape B = 1001 bins, m = N_d = 100,
+// n = N_m = 5000.
 //
 // Bound: bytes.  Each kernel does 8 flops per complex element of A, whose
 // two planes it reads once: 0.5 flop per byte at f64, 2 at bf16, far
@@ -25,8 +30,8 @@
 //     in order, then the warp reduces with a fixed shuffle tree: no
 //     atomics, no cross-block pass, so every row sums in the same order on
 //     every run.  The loop's last step masks the lanes past the row.
-//     Planes whose starts or n leave no room for whole 16-byte vectors
-//     take the element path: the same code on single elements.  Loads of
+//     Planes whose starts, n, ldA or sA leave no room for whole 16-byte
+//     vectors take the element path: the same code on single elements.  Loads of
 //     x[b, :] repeat for each of a bin's rows and the caches serve them;
 //     a warp on several rows that share each x vector measured slower on
 //     an H100 (PERF.md), since it splits the warp's bytes of A into
@@ -91,7 +96,8 @@ __global__ void __launch_bounds__(kThreads)
 sbgemv_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                 const T* __restrict__ xr, const T* __restrict__ xi,
                 O* __restrict__ yr, O* __restrict__ yi,
-                int64_t B, int64_t m, int64_t n, TileGrid tg) {
+                int64_t B, int64_t m, int64_t n, int64_t sA, int64_t ldA,
+                TileGrid tg) {
   using A = typename AccOf<T>::type;
   using V = typename Raw<VE * sizeof(T)>::T;
   const int lane = threadIdx.x & 31;
@@ -99,8 +105,9 @@ sbgemv_n_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   for (int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); w < B * m;
        w += (int64_t)gridDim.x * kWarps) {
     const int64_t b = w / m;
-    const V* ar = reinterpret_cast<const V*>(Ar + w * n);
-    const V* ai = reinterpret_cast<const V*>(REAL ? Ar : Ai + w * n);   // REAL: Ai is null
+    const int64_t row = b * sA + (w - b * m) * ldA;
+    const V* ar = reinterpret_cast<const V*>(Ar + row);
+    const V* ai = reinterpret_cast<const V*>(REAL ? Ar : Ai + row);   // REAL: Ai is null
     const V* vr = reinterpret_cast<const V*>(xr + b * n);
     const V* vi = reinterpret_cast<const V*>(REAL ? xr : xi + b * n);
     const uint32_t cells = TILED ? tile_row(tg, b) : 0u;
@@ -206,14 +213,15 @@ __global__ void __launch_bounds__(kThreads)
 sbgemv_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
                  const T* __restrict__ xr, const T* __restrict__ xi,
                  O* __restrict__ yr, O* __restrict__ yi,
-                 int64_t B, int64_t m, int64_t n, int conj, TileGrid tg) {
+                 int64_t B, int64_t m, int64_t n, int64_t sA, int64_t ldA,
+                 int conj, TileGrid tg) {
   using A = typename AccOf<T>::type;
   __shared__ A sxr[kThreads];
   __shared__ A sxi[kThreads];
   const int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
-    const T* ar = Ar + b * m * n + j;
-    const T* ai = Ai + (REAL ? 0 : b * m * n + j);
+    const T* ar = Ar + b * sA + j;
+    const T* ai = Ai + (REAL ? 0 : b * sA + j);
     const int lv = TILED ? tile_level(tg, tile_row(tg, b), j) : 2;
     A rr = 0, ii = 0, ri = 0, ir = 0;
     for (int64_t i0 = 0; i0 < m; i0 += kThreads) {
@@ -227,7 +235,7 @@ sbgemv_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
       auto sweep = [&](auto q) {
 #pragma unroll (REAL ? 8 : 4)
         for (int k = 0; k < len; ++k) {
-          const int64_t off = (i0 + k) * n;
+          const int64_t off = (i0 + k) * ldA;
           A a_r = widen<A>(ar[off]), a_i = 0;
           if constexpr (!REAL) a_i = widen<A>(ai[off]);
           if constexpr (decltype(q)::value) {
@@ -260,29 +268,32 @@ sbgemv_th_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
   }
 }
 
-// 16-byte vectors when every plane's start and n allow them, else the
-// element path; a warp a row, rows grid-striding past 2^20 blocks.
+// 16-byte vectors when every plane's start, n and A's strides allow them,
+// else the element path; a warp a row, rows grid-striding past 2^20 blocks.
 template <typename T, typename O, bool TILED, bool REAL>
 void launch_n_typed(const T* Ar, const T* Ai, const T* xr, const T* xi, O* yr, O* yi,
-                    int64_t B, int64_t m, int64_t n, const TileGrid& tg, cudaStream_t s) {
+                    int64_t B, int64_t m, int64_t n, int64_t sA, int64_t ldA,
+                    const TileGrid& tg, cudaStream_t s) {
   constexpr int VE = 16 / sizeof(T);
   auto aligned = [](const void* p) { return p == nullptr || (uintptr_t)p % 16 == 0; };
-  const bool vec = n % VE == 0 && aligned(Ar) && aligned(Ai) && aligned(xr) && aligned(xi);
+  const bool vec = n % VE == 0 && ldA % VE == 0 && sA % VE == 0 && aligned(Ar) &&
+                   aligned(Ai) && aligned(xr) && aligned(xi);
   int64_t blocks = (B * m + kWarps - 1) / kWarps;
   blocks = blocks < (1 << 20) ? blocks : (1 << 20);
   constexpr bool TL = kTiled<T, TILED>;
   if (vec)
     sbgemv_n_kernel<T, O, TL, REAL, VE><<<(unsigned)blocks, kThreads, 0, s>>>(
-        Ar, Ai, xr, xi, yr, yi, B, m, n, tg);
+        Ar, Ai, xr, xi, yr, yi, B, m, n, sA, ldA, tg);
   else
     sbgemv_n_kernel<T, O, TL, REAL, 1><<<(unsigned)blocks, kThreads, 0, s>>>(
-        Ar, Ai, xr, xi, yr, yi, B, m, n, tg);
+        Ar, Ai, xr, xi, yr, yi, B, m, n, sA, ldA, tg);
 }
 
 template <bool TILED, bool REAL>
 int launch_n(const void* Ar, const void* Ai, const void* xr, const void* xi,
-             void* yr, void* yi, int64_t B, int64_t m, int64_t n, const TileGrid& tg,
-             int dt_in, int dt_out, int device, void* stream) {
+             void* yr, void* yi, int64_t B, int64_t m, int64_t n, int64_t sA,
+             int64_t ldA, const TileGrid& tg, int dt_in, int dt_out, int device,
+             void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B == 0 || m == 0) return 0;
@@ -291,15 +302,16 @@ int launch_n(const void* Ar, const void* Ai, const void* xr, const void* xi,
     launch_n_typed<T, O, TILED, REAL>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(xr), static_cast<const T*>(xi),
-        static_cast<O*>(yr), static_cast<O*>(yi), B, m, n, tg, s);
+        static_cast<O*>(yr), static_cast<O*>(yi), B, m, n, sA, ldA, tg, s);
   ))
   return (int)cudaGetLastError();
 }
 
 template <bool TILED, bool REAL>
 int launch_th(const void* Ar, const void* Ai, const void* xr, const void* xi,
-              void* yr, void* yi, int64_t B, int64_t m, int64_t n, int conj,
-              const TileGrid& tg, int dt_in, int dt_out, int device, void* stream) {
+              void* yr, void* yi, int64_t B, int64_t m, int64_t n, int64_t sA,
+              int64_t ldA, int conj, const TileGrid& tg, int dt_in, int dt_out,
+              int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B == 0 || n == 0) return 0;
@@ -311,7 +323,7 @@ int launch_th(const void* Ar, const void* Ai, const void* xr, const void* xi,
     sbgemv_th_kernel<T, O, (kTiled<T, TILED>), REAL><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(Ar), static_cast<const T*>(Ai),
         static_cast<const T*>(xr), static_cast<const T*>(xi),
-        static_cast<O*>(yr), static_cast<O*>(yi), B, m, n, conj, tg);
+        static_cast<O*>(yr), static_cast<O*>(yi), B, m, n, sA, ldA, conj, tg);
   ))
   return (int)cudaGetLastError();
 }
@@ -320,20 +332,22 @@ int launch_th(const void* Ar, const void* Ai, const void* xr, const void* xi,
 
 extern "C" {
 
-// y (B, m) = A (B, m, n) x (B, n), split planes.
+// y (B, m) = A (B, m, n) x (B, n), split planes; A's element (b, i, j) at
+// b * sA + i * ldA + j.
 int sbgemv_n_complex(const void* Ar, const void* Ai, const void* xr, const void* xi,
-                     void* yr, void* yi, int64_t B, int64_t m, int64_t n,
-                     int dt_in, int dt_out, int device, void* stream) {
-  return launch_n<false, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, TileGrid{}, dt_in,
-                                dt_out, device, stream);
+                     void* yr, void* yi, int64_t B, int64_t m, int64_t n, int64_t sA,
+                     int64_t ldA, int dt_in, int dt_out, int device, void* stream) {
+  return launch_n<false, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, sA, ldA, TileGrid{},
+                                dt_in, dt_out, device, stream);
 }
 
-// y (B, n) = A^T x, or A^H x when conj != 0; x is (B, m).
+// y (B, n) = A^T x, or A^H x when conj != 0; x is (B, m); A strided as above.
 int sbgemv_th_complex(const void* Ar, const void* Ai, const void* xr, const void* xi,
-                      void* yr, void* yi, int64_t B, int64_t m, int64_t n, int conj,
-                      int dt_in, int dt_out, int device, void* stream) {
-  return launch_th<false, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, conj, TileGrid{},
-                                 dt_in, dt_out, device, stream);
+                      void* yr, void* yi, int64_t B, int64_t m, int64_t n, int64_t sA,
+                      int64_t ldA, int conj, int dt_in, int dt_out, int device,
+                      void* stream) {
+  return launch_th<false, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, sA, ldA, conj,
+                                 TileGrid{}, dt_in, dt_out, device, stream);
 }
 
 // sbgemv_n_complex with A rounded per tile-map cell: levels is a host array
@@ -345,8 +359,8 @@ int sbgemv_n_complex_tiled(const void* Ar, const void* Ai, const void* xr,
   TileGrid tg;
   const int err = make_tile_grid(levels, R, C, B, n, &tg);
   if (err) return err;
-  return launch_n<true, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, tg, dt_in, dt_out,
-                               device, stream);
+  return launch_n<true, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, m * n, n, tg, dt_in,
+                               dt_out, device, stream);
 }
 
 // sbgemv_th_complex with A rounded per tile-map cell (levels as above).
@@ -357,22 +371,22 @@ int sbgemv_th_complex_tiled(const void* Ar, const void* Ai, const void* xr,
   TileGrid tg;
   const int err = make_tile_grid(levels, R, C, B, n, &tg);
   if (err) return err;
-  return launch_th<true, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, conj, tg, dt_in,
-                                dt_out, device, stream);
+  return launch_th<true, false>(Ar, Ai, xr, xi, yr, yi, B, m, n, m * n, n, conj, tg,
+                                dt_in, dt_out, device, stream);
 }
 
 // y (B, m) = A (B, m, n) x (B, n), one real plane.
 int sbgemv_n_real(const void* A, const void* x, void* y, int64_t B, int64_t m,
                   int64_t n, int dt_in, int dt_out, int device, void* stream) {
-  return launch_n<false, true>(A, nullptr, x, nullptr, y, nullptr, B, m, n, TileGrid{},
-                               dt_in, dt_out, device, stream);
+  return launch_n<false, true>(A, nullptr, x, nullptr, y, nullptr, B, m, n, m * n, n,
+                               TileGrid{}, dt_in, dt_out, device, stream);
 }
 
 // y (B, n) = A^T x, one real plane; x is (B, m).
 int sbgemv_th_real(const void* A, const void* x, void* y, int64_t B, int64_t m,
                    int64_t n, int dt_in, int dt_out, int device, void* stream) {
-  return launch_th<false, true>(A, nullptr, x, nullptr, y, nullptr, B, m, n, 0,
-                                TileGrid{}, dt_in, dt_out, device, stream);
+  return launch_th<false, true>(A, nullptr, x, nullptr, y, nullptr, B, m, n, m * n, n,
+                                0, TileGrid{}, dt_in, dt_out, device, stream);
 }
 
 }  // extern "C"

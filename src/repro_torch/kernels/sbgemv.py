@@ -29,6 +29,14 @@ and column axes, and each A element is rounded through its cell's level
 it as they load it, so no quantized copy of A is made on the card; the
 plain versions quantize a copy, cell by cell.
 
+The untiled complex wrappers (``sbgemv_n_complex``, ``sbgemv_th_complex``,
+``sbgemm_n_complex``, ``sbgemm_th_complex``) take A planes with any batch
+stride and leading dimension, as long as their columns are contiguous:
+a chunk of F_hat's rows (N) or columns (T/H) is a view of the whole
+operator, with no copy (the pipelined gemv -> psum super-stage on a
+process grid).  Every other wrapper, and every x plane, takes contiguous
+tensors.
+
 The ``*_real`` wrappers are the same products on one real plane each of
 A, x and y (modes N and T), built from the complex kernels' sources with
 the imaginary planes compiled away (the SBGEMMs' entries as a library of
@@ -51,9 +59,16 @@ from .ref import (LADDER_INDEX, cast, complex_contract, gram_contract,
 
 MAX_TILES = 8          # csrc/common.cuh:kMaxTiles
 WGMMA_GRAM_MAX_P = 128  # csrc/sbgemm_bf16.cuh: two 64-row warpgroups
+# The C entries that take A's batch stride and leading dimension.
+STRIDED_ENTRIES = ("sbgemv_n_complex", "sbgemv_th_complex",
+                   "sbgemm_n_complex", "sbgemm_th_complex")
 
 
-def _check_planes(planes, out_dtype, what: str) -> None:
+def _check_planes(planes, out_dtype, what: str, strided: int = 0) -> None:
+    """dtypes, device and layout of ``planes``: the first ``strided`` (A's
+    planes, for the entries that take A's strides) may be any (B, m, n)
+    view with contiguous columns and one set of strides between them; the
+    rest must be contiguous."""
     if any(p.dtype != planes[0].dtype for p in planes):
         raise TypeError(f"{what}: all planes must share one dtype")
     for dt in (planes[0].dtype, out_dtype):
@@ -63,16 +78,27 @@ def _check_planes(planes, out_dtype, what: str) -> None:
         raise ValueError(f"{what}: planes on different devices")
     if planes[0].device.type not in ("cuda", "cpu"):
         raise ValueError(f"{what}: unsupported device {planes[0].device}")
-    if not all(p.is_contiguous() for p in planes):
+    views = planes[:strided]
+    if any(p.stride() != views[0].stride() for p in views):
+        raise ValueError(f"{what}: A planes differ in strides")
+    if any(p.shape[-1] > 1 and p.stride(-1) != 1 for p in views):
+        raise ValueError(f"{what} needs A planes with contiguous columns")
+    if not all(p.is_contiguous() for p in planes[strided:]):
         raise ValueError(f"{what} needs contiguous planes")
 
 
+def _a_strides(A) -> tuple:
+    """A plane's (batch stride, leading dimension) for the strided C
+    entries, in elements."""
+    return A.stride(0), A.stride(1)
+
+
 def _check(As, xs, x_axis: int, out_dtype, what: str,
-           rhs: bool = False) -> None:
+           rhs: bool = False, strided: bool = False) -> None:
     """Shapes of the A planes ``As`` (one real plane or re and im) and the
     x planes ``xs`` of a GEMV (x (B, len)) or, with ``rhs``, a GEMM (X (B,
     len, S)), ``len`` being A's axis ``x_axis``; then dtypes, device,
-    layout."""
+    layout (``strided``: A may be a view, see :func:`_check_planes`)."""
     A0 = As[0]
     if A0.ndim != 3:
         raise ValueError(f"{what}: A planes must be (B, m, n), got "
@@ -86,7 +112,7 @@ def _check(As, xs, x_axis: int, out_dtype, what: str,
         if tuple(x.shape) != want:
             raise ValueError(f"{what}: x planes must be {want}, got "
                              f"{tuple(x.shape)}")
-    _check_planes((*As, *xs), out_dtype, what)
+    _check_planes((*As, *xs), out_dtype, what, len(As) if strided else 0)
 
 
 def sbgemv_n_complex_plain(A_re, A_im, x_re, x_im, out_dtype):
@@ -155,7 +181,8 @@ def _flops(entry: str, inputs, sizes, ints) -> int:
         B, m, n = sizes
         P, K = (m, n) if ints[0] else (n, m)
         return 4 * B * P * (P + 1) * K
-    return (8 if len(inputs) == 4 else 2) * math.prod(sizes)
+    shape = sizes[:-2] if entry in STRIDED_ENTRIES else sizes
+    return (8 if len(inputs) == 4 else 2) * math.prod(shape)
 
 
 @functools.cache
@@ -181,12 +208,13 @@ def sbgemv_n_complex(A_re, A_im, x_re, x_im,
     """y = A x per batch on split planes: A (B, m, n), x (B, n) ->
     (y_re, y_im) of shape (B, m)."""
     out_dtype = out_dtype or A_re.dtype
-    _check((A_re, A_im), (x_re, x_im), 2, out_dtype, "sbgemv_n_complex")
+    _check((A_re, A_im), (x_re, x_im), 2, out_dtype, "sbgemv_n_complex",
+           strided=True)
     B, m, n = A_re.shape
     if A_re.device.type == "cpu":
         return sbgemv_n_complex_plain(A_re, A_im, x_re, x_im, out_dtype)
     return _launch("sbgemv", "sbgemv_n_complex", (A_re, A_im, x_re, x_im),
-                   (B, m), out_dtype, A_re.shape)
+                   (B, m), out_dtype, (B, m, n, *_a_strides(A_re)))
 
 
 def sbgemv_th_complex(A_re, A_im, x_re, x_im, *, conj: bool,
@@ -194,13 +222,15 @@ def sbgemv_th_complex(A_re, A_im, x_re, x_im, *, conj: bool,
     """y = A^T x, or A^H x with ``conj``, per batch on split planes:
     A (B, m, n), x (B, m) -> (y_re, y_im) of shape (B, n)."""
     out_dtype = out_dtype or A_re.dtype
-    _check((A_re, A_im), (x_re, x_im), 1, out_dtype, "sbgemv_th_complex")
+    _check((A_re, A_im), (x_re, x_im), 1, out_dtype, "sbgemv_th_complex",
+           strided=True)
     B, m, n = A_re.shape
     if A_re.device.type == "cpu":
         return sbgemv_th_complex_plain(A_re, A_im, x_re, x_im, conj,
                                        out_dtype)
     return _launch("sbgemv", "sbgemv_th_complex", (A_re, A_im, x_re, x_im),
-                   (B, n), out_dtype, A_re.shape, int(bool(conj)))
+                   (B, n), out_dtype, (B, m, n, *_a_strides(A_re)),
+                   int(bool(conj)))
 
 
 def sbgemv_n_complex_tiled_plain(A_re, A_im, x_re, x_im, levels, out_dtype):
@@ -277,13 +307,13 @@ def sbgemm_n_complex(A_re, A_im, X_re, X_im,
     (Y_re, Y_im) of shape (B, m, S)."""
     out_dtype = out_dtype or A_re.dtype
     _check((A_re, A_im), (X_re, X_im),
-           2, out_dtype, "sbgemm_n_complex", rhs=True)
+           2, out_dtype, "sbgemm_n_complex", rhs=True, strided=True)
     B, m, n = A_re.shape
     S = X_re.shape[2]
     if A_re.device.type == "cpu":
         return sbgemm_n_complex_plain(A_re, A_im, X_re, X_im, out_dtype)
     return _launch("sbgemm", "sbgemm_n_complex", (A_re, A_im, X_re, X_im),
-                   (B, m, S), out_dtype, (B, m, n, S))
+                   (B, m, S), out_dtype, (B, m, n, S, *_a_strides(A_re)))
 
 
 def sbgemm_th_complex(A_re, A_im, X_re, X_im, *, conj: bool,
@@ -292,14 +322,15 @@ def sbgemm_th_complex(A_re, A_im, X_re, X_im, *, conj: bool,
     A (B, m, n), X (B, m, S) -> (Y_re, Y_im) of shape (B, n, S)."""
     out_dtype = out_dtype or A_re.dtype
     _check((A_re, A_im), (X_re, X_im), 1, out_dtype, "sbgemm_th_complex",
-           rhs=True)
+           rhs=True, strided=True)
     B, m, n = A_re.shape
     S = X_re.shape[2]
     if A_re.device.type == "cpu":
         return sbgemm_th_complex_plain(A_re, A_im, X_re, X_im, conj,
                                        out_dtype)
     return _launch("sbgemm", "sbgemm_th_complex", (A_re, A_im, X_re, X_im),
-                   (B, n, S), out_dtype, (B, m, n, S), int(bool(conj)))
+                   (B, n, S), out_dtype, (B, m, n, S, *_a_strides(A_re)),
+                   int(bool(conj)))
 
 
 def gram_kernel_for(dtype: torch.dtype, data: bool, P: int) -> str:

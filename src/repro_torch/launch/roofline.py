@@ -7,7 +7,7 @@ peaks):
     compute    = sum over dtypes of FLOPs[dtype] / peak[dtype]
                  (bf16 989 TFLOP/s, f32 67, f64 67)
     memory     = bytes / HBM rate                       (3.35 TB/s)
-    collective = collective bytes / link rate           (NVLink, item 13)
+    collective = collective bytes / link rate           (NVLink)
 
 Twin of ``src/repro/launch/roofline.py``.  The reference reads its counts
 from XLA: ``compiled.cost_analysis()`` and the optimized HLO text
@@ -29,7 +29,7 @@ allocated):
   ``cat`` and ``constant_pad_nd``, and every kernel), plus the step's
   argument reads and output writes that no such op already counted
   (:meth:`OpCounter.count_io`);
-* collectives: ``c10d`` ops (none on one card before item 13).
+* collectives: ``c10d`` ops (none in a plan on one card).
 
 A kernel counts each input byte read once and each output byte written
 once, and a complex GEMV or GEMM 8 FLOPs per complex multiply-add.

@@ -6,7 +6,7 @@
 trains the smoke config on the CPU; without ``--device`` it runs on the
 card (without ``--smoke``, at the config's full widths).  One process, one
 device: the reference's production mesh (``--production-mesh``,
-``--multi-pod``) needs several and raises (ROADMAP item 13).  The default
+``--multi-pod``) needs several and raises (ROADMAP item 13b).  The default
 checkpoint directory is ``repro_torch_ckpt`` under the temporary
 directory.
 """
@@ -49,7 +49,7 @@ def main(argv=None):
     if args.production_mesh or args.multi_pod:
         raise NotImplementedError(
             "--production-mesh/--multi-pod shard over many devices: ROADMAP "
-            "item 13 (multi-device)")
+            "item 13b (multi-device)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     pipe = SyntheticPipeline(cfg, args.batch, args.seq, seed=args.seed,
                              device=default_device(args.device))

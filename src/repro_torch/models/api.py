@@ -27,7 +27,7 @@ from . import encdec, hybrid, ssm_lm, transformer
 from .layers import F32
 
 _ONE_DEVICE = ("{} has no meaning on one card: sharded training is ROADMAP "
-               "item 13 (multi-device)")
+               "item 13b (multi-device)")
 
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": ssm_lm, "hybrid": hybrid, "encdec": encdec}

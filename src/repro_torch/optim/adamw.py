@@ -46,7 +46,7 @@ class AdamW:
     def state_specs(self, param_specs):
         raise NotImplementedError(
             "sharding specs of the optimizer state: the port runs on one "
-            "card (ROADMAP item 13, multi-device)")
+            "card (ROADMAP item 13b, multi-device)")
 
     @staticmethod
     def global_norm(grads: dict):

@@ -115,10 +115,9 @@ def _digest(h, plane: torch.Tensor) -> None:
 def operator_fingerprint(op) -> str:
     """Coalescing identity of an operator: problem shape, a SHA-1 of the
     stored Fourier blocks, the backend fingerprint and the dispatch
-    table's fields.  Two requests share a batch only when their solves
-    run the same pipeline on the same operator data.  The operator is on
-    one device, so the grid is ``(1, 1)`` and the reduction precision
-    ``None`` (meshes wait for ROADMAP.md item 13)."""
+    table's fields, the process grid and the reduction precision.  Two
+    requests share a batch only when their solves run the same pipeline on
+    the same operator data (on a mesh, this rank's shard of it)."""
     r = op.opts.resolve(op.device)
     h = hashlib.sha1()
     _digest(h, op.F_hat_re)
@@ -126,7 +125,8 @@ def operator_fingerprint(op) -> str:
     disp = ";".join(f"{f.name}={getattr(r.table, f.name)}"
                     for f in dataclasses.fields(r.table))
     return (f"{op.N_t}x{op.N_d}x{op.N_m}/F={h.hexdigest()[:12]}"
-            f"/{r.spec.fingerprint()}/disp={disp}/grid=(1, 1)/comm=None")
+            f"/{r.spec.fingerprint()}/disp={disp}/grid={op.grid_shape()}"
+            f"/comm={op.comm_level}")
 
 
 class SolveEngine:

@@ -24,6 +24,12 @@ the whole lattice:
   6. cache store (opt-in via ``cache``/``cache_path``).
 
 Each candidate operator (one F_hat copy) lives only while it is measured.
+
+On a process grid every rank runs ``autotune`` together: each feeds its
+shard of the global probe input, measures errors on the gathered global
+outputs and takes the slowest rank's time, so all ranks choose the same
+configs; eq. (6) prices the grid (``p_r``, ``p_c``) and the reduction
+level (``comm_level``).
 """
 
 from __future__ import annotations
@@ -33,8 +39,9 @@ import hashlib
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.error_model import relative_error_bound
+from repro_torch.core.error_model import operator_grid, relative_error_bound
 from repro_torch.core.pareto import (ConfigRecord, optimal_config,
                                      pareto_front, rel_l2)
 from repro_torch.core.precision import (PrecisionConfig, all_configs,
@@ -84,6 +91,35 @@ def default_input(op, variant: str = "matvec", *, n_rhs: int = 4,
         else (rows, op.N_t, n_rhs)
     gen = torch.Generator(device=op.device).manual_seed(seed)
     return random_unrepresentable(gen, shape).to(op.io_dtype)
+
+
+_SPACES = {"matvec": ("m", "d"), "matmat": ("m", "d"),
+           "rmatvec": ("d", "m"), "rmatmat": ("d", "m"), "gram": ("m", "m")}
+
+
+class _GridHarness:
+    """A timing harness on a meshed operator: each rank feeds its shard of
+    the global input and reads the gathered global output, and a time is
+    the slowest rank's, so every rank's choices agree."""
+
+    def __init__(self, inner: TimingHarness, variant: str):
+        self.inner, self.variant = inner, variant
+        self.mode, self.timer = inner.mode, inner.timer
+
+    def _io(self, op, v):
+        space_in, space_out = _SPACES[self.variant]
+        return op.local_block(v, space_in), space_out
+
+    def run_once(self, op, v, variant):
+        x, space = self._io(op, v)
+        return op.gather_block(self.inner.run_once(op, x, variant), space)
+
+    def time(self, op, v, variant):
+        x, space = self._io(op, v)
+        out, t = self.inner.time(op, x, variant)
+        slowest = torch.tensor([t], dtype=torch.float64, device=op.device)
+        dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+        return op.gather_block(out, space), float(slowest)
 
 
 def _input_tag(v) -> str:
@@ -143,13 +179,18 @@ def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
     nothing executes) and raises :class:`repro_torch.analysis.
     PlanLintError` on an error finding before any timing is spent on it.
 
-    The mesh knobs ``p_r``, ``p_c`` and ``comm_level`` are not ported:
-    setting one raises.
+    The bound prices a process grid: ``p_r``/``p_c`` default to the
+    operator's ``grid_shape()`` (explicit values, an explicit (1, 1) too,
+    override it) and ``comm_level`` to the operator's reduction level; the
+    cache keys on both.  On a mesh every rank calls this together (see the
+    module head); tile refinement there waits for ROADMAP.md item 13b.
     """
-    if p_r is not None or p_c is not None or comm_level is not None:
-        raise NotImplementedError("autotune's p_r, p_c and comm_level wait "
-                                  "for ROADMAP.md queue 1 item 13 "
-                                  "(multi-GPU)")
+    p_r, p_c = operator_grid(op, p_r, p_c)
+    if comm_level is None:
+        comm_level = op.comm_level
+    if op.mesh is not None and tiles:
+        raise NotImplementedError("tile refinement on a meshed operator "
+                                  "waits for ROADMAP.md item 13b")
     if ladder is None:
         ladder = ("d", "s") if op.precision.highest() == "d" else ("s", "h")
     ladder = tuple(ladder)
@@ -159,6 +200,7 @@ def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
     top = max_level(ladder)
     base_cfg = PrecisionConfig(*([top] * 5))
     tile_shape = (2, 2) if tiles is True else (tuple(tiles) if tiles else None)
+    grid_kw = dict(p_r=p_r, p_c=p_c, comm_level=comm_level)
     if tile_shape is not None and \
             not op.opts.resolve(op.device).spec.tile_precision:
         tile_shape = None          # the backend gates tile precision off
@@ -182,7 +224,7 @@ def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
             input_tag=input_tag,
             synthetic_timer=(harness.timer if harness is not None
                              else timer) is not None,
-            tiles=tile_shape)
+            tiles=tile_shape, comm_level=comm_level)
         cached = cache.lookup_config(key, tol)
         if cached is not None:
             recs = cache.records(key)
@@ -198,6 +240,8 @@ def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
     if harness is None:
         harness = TimingHarness(repeats=repeats, warmup=warmup, mode=mode,
                                 timer=timer)
+    if op.mesh is not None:
+        harness = _GridHarness(harness, variant)
 
     # 1. baseline: timing reference + error reference + fallback selection.
     base_op = op.with_precision(base_cfg)
@@ -219,12 +263,12 @@ def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
         for phase, lvl, cfg in probe_configs(ladder):
             probe_errs.setdefault(phase, {})[lvl] = error_of(cfg)
         constants = calibrate_constants(probe_errs, op.N_t, op.N_d, op.N_m,
-                                        adjoint=adjoint,
+                                        p_r=p_r, p_c=p_c, adjoint=adjoint,
                                         variant=model_variant)
 
     # 3. model prune over the full lattice.
     bound_kw = dict(adjoint=adjoint, variant=model_variant, kappa=kappa,
-                    input_level=top, constants=constants)
+                    input_level=top, constants=constants, **grid_kw)
     report = prune_lattice(lattice, tol, op.N_t, op.N_d, op.N_m,
                            slack=slack, **bound_kw)
 

@@ -79,15 +79,26 @@ class CacheKey:
     def for_operator(cls, op, ladder: Sequence[str], variant: str = "matvec",
                      *, mode: str = "throughput", n_rhs: int | None = None,
                      input_tag: str = "", synthetic_timer: bool = False,
-                     tiles: tuple | None = None) -> "CacheKey":
+                     tiles: tuple | None = None,
+                     comm_level: str | None = None) -> "CacheKey":
         r = op.opts.resolve(op.device)
         detail = f"disp={r.table.force or 'auto'};mode={mode}"
+        if op.mesh is not None:
+            # the grid, the chunking and the lowering of the reductions
+            # change the measured time, not the error
+            p_r, p_c = op.grid_shape()
+            detail += f";grid={p_r}x{p_c};ov={r.overlap}"
+            if op.collective is not None:
+                detail += f";coll={op.collective}"
         if variant in ("matmat", "rmatmat"):
             detail += f";S={n_rhs}"
         if tiles is not None:
             # tile-enabled tunes explore a larger config space: their
             # selections never answer (or are answered by) a uniform tune
             detail += f";tiles={tiles[0]}x{tiles[1]}"
+        if comm_level is not None:
+            # reduced-precision communication changes the numbers measured
+            detail += f";comm={comm_level}"
         if input_tag:
             detail += f";in={input_tag}"
         if synthetic_timer:
@@ -127,6 +138,16 @@ def _valid_entry(entry) -> bool:
     return True
 
 
+def _valid_overlap(entry) -> bool:
+    """An overlap calibration's schema: an efficiency in [0, 1]."""
+    if not isinstance(entry, dict) or entry.get("version") != SCHEMA_VERSION:
+        return False
+    try:
+        return 0.0 <= float(entry["efficiency"]) <= 1.0
+    except (KeyError, TypeError, ValueError):
+        return False
+
+
 class TuningCache:
     """JSON-backed map ``CacheKey -> measured tuning entry``."""
 
@@ -152,12 +173,14 @@ class TuningCache:
 
     @staticmethod
     def _mergeable(key: str, entry) -> bool:
-        """Whether an entry is kept through a save: dispatch tables by
-        their schema, tuning entries by theirs."""
+        """Whether an entry is kept through a save: dispatch tables and
+        overlap calibrations by their schemas, tuning entries by theirs."""
         if key.startswith("dispatch/"):
             return (isinstance(entry, dict)
                     and entry.get("version") == SCHEMA_VERSION
                     and isinstance(entry.get("table"), dict))
+        if key.startswith("overlap/"):
+            return _valid_overlap(entry)
         return _valid_entry(entry)
 
     def save(self) -> None:
@@ -268,4 +291,35 @@ class TuningCache:
             "version": SCHEMA_VERSION,
             "backend": spec.fingerprint(),
             "table": table.to_dict(),
+        }
+
+    # -- overlap calibration -------------------------------------------------
+    # Measured overlap efficiencies (backend.calibrate_overlap) live beside
+    # the dispatch tables, keyed by the same backend fingerprint: the share
+    # of a chunk's reduction the next chunk's compute hides is a property
+    # of the fabric, measured once per backend.
+
+    @staticmethod
+    def _overlap_key(spec) -> str:
+        return f"overlap/{spec.fingerprint()}"
+
+    def get_overlap(self, spec) -> Optional[dict]:
+        """The overlap calibration stored for this backend, ``{"efficiency":
+        float in [0, 1], "chunks": int, "times": {...}}``, or None (a miss,
+        a stale schema version or a corrupt entry alike)."""
+        entry = self._load().get(self._overlap_key(spec))
+        return entry if _valid_overlap(entry) else None
+
+    def put_overlap(self, spec, efficiency: float, *, chunks: int,
+                    times: Optional[dict] = None) -> None:
+        eff = float(efficiency)
+        if not 0.0 <= eff <= 1.0:
+            raise ValueError(f"overlap efficiency {eff} outside [0, 1]")
+        self._load()[self._overlap_key(spec)] = {
+            "version": SCHEMA_VERSION,
+            "backend": spec.fingerprint(),
+            "efficiency": eff,
+            "chunks": int(chunks),
+            "times": {} if times is None else {k: float(v)
+                                               for k, v in times.items()},
         }

@@ -44,8 +44,9 @@ def probe_configs(ladder: Sequence[str]
 
 
 def calibrate_constants(probe_errors: Mapping[str, Mapping[str, float]],
-                        N_t: int, N_d: int, N_m: int, *,
-                        adjoint: bool = False, variant: str | None = None,
+                        N_t: int, N_d: int, N_m: int, *, p_r: int = 1,
+                        p_c: int = 1, adjoint: bool = False,
+                        variant: str | None = None,
                         defaults: Mapping[str, float] | None = None
                         ) -> dict[str, float]:
     """Fit the eq.-(6) constants from single-phase probe errors.
@@ -59,15 +60,21 @@ def calibrate_constants(probe_errors: Mapping[str, Mapping[str, float]],
     superposition ignores cancellation), which would over-prune: the
     autotuner compensates with a slack factor on the cutoff and a
     measured-error recheck of every surviving candidate.  Phases with no
-    usable probe keep their default constant."""
+    usable probe keep their default constant.
+
+    The reduce probe's error covers both pieces of the split phase-5
+    factor (the storage cast and the depth-log2(p) comm tree run at the
+    probed level together), so c5 is fitted against their sum."""
     c = {"c1": 1.0, "c2": 1.0, "c3": 1.0, "c4": 1.0, "c5": 1.0, "cF": 1.0}
     if defaults:
         c.update(defaults)
-    f = phase_factors(N_t, N_d, N_m, adjoint=adjoint, variant=variant)
+    f = phase_factors(N_t, N_d, N_m, p_r, p_c, adjoint=adjoint,
+                      variant=variant)
     for phase, name in PHASE_CONSTANTS.items():
-        ratios = [float(err) / (machine_eps(lvl) * f[phase])
+        factor = f[phase] + (f["comm"] if phase == "reduce" else 0.0)
+        ratios = [float(err) / (machine_eps(lvl) * factor)
                   for lvl, err in probe_errors.get(phase, {}).items()
-                  if machine_eps(lvl) * f[phase] > 0.0]
+                  if machine_eps(lvl) * factor > 0.0]
         if ratios:
             c[name] = max(ratios)
     return c
@@ -90,26 +97,29 @@ class PruneReport:
 
 
 def prune_lattice(configs: Iterable[PrecisionConfig], tol: float, N_t: int,
-                  N_d: int, N_m: int, *, adjoint: bool = False,
-                  variant: str | None = None, kappa: float = 1.0,
-                  input_level: str = "d",
+                  N_d: int, N_m: int, *, p_r: int = 1, p_c: int = 1,
+                  adjoint: bool = False, variant: str | None = None,
+                  kappa: float = 1.0, input_level: str = "d",
                   constants: Mapping[str, float] | None = None,
-                  slack: float = 1.0, tile_weights=None) -> PruneReport:
+                  slack: float = 1.0, comm_level: str | None = None,
+                  tile_weights=None) -> PruneReport:
     """Prune a config lattice with eq. (6) alone (no measurements).
 
     A config survives to the *frontier* iff its bound is within
     ``slack * tol`` and no strictly cheaper (lattice-order) config is also
     within the cutoff.  The config with the smallest bound is always kept
     feasible: it is the measurement baseline and the fallback selection.
-    ``tile_weights`` are the per-tile block-norm fractions for any
+    ``comm_level`` prices reduced-precision communication into every
+    bound; ``tile_weights`` are the per-tile block-norm fractions for any
     tile-mapped configs in the lattice (the tile-aware gemv term)."""
     if tol <= 0.0:
         raise ValueError(f"tolerance must be positive, got {tol}")
     configs = list(configs)
     if not configs:
         raise ValueError("empty config lattice")
-    bounds = lattice_bounds(configs, N_t, N_d, N_m, adjoint=adjoint,
-                            variant=variant, kappa=kappa,
+    bounds = lattice_bounds(configs, N_t, N_d, N_m, p_r=p_r, p_c=p_c,
+                            adjoint=adjoint, variant=variant, kappa=kappa,
+                            comm_level=comm_level,
                             input_level=input_level,
                             tile_weights=tile_weights,
                             constants=dict(constants) if constants else None)

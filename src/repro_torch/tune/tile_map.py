@@ -75,9 +75,11 @@ def tile_weights(norms) -> tuple:
 def derive_tile_map(cfg: PrecisionConfig, tol: float, N_t: int, N_d: int,
                     N_m: int, *, shape: tuple[int, int] = (2, 2),
                     weights: Optional[Sequence] = None,
-                    adjoint: bool = False, kappa: float = 1.0,
-                    input_level: str = "d", constants: dict | None = None,
-                    variant: str | None = None) -> Optional[TileMap]:
+                    p_r: int = 1, p_c: int = 1, adjoint: bool = False,
+                    kappa: float = 1.0, input_level: str = "d",
+                    constants: dict | None = None,
+                    variant: str | None = None,
+                    comm_level: str | None = None) -> Optional[TileMap]:
     """Lowest-precision tile map keeping the eq.-(6) bound within ``tol``.
 
     ``cfg`` is the (phase-uniform) base config; ``weights`` the per-cell
@@ -87,14 +89,15 @@ def derive_tile_map(cfg: PrecisionConfig, tol: float, N_t: int, N_d: int,
     the gemv level, or the re-evaluated tile-aware bound misses ``tol``."""
     if cfg.tiles is not None:
         cfg = cfg.replace(tiles=None)
-    bound_kw = dict(adjoint=adjoint, kappa=kappa, input_level=input_level,
-                    constants=constants, variant=variant)
+    bound_kw = dict(p_r=p_r, p_c=p_c, adjoint=adjoint, kappa=kappa,
+                    input_level=input_level, constants=constants,
+                    variant=variant, comm_level=comm_level)
     base = error_model.relative_error_bound(cfg, N_t, N_d, N_m, **bound_kw)
     if base > tol:
         return None
     R, C = shape
     w = error_model._normalized_weights(weights, (R, C))
-    f = error_model.phase_factors(N_t, N_d, N_m, adjoint=adjoint,
+    f = error_model.phase_factors(N_t, N_d, N_m, p_r, p_c, adjoint=adjoint,
                                   variant=variant)
     c3 = (constants or {}).get("c3", 1.0)
     amp = kappa ** 2 if variant in ("gram", "gram_data") else kappa
@@ -123,16 +126,19 @@ def derive_tile_map(cfg: PrecisionConfig, tol: float, N_t: int, N_d: int,
 
 def tile_map_for_operator(op, cfg: PrecisionConfig, tol: float, *,
                           shape: tuple[int, int] = (2, 2),
+                          p_r: int = 1, p_c: int = 1,
                           adjoint: bool = False, kappa: float = 1.0,
                           input_level: str = "d",
                           constants: dict | None = None,
-                          variant: str | None = None):
+                          variant: str | None = None,
+                          comm_level: str | None = None):
     """Block-norm analysis + derivation for a live ``FFTMatvec``.  Returns
     ``(tile_map_or_None, weights)``; the weights let the caller evaluate
     the matching tile-aware bound."""
     w = tile_weights(block_norms(op.F_hat_re, op.F_hat_im, shape))
     tiles = derive_tile_map(cfg, tol, op.N_t, op.N_d, op.N_m, shape=shape,
-                            weights=w, adjoint=adjoint, kappa=kappa,
-                            input_level=input_level, constants=constants,
-                            variant=variant)
+                            weights=w, p_r=p_r, p_c=p_c, adjoint=adjoint,
+                            kappa=kappa, input_level=input_level,
+                            constants=constants, variant=variant,
+                            comm_level=comm_level)
     return tiles, w

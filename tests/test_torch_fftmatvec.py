@@ -9,6 +9,7 @@ and satisfies the adjoint identity.
 """
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,9 +27,14 @@ from repro_torch.core import (FFTMatvec, NAMED_CONFIGS, PrecisionConfig,
                               phase_callables, rel_l2)
 from repro_torch.core import pipeline as tpipe
 from repro_torch.kernels import _build
+from repro_torch.configs.shapes import input_shard_specs
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
 
 SHAPE = (16, 4, 40)                    # N_t, N_d, N_m: short-wide, m*4 <= n
+# a stand-in mesh: the dims a grid reads (no process group behind it)
+_FAKE_MESH = types.SimpleNamespace(mesh_dim_names=("row", "col"),
+                                   shape=(1, 2))
 TOL = {"d": 1e-13, "s": 1e-5, "h": 2e-2}
 PALLAS_INTERPRET = JaxExecOpts(backend="cpu-interpret",
                                dispatch=JaxTable(force="pallas"),
@@ -198,15 +204,15 @@ def test_single_column_blocks_match_matvec(op_d, data):
 
 
 @pytest.mark.parametrize("call", [
-    # autotune(lint=True) runs since item 14 (tests/test_torch_tune.py);
-    # the operator's dry-run cell on a mesh waits for item 13
+    # the operator runs on a process grid since item 13a
+    # (tests/test_torch_mesh.py); the LM's sharding, the dry run's
+    # multi-pod meshes and tile refinement on a mesh wait for item 13b
     lambda op, m: dryrun.lower_fftmatvec_cell(mesh="pod16x16", op=op),
-    lambda op, m: op.autotune(1e-3, p_r=2),
-    lambda op, m: tpipe.run_stages((tpipe.Stage("psum", "d"),), m,
-                                   {"F": (op.F_hat_re, op.F_hat_im)},
-                                   N_t=op.N_t, opts=op.opts),
-    lambda op, m: FFTMatvec.from_block_column(np.zeros((2, 1, 1)),
-                                              device="cpu", mesh="auto"),
+    lambda op, m: make_production_mesh(),
+    lambda op, m: input_shard_specs(None, None, dp=("data",),
+                                    mesh_shape={"data": 2}),
+    lambda op, m: dataclasses.replace(op, mesh=_FAKE_MESH).autotune(
+        1e-3, tiles=True),
 ])
 def test_later_slices_raise_not_implemented(op_d, data, call):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

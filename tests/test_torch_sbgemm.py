@@ -344,3 +344,64 @@ def test_sbgemm_source_declares_its_entries():
         assert sig.count("void*") + sig.count("int*") == n_ptrs + 1  # + stream
         assert sig.count("int64_t") == n_sizes
         assert sig.count("int ") - 1 == n_ints            # - the return
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("mode", ["N", "T", "H"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_strided_views_take_the_contiguous_result(S, mode, dt):
+    """The untiled complex products take a chunk of A's rows (N) or
+    columns (T/H) as a view of the whole plane, with no copy; the plain
+    versions on such views equal the call on a contiguous copy bit for
+    bit (the card's kernels are held the same way by chip_smoke.py)."""
+    gen = torch.Generator().manual_seed(3)
+    B, m, n = 3, 9, 20
+    A_re, A_im = (torch.randn((B, m, n), generator=gen).to(dt)
+                  for _ in range(2))
+    if mode == "N":
+        views = [A.narrow(1, 2, 5) for A in (A_re, A_im)]
+        xlen = n
+    else:
+        views = [A.narrow(2, 7, 9) for A in (A_re, A_im)]
+        xlen = m
+    assert not views[0].is_contiguous()
+    shape = (B, xlen, S) if S > 1 else (B, xlen)
+    x_re, x_im = (torch.randn(shape, generator=gen).to(dt) for _ in range(2))
+    fn = tsb.sbgemm_n_complex if S > 1 else tsb.sbgemv_n_complex
+    if mode != "N":
+        fn = tsb.sbgemm_th_complex if S > 1 else tsb.sbgemv_th_complex
+    kw = {} if mode == "N" else {"conj": mode == "H"}
+    got = fn(*views, x_re, x_im, **kw)
+    want = fn(*(v.contiguous() for v in views), x_re, x_im, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # through the dispatch as the pipelined gemv calls it
+    op = ops.sbgemm if S > 1 else ops.sbgemv
+    for g, w in zip(op(*views, x_re, x_im, mode), want):
+        assert torch.equal(g, w)
+    assert tsb._a_strides(views[0]) == (m * n, n)
+
+
+def test_strided_entries_check_their_layout():
+    A = torch.zeros((2, 4, 6), dtype=torch.float64)
+    x = torch.zeros((2, 4), dtype=torch.float64)
+    cols = A.transpose(1, 2)                    # unit stride on the rows
+    with pytest.raises(ValueError, match="contiguous columns"):
+        tsb.sbgemv_th_complex(cols, cols, x[:, :1].expand(2, 6).contiguous(),
+                              x[:, :1].expand(2, 6).contiguous(), conj=True)
+    with pytest.raises(ValueError, match="differ in strides"):
+        tsb.sbgemv_th_complex(A[:, :, :3], A[:, :, :3].contiguous(), x, x,
+                              conj=True)
+    with pytest.raises(ValueError, match="contiguous planes"):
+        tsb.sbgemv_th_complex(A, A, x.T.contiguous().T, x, conj=True)
+    # the tiled and real entries take contiguous planes only
+    with pytest.raises(ValueError, match="contiguous planes"):
+        tsb.sbgemv_th_complex_tiled(A[:, :, :3], A[:, :, :3], x, x,
+                                    (("d",),), conj=True)
+    # a strided entry's sizes carry A's strides; its FLOPs count the shape
+    assert set(tsb.STRIDED_ENTRIES) <= {
+        e for entries in _build.ENTRIES.values() for e in entries}
+    assert _build.ENTRIES["sbgemv"]["sbgemv_n_complex"] == (6, 5, 3)
+    assert _build.ENTRIES["sbgemm"]["sbgemm_th_complex"] == (6, 6, 4)
+    assert tsb._flops("sbgemm_n_complex", (A, A, x, x),
+                      (2, 4, 6, 3, 24, 6), ()) == 8 * 2 * 4 * 6 * 3

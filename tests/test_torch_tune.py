@@ -21,6 +21,7 @@ import torch
 
 from repro.core import FFTMatvec as JaxFFTMatvec
 from repro.core import precision as jprec
+from repro.solvers import error_floor as jax_error_floor
 from repro.tune import autotune as jax_autotune
 from repro.tune import block_norms as jax_block_norms
 from repro.tune import derive_tile_map as jax_derive
@@ -30,6 +31,7 @@ from repro_torch.core import (FFTMatvec, PrecisionConfig, all_configs,
                               measure_configs, optimal_config)
 from repro_torch.core.error_model import relative_error_bound
 from repro_torch.examples import mixed_precision_pareto as example
+from repro_torch.solvers import error_floor
 from repro_torch.tune import (CacheKey, TimingHarness, TuningCache, autotune,
                               block_norms, default_input, derive_tile_map,
                               tile_map, tile_weights)
@@ -225,9 +227,32 @@ def test_operator_autotune_and_unported_knobs(monkeypatch):
                  timer=lambda cfg, fn, arg: timed.append(cfg) or 1.0)
     assert timed == []
     monkeypatch.undo()
-    for kw in ({"p_r": 2}, {"p_c": 1}, {"comm_level": "s"}):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            autotune(op, tol=1e-5, **kw)
+    # the mesh knobs price the grid and the reduction level as the JAX
+    # tuner does (whose comm level rides on its operator); explicit
+    # p_r/p_c override the operator's (1, 1), and the floor follows them
+    jop = JaxFFTMatvec.from_block_column(jnp.asarray(F), backend="cpu-xla")
+    m = torch.as_tensor(m)
+    # fixed eq.-(6) constants: the bounds are the model alone (calibrated
+    # ones carry each framework's measured roundoff)
+    consts = {"c1": 0.5, "c2": 0.5, "c3": 0.05, "c4": 0.5, "c5": 2.0,
+              "cF": 0.5}
+    for kw, comm in (({"p_r": 2}, None), ({"p_c": 4}, None),
+                     ({"p_r": 2, "p_c": 512}, None), ({}, "s"),
+                     ({"p_c": 8}, "h")):
+        tkw = dict(tol=1e-5, timer=_rank_timer, constants=consts, **kw)
+        res = autotune(op.with_comm(comm), v=m, **tkw)
+        jres = jax_autotune(jop.with_comm(comm), v=jnp.asarray(m.numpy()),
+                            **tkw)
+        assert res.config.to_string() == jres.config.to_string(), (kw, comm)
+        assert set(res.bounds) == set(jres.bounds)
+        for k, b in res.bounds.items():
+            assert b == pytest.approx(jres.bounds[k], rel=1e-13), (kw, k)
+        assert autotune(op, v=m, comm_level=comm,
+                        **tkw).bounds == res.bounds
+        assert error_floor(op.with_comm(comm), **kw) == pytest.approx(
+            jax_error_floor(jop.with_comm(comm), **kw), rel=1e-15)
+    assert error_floor(op, p_r=1, p_c=1) == error_floor(op)
+    assert error_floor(op, p_r=1, p_c=4096) > error_floor(op, p_r=1, p_c=6)
     for variant, shape in (("matvec", (24, 16)), ("rmatvec", (3, 16)),
                            ("rmatmat", (3, 16, 4)), ("gram", (24, 16))):
         v = default_input(op, variant)

@@ -56,8 +56,12 @@ gen = torch.Generator(device=dev).manual_seed(12)
 bf = torch.bfloat16
 
 
-def entry(source, name, tensors, sizes, levels=None):
+def entry(source, name, tensors, shape, ints, levels=None):
     fn = getattr(_build.library(source), name)
+    sizes = shape
+    if name in getattr(sk, "STRIDED_ENTRIES", ()):   # A's strides follow
+        sizes = (*sizes, *sk._a_strides(tensors[0]))
+    sizes = (*sizes, *ints)
     ptrs, grid = [t.data_ptr() for t in tensors], None
     if levels is not None:
         R, C, grid = sk._level_grid(levels)
@@ -98,13 +102,15 @@ for S in (1, 8, 32):
              for _ in range(2)]
         kind = "sbgemm" if S > 1 else "sbgemv"
         kname = f"{kind}_{'n' if mode == 'N' else 'th'}_complex"
-        sizes = (B, m, n) + ((S,) if S > 1 else ()) + ((1,) if mode == "H" else ())
+        shape = (B, m, n) + ((S,) if S > 1 else ())
+        ints = (1,) if mode == "H" else ()
         X = torch.cat([Xr.reshape(B, xlen, -1), Xi.reshape(B, xlen, -1)], dim=-1)
         lib = bmm_call(Ar, Ai, X, mode)
-        unt = entry(kind, kname, (Ar, Ai, Xr, Xi, *Y), sizes)
+        unt = entry(kind, kname, (Ar, Ai, Xr, Xi, *Y), shape, ints)
         row = {"untiled": queued(unt), "bmm": queued(lib)}
         for tname, lv in MAPS.items():
-            t = entry(kind, kname + "_tiled", (Ar, Ai, Xr, Xi, *Y), sizes, lv)
+            t = entry(kind, kname + "_tiled", (Ar, Ai, Xr, Xi, *Y), shape, ints,
+                      lv)
             row[tname] = queued(t)
             row[tname + "_again"] = queued(t)
         row["bmm_again"] = queued(lib)
@@ -118,8 +124,8 @@ for space, nn in (("data", n), ("parameter", 1000)):
     Ar2, Ai2 = Ar[:, :, :nn].contiguous(), Ai[:, :, :nn].contiguous()
     P = m if data else nn
     G = [torch.empty((B, P, P), device=dev, dtype=bf) for _ in range(2)]
-    sizes = (B, m, nn, int(data))
-    unt = entry("sbgemm", sk.gram_kernel_for(bf, data, P), (Ar2, Ai2, *G), sizes)
+    unt = entry("sbgemm", sk.gram_kernel_for(bf, data, P), (Ar2, Ai2, *G),
+                (B, m, nn), (int(data),))
     if data:
         As = torch.cat([Ar2, Ai2], dim=1)
         lib = lambda _: torch.bmm(As, As.mT)
@@ -128,7 +134,8 @@ for space, nn in (("data", n), ("parameter", 1000)):
         lib = lambda _: torch.bmm(As.mT, As)
     row = {"untiled": queued(unt), "bmm": queued(lib)}
     for tname, lv in MAPS.items():
-        t = entry("sbgemm", "sbgemm_gram_tiled", (Ar2, Ai2, *G), sizes, lv)
+        t = entry("sbgemm", "sbgemm_gram_tiled", (Ar2, Ai2, *G), (B, m, nn),
+                  (int(data),), lv)
         row[tname] = queued(t)
         row[tname + "_again"] = queued(t)
     row["bmm_again"] = queued(lib)
