@@ -2558,13 +2558,7 @@ def profiled_events(fn):
 def profiled_kernels(fn) -> list:
     """The names of the CUDA kernels one call of ``fn`` runs, from
     ``torch.profiler`` (empty where it shows no device activity)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    return profiled_events(fn)[0]
 
 
 # The ragged checks of the flash entries other than wgmma: (entry, dtype,
@@ -3444,17 +3438,6 @@ def _mesh_rank(rank, world, store, tmp, N_t, N_d, N_m, dev_type):
         y = _mesh_call(op, call, op.local_block(x[key], space_in))
         return op.gather_block(y, space_out)
 
-    def in_turns(make):
-        """``make()`` on one rank after another (each Phase 0 transiently
-        takes several times its shard's bytes on the shared card)."""
-        made = None
-        for turn in range(world):
-            if turn == rank:
-                made = make()
-                free(dev)
-            dist.barrier()
-        return made
-
     def check(what, got, want, tol):
         e = rel(got, want.to(got.device))
         if rank == 0:
@@ -3475,9 +3458,12 @@ def _mesh_rank(rank, world, store, tmp, N_t, N_d, N_m, dev_type):
                     # within 1e-15 of the serial one, a bf16 carrier within
                     # its level (the ring's fixed order keeps its bits)
                     chunk_tol = 1e-15 if level == "ddddd" else tol
-                    base = in_turns(lambda: FFTMatvec.from_block_column(
+                    # every rank runs its Phase 0 at once on the shared
+                    # card: each starts from an empty cache
+                    free(dev)
+                    base = FFTMatvec.from_block_column(
                         F_col, precision=PrecisionConfig.from_string(level),
-                        device=dev, mesh=mesh))
+                        device=dev, mesh=mesh)
                     want = refs[level]
                     for kind in MESH_KINDS:
                         ser = {}
@@ -3531,17 +3517,31 @@ def _mesh_rank(rank, world, store, tmp, N_t, N_d, N_m, dev_type):
                     eff = calibrate_overlap(H100, cache=TuningCache(
                         tmp / f"overlap{rank}.json"))
                     out["overlap_efficiency"] = eff
-                # the weak-scaled grid: N_m a rank, fftmatvec_grid's default;
-                # each rank draws the global column in its turn
+                # the weak-scaled grid: N_m a rank, fftmatvec_grid's default.
+                # Both ranks build at once, and a rank's Phase 0 here peaks
+                # at about four times the 8 GB it keeps
+                # (weak_build_peak_gb).  So the global column waits on the
+                # host, in f64 (Phase 0's precision: the card's draw
+                # exactly), and the card holds only each rank's shard; and
+                # each rank starts from an empty cache, as the blocks
+                # either rank cached from the grids above would leave the
+                # other too little of the card
                 mesh = make_test_mesh((1, world), ("row", "col"),
                                       device_type=dev.type)
-
-                def weak():
-                    F_col, inputs = _mesh_data(dev, N_t, N_d, N_m * world,
-                                               SEED + 39)
-                    return (FFTMatvec.from_block_column(F_col, device=dev,
-                                                        mesh=mesh), inputs)
-                op, x = in_turns(weak)
+                free(dev)
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(dev)
+                F_col, x = _mesh_data(dev, N_t, N_d, N_m * world, SEED + 39)
+                F_col = F_col.cpu().double()
+                free(dev)
+                op = FFTMatvec.from_block_column(F_col, device=dev, mesh=mesh)
+                del F_col
+                if dev.type == "cuda":
+                    out["weak_build_peak_gb"] = \
+                        torch.cuda.max_memory_allocated(dev) / 1e9
+                    out["weak_device_free_gb"] = \
+                        torch.cuda.mem_get_info(dev)[0] / 1e9
+                free(dev)
                 out["weak_fhat_gb_a_rank"] = 2 * op.F_hat_re.numel() * \
                     op.F_hat_re.element_size() / 1e9
                 for call in ("matvec", "rmatvec"):
@@ -3575,8 +3575,7 @@ def _mesh_nccl(dev, N_t, N_d, N_m, time_fn, out) -> None:
     DeviceMesh at the paper shape, every level of MESH_LEVELS, collective
     kind and overlap (None, 4) through matvec, rmatvec, matmat/rmatmat
     (S = 8) and the exact Gram in both spaces, each bit for bit the
-    single-device operator's; the profiler's kernels of one matvec and
-    one matmat; times beside the single-device operator."""
+    single-device operator's; times beside the single-device operator."""
     import tempfile
 
     import torch.distributed as dist
@@ -3635,47 +3634,10 @@ def _mesh_nccl(dev, N_t, N_d, N_m, time_fn, out) -> None:
             print(f"mesh NCCL, 1 rank: {len(rows)} (level, kind, overlap) "
                   f"cases, every entry point bit for bit the single-device "
                   f"operator", flush=True)
-            # the profiler: the NCCL calls and the SBGEMV/SBGEMM kernels.
-            # On one rank NCCL short-cuts a sum (ncclLaunchOneRank): in
-            # place it runs nothing on the device, out of place a copy;
-            # what is on record is the host side of each NCCL call
             op = FFTMatvec.from_block_column(F_col, device=dev, mesh=mesh)
             single = FFTMatvec.from_block_column(F_col, device=dev)
             del F_col
             if dev.type == "cuda":
-                for what, fn in (
-                        ("psum matvec", lambda: op.matvec(x["m"])),
-                        ("reduce_scatter matmat K=4",
-                         lambda: op.with_comm(None, "reduce_scatter")
-                         .with_overlap(4).matmat(x["M"])),
-                        ("psum rmatvec K=4",
-                         lambda: op.with_overlap(4).rmatvec(x["d"]))):
-                    device, host = profiled_events(fn)
-                    calls = sorted(k for k in host if "nccl" in k.lower())
-                    nccl_dev = [k for k in device if "nccl" in k.lower()
-                                or "memcpy" in k.lower()]
-                    gemv = sorted({re.search(r"(\w+_kernel)", k).group(1)
-                                   for k in device
-                                   if "sbgemv" in k or "zgemm" in k})
-                    out.setdefault("profiler", {})[what] = {
-                        "nccl_calls": calls, "nccl_device_work": nccl_dev,
-                        "gemv_kernels": gemv, "device_events": device}
-                    print(f"mesh NCCL, 1 rank, profiler {what}: NCCL calls "
-                          f"{calls}, their device work {nccl_dev or 'none'}, "
-                          f"SBGEMV/SBGEMM kernels {gemv}; {len(device)} "
-                          f"device event names", flush=True)
-                    if not gemv:
-                        # the launch counters above gate the kernels; this
-                        # is what the profiler saw of them
-                        print(f"  the profiler's device events: "
-                              f"{[k[:60] for k in device]}", flush=True)
-                    if not calls:
-                        fail(f"the profiler saw no NCCL call in the meshed "
-                             f"{what}")
-                if not any(r["gemv_kernels"]
-                           for r in out["profiler"].values()):
-                    fail("the profiler saw no SBGEMV/SBGEMM kernel in any "
-                         "meshed call")
                 times = out["nccl_ms"] = {}
                 for what, fn, arg in (
                         ("single matvec", single.matvec, x["m"]),
@@ -3696,12 +3658,106 @@ def _mesh_nccl(dev, N_t, N_d, N_m, time_fn, out) -> None:
     free(dev)
 
 
+def _mesh_profile(rank, store, tmp, N_t, N_d, N_m):
+    """The profiler's view of three meshed calls on one NCCL rank, in a
+    fresh process (spawned): each call once, then each profiled; the
+    device and host event names go to ``profile.json``.  In the script's
+    own process, after the phases before this one, the profiler lost the
+    records of some kernels of a call (the SBGEMV among them)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import FFTMatvec
+    tmp = pathlib.Path(tmp)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("row", "col"))
+        F_col, x = _mesh_data(dev, N_t, N_d, N_m, SEED + 19, S=S_BLOCK)
+        op = FFTMatvec.from_block_column(F_col, device=dev, mesh=mesh)
+        del F_col
+        calls = {"psum matvec": lambda: op.matvec(x["m"]),
+                 "reduce_scatter matmat K=4":
+                     lambda: op.with_comm(None, "reduce_scatter")
+                     .with_overlap(4).matmat(x["M"]),
+                 "psum rmatvec K=4": lambda: op.with_overlap(4).rmatvec(x["d"])}
+        for fn in calls.values():
+            fn()
+        sync(dev)
+        seen = {what: profiled_events(fn) for what, fn in calls.items()}
+        (tmp / "profile.json").write_text(json.dumps(seen))
+    except BaseException:
+        import traceback
+        (tmp / f"profile_{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(fn, args, nprocs: int, tmp: pathlib.Path, tag: str) -> None:
+    """``fn(rank, *args)`` in ``nprocs`` spawned processes (CUDA is live in
+    this one, so never forked), joined within MESH_JOIN_S; a rank that
+    fails fails the run, after every rank's ``<tag>_<rank>.err`` is
+    printed, and none is left running."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                fail(f"{nprocs} spawned {tag} ranks did not finish in "
+                     f"{MESH_JOIN_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException):
+        for err in sorted(tmp.glob(f"{tag}_*.err")):
+            print(f"{err.name}:\n{err.read_text()}", flush=True)
+        raise
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+
+
+def check_mesh_profile(tmp: pathlib.Path, out: dict) -> None:
+    """Gate :func:`_mesh_profile`'s records: every profiled call shows its
+    NCCL calls and an SBGEMV/SBGEMM kernel.  On one rank NCCL short-cuts a
+    sum (ncclLaunchOneRank): in place it runs nothing on the device, out
+    of place a copy, so what is on record is the host side of each NCCL
+    call and, as its device work, that copy."""
+    seen = json.loads((tmp / "profile.json").read_text())
+    for what, (device, host) in seen.items():
+        calls = sorted(k for k in host if "nccl" in k.lower())
+        nccl_dev = [k for k in device
+                    if "nccl" in k.lower() or "memcpy" in k.lower()]
+        gemv = sorted({re.search(r"(\w+_kernel)", k).group(1)
+                       for k in device if "sbgemv" in k or "zgemm" in k})
+        out.setdefault("profiler", {})[what] = {
+            "nccl_calls": calls, "nccl_device_work": nccl_dev,
+            "gemv_kernels": gemv, "device_events": device}
+        print(f"mesh NCCL, 1 rank, profiler {what} (a fresh process): NCCL "
+              f"calls {calls}, their device work {nccl_dev or 'none'}, "
+              f"SBGEMV/SBGEMM kernels {gemv}; {len(device)} device event "
+              f"names", flush=True)
+        if not gemv:
+            print(f"  the profiler's device events: "
+                  f"{[k[:60] for k in device]}", flush=True)
+            fail(f"the profiler saw no SBGEMV/SBGEMM kernel in the meshed "
+                 f"{what}")
+        if not calls:
+            fail(f"the profiler saw no NCCL call in the meshed {what}")
+
+
 def drive_mesh(dev, N_t, N_d, N_m, time_fn, report) -> None:
     """The operator on a 2-D process grid, checked on the one card (NCCL
     refuses two ranks on one GPU, so this checks correctness, not fabric
     speed):
 
-    1. one NCCL rank in this process (:func:`_mesh_nccl`);
+    1. one NCCL rank in this process (:func:`_mesh_nccl`), and the
+       profiler's view of three meshed calls on one NCCL rank in a fresh
+       process (:func:`_mesh_profile`, :func:`check_mesh_profile`);
     2. 4 ranks ((2, 2) and (1, 4)), then 2 ranks ((1, 2), (2, 1)),
        sharing the card over gloo, spawned, each running the hand-written
        kernels on its shard (:func:`_mesh_rank`), the assembled outputs
@@ -3712,8 +3768,6 @@ def drive_mesh(dev, N_t, N_d, N_m, time_fn, report) -> None:
     Times are printed labelled "NCCL, 1 rank" or "gloo on one card", with
     the card's name and power limit: they are not fabric numbers."""
     import tempfile
-
-    import torch.multiprocessing as mp
 
     from repro_torch.core import DOUBLE, FFTMatvec, PrecisionConfig
     t_start = time.perf_counter()
@@ -3750,36 +3804,36 @@ def drive_mesh(dev, N_t, N_d, N_m, time_fn, report) -> None:
         torch.save(refs, tmp / "refs.pt")
         del refs
         free(dev)
+        if dev.type == "cuda":
+            _spawn_ranks(_mesh_profile, (str(tmp / "store_profile"),
+                                         str(tmp), N_t, N_d, N_m),
+                         1, tmp, "profile")
+            check_mesh_profile(tmp, out)
         ranks = out["gloo"] = {}
+        if dev.type == "cuda":
+            out["parent_allocated_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+            out["card_free_gb"] = torch.cuda.mem_get_info(dev)[0] / 1e9
+            print(f"mesh: this process holds "
+                  f"{out['parent_allocated_gb']:.2f} GB of the card while "
+                  f"the gloo ranks run; {out['card_free_gb']:.2f} GB free",
+                  flush=True)
         for world in (4, 2):
             t0 = time.perf_counter()
-            ctx = mp.start_processes(
-                _mesh_rank, args=(world, str(tmp / f"store{world}"), str(tmp),
-                                  N_t, N_d, N_m, dev.type),
-                nprocs=world, join=False, start_method="spawn")
-            deadline = time.monotonic() + MESH_JOIN_S
-            try:
-                while not ctx.join(timeout=1.0):
-                    if time.monotonic() > deadline:
-                        fail(f"{world} gloo ranks did not finish in "
-                             f"{MESH_JOIN_S} s")
-            except (mp.ProcessRaisedException, mp.ProcessExitedException):
-                for err in sorted(tmp.glob(f"rank{world}_*.err")):
-                    print(f"{err.name}:\n{err.read_text()}", flush=True)
-                raise
-            finally:
-                for p in ctx.processes:
-                    if p.is_alive():
-                        p.kill()
-                        p.join(5)
+            _spawn_ranks(_mesh_rank, (world, str(tmp / f"store{world}"),
+                                      str(tmp), N_t, N_d, N_m, dev.type),
+                         world, tmp, f"rank{world}")
             per = [json.loads((tmp / f"rank{world}_{r}.json").read_text())
                    for r in range(world)]
             ranks[world] = {"seconds": time.perf_counter() - t0,
                             "ranks": per}
             for r, info in enumerate(per):
+                weak = (f"; weak-scaled build peak "
+                        f"{info['weak_build_peak_gb']:.2f} GB, card free "
+                        f"after it {info['weak_device_free_gb']:.2f} GB"
+                        if "weak_build_peak_gb" in info else "")
                 print(f"mesh gloo {world} ranks, rank {r}: launches "
                       f"{info['launches']}, collectives "
-                      f"{info['collectives']}", flush=True)
+                      f"{info['collectives']}{weak}", flush=True)
                 staged = info["collectives"].get("collective:host_staged", 0)
                 if dev.type == "cuda" and not staged:
                     fail(f"gloo rank {r} staged no collective through host "

@@ -109,11 +109,11 @@ def axis_groups(mesh, specs) -> dict:
     return out
 
 
-def _auto_mesh(shape, row_axis, col_axis, device, grid=None, net=None):
+def _auto_mesh(shape, row_axis, col_axis, device):
     """The comm-aware 2-D ``DeviceMesh`` of ``mesh="auto"`` over the
-    default process group's ranks: ``grid`` (p_r, p_c) pins it (e.g.
-    ``partition.paper_grid(p)``), else :func:`choose_grid` under ``net``
-    (default :class:`NetworkModel`)."""
+    default process group's ranks: :func:`choose_grid` under the default
+    :class:`NetworkModel`.  A caller that wants another grid passes its
+    own ``DeviceMesh``."""
     from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_initialized():
         raise RuntimeError("mesh='auto' builds its grid over the default "
@@ -123,10 +123,7 @@ def _auto_mesh(shape, row_axis, col_axis, device, grid=None, net=None):
         raise ValueError("mesh='auto' needs single row/col axis names")
     p = dist.get_world_size()
     N_t, N_d, N_m = shape
-    if grid is None:
-        grid = choose_grid(p, N_t, N_d, N_m, net=net or NetworkModel())
-    if grid[0] * grid[1] != p:
-        raise ValueError(f"grid {grid[0]}x{grid[1]} does not tile {p} ranks")
+    grid = choose_grid(p, N_t, N_d, N_m, net=NetworkModel())
     return init_device_mesh(device.type, tuple(grid),
                             mesh_dim_names=(row_axis, col_axis))
 
@@ -164,15 +161,14 @@ class FFTMatvec:
     def from_block_column(cls, F_col, precision=PrecisionConfig(),
                           opts=ExecOpts(), device=None, backend=None,
                           mesh=None, row_axis="row", col_axis="col",
-                          comm_level=None, collective=None, grid=None,
-                          net=None) -> "FFTMatvec":
+                          comm_level=None, collective=None) -> "FFTMatvec":
         """Phase-0 setup in f64 (paper §3.2.1), storing F_hat at the gemv
         level.  ``F_col`` is a numpy array or a tensor (N_t, N_d, N_m);
         ``device=None`` means the card.  ``backend`` is folded into
         ``opts`` (a spec or a registered name such as ``"torch-ref"``).
 
         ``mesh`` is a 2-D ``DeviceMesh`` or ``"auto"`` (:func:`choose_grid`
-        over the world size under ``net``, ``grid`` pinning (p_r, p_c)).
+        over the world size).
         Every rank passes the same global ``F_col`` and runs Phase 0 on its
         own (N_t, N_d/p_r, N_m/p_c) block only; the grid must divide N_d
         and N_m.  ``row_axis``/``col_axis`` may be tuples of mesh dims
@@ -183,8 +179,7 @@ class FFTMatvec:
         if isinstance(mesh, str):
             if mesh != "auto":
                 raise ValueError(f"unknown mesh spec {mesh!r}")
-            mesh = _auto_mesh(tuple(F_col.shape), row_axis, col_axis, device,
-                              grid=grid, net=net)
+            mesh = _auto_mesh(tuple(F_col.shape), row_axis, col_axis, device)
         op = cls(None, None, F_col.shape[0], precision, opts, mesh,
                  row_axis, col_axis, comm_level, collective)
         if mesh is not None:

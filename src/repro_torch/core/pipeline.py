@@ -348,12 +348,6 @@ def _start_collective(kind: str, out: torch.Tensor, inp: torch.Tensor,
     return done
 
 
-def ring_permutation(g: int) -> Tuple[Tuple[int, int], ...]:
-    """The ring over a group of ``g`` ranks: rank i forwards to rank
-    (i + 1) mod g, a single cycle through every rank."""
-    return tuple((i, (i + 1) % g) for i in range(g))
-
-
 def _ring_hop(t: torch.Tensor, group, dst: int, src: int) -> torch.Tensor:
     """Send ``t`` to group rank ``dst`` and return what group rank ``src``
     sent this rank (one hop of the ring)."""
@@ -382,7 +376,7 @@ def _ring_all_reduce(q: torch.Tensor, group, g: int) -> torch.Tensor:
     if g <= 1:
         return q
     me = dist.get_rank(group)
-    nxt, prv = ring_permutation(g)[me][1], (me - 1) % g
+    nxt, prv = (me + 1) % g, (me - 1) % g
     parts, cur = [q], q
     for _ in range(g - 1):
         cur = _ring_hop(cur, group, nxt, prv)
@@ -642,19 +636,11 @@ def _gemv_tiles(cfg: PrecisionConfig, operand: str = "F"):
     return prec.TileMap(cfg.tiles.effective(cfg.gemv))
 
 
-def _psum_stage(level: str, axis, collective: str,
-                groups: Optional[Tuple[int, ...]],
-                comm_level: Optional[str]) -> Stage:
-    return Stage("psum", comm_level or level, axis=axis,
-                 collective=collective, groups=groups)
-
-
 def matvec_plan(cfg: PrecisionConfig, *, adjoint: bool = False,
                 operand: str = "F", psum_axis=None,
                 collective: str = "psum",
                 psum_groups: Optional[Tuple[int, ...]] = None,
-                comm_level: Optional[str] = None,
-                pipelined: bool = True) -> Plan:
+                comm_level: Optional[str] = None) -> Plan:
     """The 5-phase matvec pipeline as a plan (paper §2.4).
 
     Forward (``d = F m``) and adjoint (``m = F* d``) differ only in the
@@ -664,10 +650,10 @@ def matvec_plan(cfg: PrecisionConfig, *, adjoint: bool = False,
     slow-to-fast tuple) is the axis the local contraction was partial in:
     the plan then ends in its reduction, lowered per ``collective`` at
     ``comm_level`` (None: the reduce level), ``psum_groups`` the device
-    count of each axis.  With ``pipelined`` (the default) the gemv and its
-    reduction are one ``gemv_psum`` super-stage carrying the tail between
-    them, chunked or not per ``ExecOpts.overlap``; ``pipelined=False``
-    keeps the flat serial stage list.
+    count of each axis.  The gemv and its reduction are then one
+    ``gemv_psum`` super-stage carrying the tail between them, chunked or
+    not per ``ExecOpts.overlap`` (None runs its constituent stages in
+    order, the serial schedule).
     """
     head = (
         Stage("pad", cfg.pad),
@@ -683,16 +669,11 @@ def matvec_plan(cfg: PrecisionConfig, *, adjoint: bool = False,
     )
     if psum_axis is None:
         return head + (gemv,) + tail
-    if pipelined:
-        return head + (Stage("gemv_psum", cfg.gemv, adjoint=adjoint,
-                             operand=operand,
-                             tile_map=_gemv_tiles(cfg, operand),
-                             axis=psum_axis, collective=collective,
-                             groups=psum_groups,
-                             comm=comm_level or cfg.reduce, body=tail),)
-    return head + (gemv,) + tail + (
-        _psum_stage(cfg.reduce, psum_axis, collective, psum_groups,
-                    comm_level),)
+    return head + (Stage("gemv_psum", cfg.gemv, adjoint=adjoint,
+                         operand=operand, tile_map=_gemv_tiles(cfg, operand),
+                         axis=psum_axis, collective=collective,
+                         groups=psum_groups, comm=comm_level or cfg.reduce,
+                         body=tail),)
 
 
 def gram_plan(cfg: PrecisionConfig, *, space: str = "parameter",
@@ -700,8 +681,7 @@ def gram_plan(cfg: PrecisionConfig, *, space: str = "parameter",
               collective: str = "psum",
               mid_psum_groups: Optional[Tuple[int, ...]] = None,
               psum_groups: Optional[Tuple[int, ...]] = None,
-              comm_level: Optional[str] = None,
-              pipelined: bool = True) -> Plan:
+              comm_level: Optional[str] = None) -> Plan:
     """The fused Fourier-domain Gram pipeline (Hessian actions, Remark 1).
 
     ``space="parameter"`` builds F*F (CGNR's normal operator),
@@ -722,15 +702,15 @@ def gram_plan(cfg: PrecisionConfig, *, space: str = "parameter",
     On a mesh ``mid_psum_axis`` completes the first contraction and
     ``psum_axis`` the second, as in :func:`matvec_plan` (the mid reduction
     defaults to the reorder level between the gemv it completes and the
-    ifft); ``pipelined`` fuses each gemv with the reduction it feeds (the
-    mid one with an empty body).
+    ifft); each gemv is fused with the reduction it feeds into a
+    ``gemv_psum`` super-stage (the mid one with an empty body).
     """
     if space not in ("parameter", "data"):
         raise ValueError(f"unknown gram space {space!r}")
     if mode == "circulant":
         return matvec_plan(cfg, operand="G", psum_axis=psum_axis,
                            collective=collective, psum_groups=psum_groups,
-                           comm_level=comm_level, pipelined=pipelined)
+                           comm_level=comm_level)
     if mode != "exact":
         raise ValueError(f"unknown gram mode {mode!r}")
     # parameter space runs F then F* (first gemv forward), data space F*
@@ -742,7 +722,7 @@ def gram_plan(cfg: PrecisionConfig, *, space: str = "parameter",
         Stage("fft", cfg.fft),
         Stage("reorder", cfg.reorder_level("fft", "gemv"), to_tosi=True),
     ]
-    if mid_psum_axis is not None and pipelined:
+    if mid_psum_axis is not None:
         stages.append(Stage("gemv_psum", cfg.gemv, adjoint=first_adjoint,
                             tile_map=_gemv_tiles(cfg), axis=mid_psum_axis,
                             collective=collective, groups=mid_psum_groups,
@@ -750,9 +730,6 @@ def gram_plan(cfg: PrecisionConfig, *, space: str = "parameter",
     else:
         stages.append(Stage("gemv", cfg.gemv, adjoint=first_adjoint,
                             tile_map=_gemv_tiles(cfg)))
-        if mid_psum_axis is not None:
-            stages.append(_psum_stage(mid_level, mid_psum_axis, collective,
-                                      mid_psum_groups, comm_level))
     stages += [
         Stage("reorder", mid_level, to_tosi=False),
         Stage("ifft", cfg.ifft),
@@ -769,12 +746,7 @@ def gram_plan(cfg: PrecisionConfig, *, space: str = "parameter",
     )
     if psum_axis is None:
         return tuple(stages) + (gemv2,) + tail
-    if pipelined:
-        return tuple(stages) + (Stage(
-            "gemv_psum", cfg.gemv, adjoint=not first_adjoint,
-            tile_map=_gemv_tiles(cfg), axis=psum_axis,
-            collective=collective, groups=psum_groups,
-            comm=comm_level or cfg.reduce, body=tail),)
-    return tuple(stages) + (gemv2,) + tail + (
-        _psum_stage(cfg.reduce, psum_axis, collective, psum_groups,
-                    comm_level),)
+    return tuple(stages) + (Stage(
+        "gemv_psum", cfg.gemv, adjoint=not first_adjoint,
+        tile_map=_gemv_tiles(cfg), axis=psum_axis, collective=collective,
+        groups=psum_groups, comm=comm_level or cfg.reduce, body=tail),)
