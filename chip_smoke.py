@@ -3317,6 +3317,54 @@ GLOO_LEVELS = ("ddddd", "hhhhh")
 GLOO_GRIDS = {4: ((2, 2), (1, 4)), 2: ((1, 2), (2, 1))}
 GLOO_S = 4                 # the gloo part's block of right-hand sides
 MESH_JOIN_S = 300          # seconds a spawn of ranks may take
+# slice 20, the solve path on the grid: the one-rank NCCL solves' fixed
+# iterations; the gloo ranks' solves (S, iteration budget, and per level
+# the solver precision, the stopping tolerance and the tolerance of the
+# assembled x against the single-device solve: 1e-9 at d; at hhhhh with
+# hss the h level's, TOL["h"], for both.  Below it a bf16 operator's CGNR
+# iterates are noise: a (2, 2) grid's x and one device's, both at relres
+# 4e-5, were 0.53-0.56 apart in CPU rehearsals at tol 1e-4, 1.65-1.84e-2
+# at 2e-2; LSQR's 5e-3 at either)
+NCCL_SOLVE_ITERS = 20
+GLOO_SOLVE_S = 2
+GLOO_SOLVE_ITERS = 20
+GLOO_SOLVES = {"ddddd": ("ddd", 1e-6, 1e-9),
+               "hhhhh": ("hss", TOL["h"], TOL["h"])}
+GLOO_SOLVE_DAMPS = {"lsqr": 0.1, "cgnr": 0.01}     # drive_solvers' damps
+GLOO_TILED = TILED_CONFIGS[0]   # applied on the (2, 2) grid
+MESH_SERVE_SIZES = (1, 16)      # SolveEngine on 2 gloo ranks, fig6's mix
+# the gloo engine's x against the single-device engine's: a few times the
+# 2.2e-6 it read at sssss (PR 30's chip run), with equal iterations
+GLOO_ENGINE_X_TOL = 1e-5
+
+
+def engine_rows(S) -> tuple:
+    """(the kernels a SolveEngine serve of S coalesced requests must
+    launch, those it must not): the SBGEMVs at S = 1, the SBGEMMs above,
+    pad and unpad at both.  S may come back from a rank's JSON as a
+    string."""
+    gemv = ["sbgemv_n_complex", "sbgemv_th_complex"]
+    gemm = ["sbgemm_n_complex", "sbgemm_th_complex"]
+    rows, other = (gemv, gemm) if int(S) == 1 else (gemm, gemv)
+    return rows + ["pad_cast", "unpad_cast"], other
+
+
+def check_engine_launches(what: str, S: int, launches: dict) -> None:
+    """Gate one SolveEngine serve's launches by :func:`engine_rows`."""
+    want, other = engine_rows(S)
+    check_launched(launches, want)
+    if any(launches.get(k, 0) for k in other):
+        fail(f"{what} S={S}: launched {launches}, none of {other} expected")
+
+
+def cost_timer(cfg, fn, arg):
+    """A cost-model "time" (``cost_rank``, ties broken by the config's
+    hash; tests/test_torch_tune.py): two engines tuned under it choose
+    from their measured errors alone, so a meshed engine and a
+    single-device one can be held to the same config."""
+    import hashlib
+    h = int(hashlib.sha1(cfg.to_string().encode()).hexdigest()[:6], 16)
+    return 1e-3 * cfg.cost_rank() + 1e-8 * (h / 0xFFFFFF)
 
 
 def check_strided_kernels(dev) -> dict:
@@ -3402,6 +3450,210 @@ def _mesh_call(op, call: str, v):
     if call == "gram_d":
         return op.gram("data").apply(v)
     return getattr(op, call)(v)
+
+
+def _tiled_oracle(dev, F_col, x, grid):
+    """GLOO_TILED's matvec and rmatvec on one device with F_hat rounded
+    through the map's cells per local block of ``grid`` (each rank's
+    gemv rounds its own block: ``kernels/ref.py``), the untiled plan
+    after: what the tiled config on that grid must give."""
+    from repro_torch.core import FFTMatvec, PrecisionConfig
+    from repro_torch.kernels import ref
+    cfg = PrecisionConfig.from_string(GLOO_TILED)
+    op = FFTMatvec.from_block_column(F_col, precision=cfg.replace(tiles=None),
+                                     device=dev)
+    levels = cfg.tiles.effective(cfg.gemv)
+    _, N_d, N_m = F_col.shape
+    nd, nm = N_d // grid[0], N_m // grid[1]
+    for r in range(grid[0]):
+        for c in range(grid[1]):
+            blk = (slice(None), slice(r * nd, (r + 1) * nd),
+                   slice(c * nm, (c + 1) * nm))
+            q = ref.quantize_tile_cells(levels, op.F_hat_re[blk],
+                                        op.F_hat_im[blk])
+            op.F_hat_re[blk], op.F_hat_im[blk] = q
+    out = {"matvec": op.matvec(x["m"]).cpu(),
+           "rmatvec": op.rmatvec(x["d"]).cpu()}
+    del op
+    free(dev)
+    return out
+
+
+def _solve_refs(dev, F_col, x) -> dict:
+    """The single-device results the gloo ranks' solve path is held
+    against: GLOO_SOLVES' lsqr and cgnr, GLOO_TILED on the (2, 2)
+    partition, and SolveEngine (tuned under ``cost_timer``) serving
+    fig6's mix at MESH_SERVE_SIZES, with the requests it served."""
+    import dataclasses
+
+    from repro_torch import solvers
+    from repro_torch.core import FFTMatvec, PrecisionConfig
+    from repro_torch.core.precision import DOUBLE
+    from repro_torch.core.timing import TimingHarness
+    from repro_torch.examples import fig6_serve
+    from repro_torch.runtime import SolveEngine
+    refs = {"solves": {}, "engine": {}}
+    D = x["D"][..., :GLOO_SOLVE_S]
+    for level, (sp, tol, _) in GLOO_SOLVES.items():
+        op = FFTMatvec.from_block_column(
+            F_col, precision=PrecisionConfig.from_string(level), device=dev)
+        refs["solves"][level] = {}
+        for what, fn in (("lsqr", solvers.lsqr),
+                         ("cgnr", solvers.cg_normal_equations)):
+            r = fn(op, D, damp=GLOO_SOLVE_DAMPS[what], tol=tol,
+                   maxiter=GLOO_SOLVE_ITERS, precision=sp)
+            refs["solves"][level][what] = {"x": r.x.cpu(),
+                                           "col_iters": r.col_iters.tolist()}
+        del op
+        free(dev)
+    refs["tiled"] = _tiled_oracle(dev, F_col, x, (2, 2))
+    op = FFTMatvec.from_block_column(F_col, precision=DOUBLE, device=dev)
+    eng = SolveEngine(op, harness=TimingHarness(timer=cost_timer),
+                      max_batch=max(MESH_SERVE_SIZES))
+    for S in MESH_SERVE_SIZES:
+        reqs = fig6_serve.make_requests(op, S, SOLVER_ITERS, damp=SOLVE_DAMP)
+        refs["engine"][S] = {
+            "reqs": [dataclasses.replace(r, d_obs=r.d_obs.cpu())
+                     for r in reqs],
+            "out": [(o.uid, o.config, o.x.cpu(), o.n_iters)
+                    for o in eng.serve(reqs)]}
+    del op, eng
+    free(dev)
+    return refs
+
+
+def _gloo_solve_path(world, dev, F_col, x, refs, out) -> None:
+    """The solve path on the gloo ranks (spawned, sharing the card), on
+    (2, 2) with 4 ranks and (1, 2) with 2: for each GLOO_SOLVES level,
+    ``lsqr`` and ``cg_normal_equations`` fed this rank's shards, the
+    assembled x against the single-device solve, every rank's
+    ``col_iters`` written for the parent to compare, and the kernels the
+    solves launched on this rank.  With 4 ranks also GLOO_TILED's apply
+    against its per-block oracle, and the counted bytes of a meshed
+    matvec, serial (host staging raw bytes only, never floor bytes; the
+    collective bytes the plan's); with 2 ranks
+    SolveEngine serving MESH_SERVE_SIZES requests (the first serve, which
+    tunes, untimed), the outcomes against the single-device engine's
+    (GLOO_ENGINE_X_TOL, the same iterations) and the timed serve's
+    launches on this rank."""
+    import dataclasses
+
+    from repro_torch import solvers
+    from repro_torch.core import FFTMatvec, PrecisionConfig
+    from repro_torch.core.precision import DOUBLE
+    from repro_torch.core.timing import TimingHarness
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.roofline import OpCounter, plan_collective_bytes
+    from repro_torch.runtime import SolveEngine, operator_fingerprint
+    grid = (2, 2) if world == 4 else (1, 2)
+    g = f"{grid[0]}x{grid[1]}"
+    mesh = make_test_mesh(grid, ("row", "col"), device_type=dev.type)
+    res = out["solve_path"] = {"grid": g, "solves": {}}
+
+    def launched(before):
+        sync(dev)
+        return {k: v - before.get(k, 0) for k, v in
+                _build.launch_counts.items() if v - before.get(k, 0)}
+
+    D = x["D"][..., :GLOO_SOLVE_S]
+    for level, (sp, tol, x_tol) in GLOO_SOLVES.items():
+        free(dev)
+        op = FFTMatvec.from_block_column(
+            F_col, precision=PrecisionConfig.from_string(level), device=dev,
+            mesh=mesh)
+        for what, fn in (("lsqr", solvers.lsqr),
+                         ("cgnr", solvers.cg_normal_equations)):
+            before = dict(_build.launch_counts)
+            r = fn(op, op.local_block(D, "d"), damp=GLOO_SOLVE_DAMPS[what],
+                   tol=tol, maxiter=GLOO_SOLVE_ITERS, precision=sp)
+            want = refs["solves"][level][what]
+            e = rel(op.gather_block(r.x, "m"), want["x"].to(dev))
+            res["solves"][f"{level} {sp} {what}"] = {
+                "x_rel": e, "x_tol": x_tol, "col_iters": r.col_iters.tolist(),
+                "single_col_iters": want["col_iters"],
+                "relres": r.final_relres.tolist(),
+                "launches": launched(before)}
+            if not e <= x_tol:
+                raise AssertionError(f"{g} {level} {sp} {what}: x rel "
+                                     f"{e:.3e} > {x_tol:g}")
+        del op
+    free(dev)
+    if world == 4:
+        op = FFTMatvec.from_block_column(
+            F_col, precision=PrecisionConfig.from_string(GLOO_TILED),
+            device=dev, mesh=mesh)
+        before = dict(_build.launch_counts)
+        ys = {"matvec": op.gather_block(
+                  op.matvec(op.local_block(x["m"], "m")), "d"),
+              "rmatvec": op.gather_block(
+                  op.rmatvec(op.local_block(x["d"], "d")), "m")}
+        tiled = res["tiled"] = {"launches": launched(before)}
+        for call, y in ys.items():
+            tiled[call] = rel(y, refs["tiled"][call].to(dev))
+            if not tiled[call] <= TOL["d"]:
+                raise AssertionError(f"{g} {GLOO_TILED} {call}: rel "
+                                     f"{tiled[call]:.3e} against its oracle")
+        del op, ys
+        free(dev)
+        # the serial schedule: a chunked one reads the gemv's input once
+        # a chunk, floor bytes of its own
+        op = FFTMatvec.from_block_column(F_col, precision=DOUBLE, device=dev,
+                                         mesh=mesh).with_overlap(None)
+        local = dataclasses.replace(op, mesh=None, groups=None)
+        m = op.local_block(x["m"], "m")
+        counted = {}
+        for tag, o in (("meshed", op), ("local", local)):
+            with OpCounter() as c:
+                o.matvec(m)
+            counted[tag] = c
+        res["counted_matvec"] = {
+            tag: {"raw": c.raw_bytes, "floor": c.floor_bytes,
+                  "collective": c.collectives.total_bytes}
+            for tag, c in counted.items()}
+        res["counted_matvec"]["plan_collective"] = plan_collective_bytes(op)
+        if counted["meshed"].floor_bytes != counted["local"].floor_bytes or \
+                counted["meshed"].collectives.total_bytes != \
+                plan_collective_bytes(op):
+            raise AssertionError(f"{g} counted matvec: "
+                                 f"{res['counted_matvec']}")
+        del op, local
+        free(dev)
+    else:
+        op = FFTMatvec.from_block_column(F_col, precision=DOUBLE, device=dev,
+                                         mesh=mesh)
+        eng = SolveEngine(op, harness=TimingHarness(timer=cost_timer),
+                          max_batch=max(MESH_SERVE_SIZES))
+        res["fingerprint"] = operator_fingerprint(op)
+        serve = res["engine"] = {}
+        for S in MESH_SERVE_SIZES:
+            reqs = refs["engine"][S]["reqs"]
+            if not serve:
+                eng.serve(reqs)                  # tunes: untimed
+            sync(dev)
+            before = dict(_build.launch_counts)
+            t0 = time.perf_counter()
+            got = eng.serve(reqs)
+            sync(dev)
+            dt = time.perf_counter() - t0
+            want = refs["engine"][S]["out"]
+            errs = [rel(o.x, w[2].to(dev)) for o, w in zip(got, want)]
+            serve[S] = {"seconds": dt, "requests_per_s": S / dt,
+                        "config": got[0].config,
+                        "iters": [o.n_iters for o in got],
+                        "single_iters": [w[3] for w in want],
+                        "x_rel_max": max(errs), "x_tol": GLOO_ENGINE_X_TOL,
+                        "launches": launched(before)}
+            for o, w, e in zip(got, want, errs):
+                if o.uid != w[0] or o.config != w[1] or not o.converged or \
+                        o.n_iters != w[3] or not e < GLOO_ENGINE_X_TOL:
+                    raise AssertionError(
+                        f"{g} SolveEngine S={S} request {o.uid}: "
+                        f"{o.config}, {o.n_iters} iterations, x rel {e:.3e}; "
+                        f"single-device {w[1]}, {w[3]}")
+        res["engine_stats"] = dict(eng.stats)
+        del op, eng
+        free(dev)
 
 
 def _mesh_rank(rank, world, store, tmp, N_t, N_d, N_m, dev_type):
@@ -3508,6 +3760,8 @@ def _mesh_rank(rank, world, store, tmp, N_t, N_d, N_m, dev_type):
                                     time_callable(base.with_overlap(K).matvec,
                                                   m_loc, 5, warmup=2)
                     del base
+            # slice 20: the solve path on the grid
+            _gloo_solve_path(world, dev, F_col, x, refs, out)
             del F_col, x
             if world == 2:
                 # calibrate_overlap's real measurement, in a cache of its own
@@ -3568,6 +3822,102 @@ def _mesh_rank(rank, world, store, tmp, N_t, N_d, N_m, dev_type):
         raise
     finally:
         dist.destroy_process_group()
+
+
+def _nccl_solves(dev, mesh, F_col, x, out) -> None:
+    """The solve path on the one-rank NCCL mesh at the paper shape
+    (ddddd): ``lsqr`` and ``cg_normal_equations`` (S = S_BLOCK,
+    NCCL_SOLVE_ITERS fixed iterations, drive_solvers' damps) and ``pcg``
+    on the exact parameter Gram, each bit for bit the single-device solve
+    (a one-rank all-reduce is the identity), the meshed solves launching
+    rows 1-2 and 7-8 (``lsqr`` the counts drive_solvers checks); then
+    ``SolveEngine`` on the mesh against the single-device engine (both
+    tuned under ``cost_timer``, then serving again): the same config and
+    outcomes, bit for bit, the meshed engine's second serve launching
+    :func:`engine_rows`."""
+    import numpy as np
+
+    from repro_torch import solvers
+    from repro_torch.core import FFTMatvec
+    from repro_torch.core.timing import TimingHarness
+    from repro_torch.examples import fig6_serve
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import SolveEngine
+    single = FFTMatvec.from_block_column(F_col, device=dev)
+    meshed = FFTMatvec.from_block_column(F_col, device=dev, mesh=mesh)
+    n = NCCL_SOLVE_ITERS
+
+    def pcg(op):
+        gram = op.gram("parameter")
+        return solvers.pcg(lambda v: gram.apply(v) + 0.01 * v, x["M"],
+                           tol=0.0, maxiter=n, group=op.dot_group("m"))
+
+    runs = {"lsqr": lambda op: solvers.lsqr(op, x["D"], damp=0.1, tol=0.0,
+                                            maxiter=n),
+            "cgnr": lambda op: solvers.cg_normal_equations(
+                op, x["D"], damp=0.01, tol=0.0, maxiter=n),
+            "pcg": pcg}
+    rows = out["nccl_solves"] = {}
+    for what, solve in runs.items():
+        want = solve(single)
+        _build.reset_launch_counts()
+        got = solve(meshed)
+        sync(dev)
+        launches = dict(_build.launch_counts)
+        same = (torch.equal(bits(got.x), bits(want.x))
+                and np.array_equal(got.residual_history,
+                                   want.residual_history)
+                and np.array_equal(got.col_iters, want.col_iters)
+                and got.n_iters == want.n_iters == n)
+        rows[what] = {"bit_for_bit": same, "launches": launches,
+                      "final_relres_max": float(got.final_relres.max())}
+        # a CPU rehearsal's plain contraction may sum a chunk otherwise
+        if not same and rel(got.x, want.x) > _rehearsal_tol(
+                dev, "ddddd", meshed.opts.overlap):
+            fail(f"NCCL 1 rank {what}: not bit for bit the single-device "
+                 f"solve (x rel {rel(got.x, want.x):.3e})")
+        if dev.type == "cuda":
+            check_launched(launches, ["sbgemm_n_complex", "sbgemm_th_complex",
+                                      "pad_cast", "unpad_cast"])
+            if what == "lsqr":
+                check_launches(launches, {"sbgemm_n_complex": n,
+                                          "sbgemm_th_complex": n + 1,
+                                          "pad_cast": 2 * n + 1,
+                                          "unpad_cast": 2 * n + 1})
+        del got, want
+    reqs = fig6_serve.make_requests(single, 4, SOLVER_ITERS, damp=SOLVE_DAMP)
+    served = []
+    for op in (single, meshed):
+        eng = SolveEngine(op, harness=TimingHarness(timer=cost_timer),
+                          max_batch=4)
+        eng.serve(reqs)                          # tunes
+        sync(dev)
+        _build.reset_launch_counts()
+        served.append(eng.serve(reqs))
+        sync(dev)
+    # the meshed engine's second serve: the solve alone
+    rows["engine_launches"] = launches = dict(_build.launch_counts)
+    if dev.type == "cuda":
+        check_engine_launches("NCCL 1 rank SolveEngine", len(reqs), launches)
+    for a, b in zip(*served):
+        if (a.uid, a.config, a.n_iters, a.converged) != \
+                (b.uid, b.config, b.n_iters, b.converged) or (
+                    not torch.equal(bits(a.x), bits(b.x))
+                    and rel(b.x, a.x) > _rehearsal_tol(
+                        dev, "ddddd", meshed.opts.overlap)):
+            fail(f"NCCL 1 rank SolveEngine: request {b.uid} served "
+                 f"{b.config} in {b.n_iters} iterations, the single-device "
+                 f"engine {a.config} in {a.n_iters}")
+    rows["engine"] = {"config": served[1][0].config,
+                      "iters": [o.n_iters for o in served[1]]}
+    print(f"mesh NCCL, 1 rank: lsqr, cgnr and pcg ({n} iterations, S="
+          f"{S_BLOCK}) bit for bit the single-device solves, meshed launches "
+          f"{ {k: rows[k]['launches'] for k in runs} }; SolveEngine on the "
+          f"mesh served {len(reqs)} requests as the single-device engine "
+          f"({rows['engine']['config']}, iterations "
+          f"{rows['engine']['iters']}), its second serve launching "
+          f"{launches}", flush=True)
+    del single, meshed, served
 
 
 def _mesh_nccl(dev, N_t, N_d, N_m, time_fn, out) -> None:
@@ -3634,6 +3984,9 @@ def _mesh_nccl(dev, N_t, N_d, N_m, time_fn, out) -> None:
             print(f"mesh NCCL, 1 rank: {len(rows)} (level, kind, overlap) "
                   f"cases, every entry point bit for bit the single-device "
                   f"operator", flush=True)
+            free(dev)
+            _nccl_solves(dev, mesh, F_col, x, out)
+            free(dev)
             op = FFTMatvec.from_block_column(F_col, device=dev, mesh=mesh)
             single = FFTMatvec.from_block_column(F_col, device=dev)
             del F_col
@@ -3750,6 +4103,66 @@ def check_mesh_profile(tmp: pathlib.Path, out: dict) -> None:
             fail(f"the profiler saw no NCCL call in the meshed {what}")
 
 
+def check_solve_path(dev, ranks, out) -> None:
+    """Gate and print the gloo ranks' solve path (:func:`_gloo_solve_path`):
+    every rank's ``col_iters`` the same, every rank's solves launching
+    rows 1-2 and 7-8 (and the tiled config rows 12-13), one fingerprint
+    on every rank, every rank's timed ``SolveEngine`` serve launching
+    :func:`engine_rows` (rows 1-4 at S = 1, rows 1-2 and 7-8 at S = 16);
+    the requests/s labelled "gloo on one card"."""
+    rows = out["solve_path"] = {}
+    for world, info in ranks.items():
+        per = [r["solve_path"] for r in info["ranks"]]
+        g = per[0]["grid"]
+        rows[g] = per[0]
+        for key, first in per[0]["solves"].items():
+            if any(p["solves"][key]["col_iters"] != first["col_iters"]
+                   for p in per):
+                fail(f"gloo {g} {key}: the ranks' col_iters differ: "
+                     f"{[p['solves'][key]['col_iters'] for p in per]}")
+            print(f"mesh gloo {g} {key}: x rel {first['x_rel']:.3e} (<= "
+                  f"{first['x_tol']:g}) against one device, col_iters "
+                  f"{first['col_iters']} on every rank (one device "
+                  f"{first['single_col_iters']})", flush=True)
+            for p in per:
+                if dev.type == "cuda":
+                    check_launched(p["solves"][key]["launches"], [
+                        "sbgemm_n_complex", "sbgemm_th_complex", "pad_cast",
+                        "unpad_cast"])
+        if "tiled" in per[0]:
+            t = per[0]["tiled"]
+            print(f"mesh gloo {g} {GLOO_TILED}: matvec rel {t['matvec']:.3e}"
+                  f", rmatvec {t['rmatvec']:.3e} against the oracle rounded "
+                  f"per local block; launches on each rank "
+                  f"{[p['tiled']['launches'] for p in per]}", flush=True)
+            for p in per:
+                if dev.type == "cuda":
+                    check_launched(p["tiled"]["launches"], [
+                        "sbgemv_n_complex_tiled", "sbgemv_th_complex_tiled"])
+            print(f"mesh gloo {g} counted ddddd matvec, rank 0: "
+                  f"{per[0]['counted_matvec']} (the collective bytes the "
+                  f"plan's; floor bytes as this rank's blocks alone)",
+                  flush=True)
+        if "engine" in per[0]:
+            fps = {p["fingerprint"] for p in per}
+            if len(fps) != 1:
+                fail(f"gloo {g} SolveEngine: fingerprints differ: {fps}")
+            for S, e in per[0]["engine"].items():
+                print(f"mesh gloo {g} SolveEngine S={S}: "
+                      f"{e['requests_per_s']:.3f} requests/s (gloo on one "
+                      f"card, {out['smi']}; not a fabric number), config "
+                      f"{e['config']}, iterations {min(e['iters'])}-"
+                      f"{max(e['iters'])} as one device, x rel max "
+                      f"{e['x_rel_max']:.3e} (< {e['x_tol']:g}); the timed "
+                      f"serve's launches on each rank "
+                      f"{[p['engine'][S]['launches'] for p in per]}",
+                      flush=True)
+                for p in per:
+                    if dev.type == "cuda":
+                        check_engine_launches(f"gloo {g} SolveEngine", S,
+                                              p["engine"][S]["launches"])
+
+
 def drive_mesh(dev, N_t, N_d, N_m, time_fn, report) -> None:
     """The operator on a 2-D process grid, checked on the one card (NCCL
     refuses two ranks on one GPU, so this checks correctness, not fabric
@@ -3794,6 +4207,7 @@ def drive_mesh(dev, N_t, N_d, N_m, time_fn, report) -> None:
             refs[level] = {c: _mesh_call(op, c, x[MESH_CALLS[c][0]]).cpu()
                            for c in MESH_CALLS}
             del op
+        refs.update(_solve_refs(dev, F_col, x))
         del F_col, x
         F_col, x = _mesh_data(dev, N_t, N_d, 2 * N_m, SEED + 39)
         op = FFTMatvec.from_block_column(F_col, precision=DOUBLE, device=dev)
@@ -3856,6 +4270,7 @@ def drive_mesh(dev, N_t, N_d, N_m, time_fn, report) -> None:
                       f"it; {out['smi']}; ms): "
                       + json.dumps({k: round(v, 4) for k, v in
                                     per[0]["times"].items()}), flush=True)
+        check_solve_path(dev, ranks, out)
         eff = ranks[2]["ranks"][0].get("overlap_efficiency")
         if eff is not None:
             print(f"mesh calibrate_overlap efficiency {eff:.4f} (gloo staged "
@@ -4804,6 +5219,80 @@ def drive_dryrun(report) -> None:
         fail(f"dry-run cells failed (rc {rc}): {failed}")
 
 
+def roofline_mesh(dev, N_t, N_d, N_m) -> dict:
+    """F and F* of the ddddd operator on a one-rank NCCL mesh (gloo in a
+    CPU rehearsal) at the paper shape, counted by ``OpCounter`` beside
+    the single-device operator: the ``c10d`` bytes are the plan's
+    reduction operands (``plan_collective_bytes``), priced in the
+    collective term at ``backend.H100.link_bandwidth``; the floor bytes
+    are the single-device operator's (a reduction moves no HBM floor
+    bytes)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.backend import H100
+    from repro_torch.core import FFTMatvec, random_block_column
+    from repro_torch.launch.roofline import (OpCounter, plan_collective_bytes,
+                                             roofline_terms)
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh(dev.type, (1, 1),
+                                    mesh_dim_names=("row", "col"))
+            gen = torch.Generator(device=dev).manual_seed(SEED + 79)
+            F_col = random_block_column(gen, N_t, N_d, N_m)
+            ops = {"single": FFTMatvec.from_block_column(F_col, device=dev),
+                   "meshed": FFTMatvec.from_block_column(F_col, device=dev,
+                                                         mesh=mesh)}
+            del F_col
+            v = {False: torch.randn((N_m, N_t), generator=gen, device=dev,
+                                    dtype=torch.float64),
+                 True: torch.randn((N_d, N_t), generator=gen, device=dev,
+                                   dtype=torch.float64)}
+            for adjoint in (False, True):
+                c = {}
+                for tag, op in ops.items():
+                    with OpCounter() as c[tag]:
+                        (op.rmatvec if adjoint else op.matvec)(v[adjoint])
+                coll = c["meshed"].collectives
+                want = plan_collective_bytes(ops["meshed"], adjoint=adjoint)
+                terms = roofline_terms(c["meshed"].cost(), coll,
+                                       bytes_floor=c["meshed"].floor_bytes)
+                name_ = "Fstar" if adjoint else "F"
+                rows[name_] = {
+                    "collective_bytes": coll.total_bytes,
+                    "collective_counts": coll.counts, "plan_bytes": want,
+                    "collective_ms": terms["collective_s"] * 1e3,
+                    "floor_bytes": c["meshed"].floor_bytes,
+                    "single_floor_bytes": c["single"].floor_bytes,
+                    "bound_ms": terms["step_time_bound_s"] * 1e3,
+                    "bound_by": terms["dominant"]}
+                print(f"roofline meshed ddddd {name_} (one NCCL rank): "
+                      f"c10d {coll.counts}, {coll.total_bytes} B (the plan's "
+                      f"{want}), collective term "
+                      f"{rows[name_]['collective_ms']:.4f} ms at "
+                      f"{H100.link_bandwidth / 1e9:.0f} GB/s; floor "
+                      f"{c['meshed'].floor_bytes} B (single device "
+                      f"{c['single'].floor_bytes}); bound "
+                      f"{rows[name_]['bound_ms']:.4f} ms "
+                      f"({terms['dominant']})", flush=True)
+                if coll.total_bytes != want or want <= 0 or \
+                        c["meshed"].floor_bytes != c["single"].floor_bytes \
+                        or terms["collective_s"] != \
+                        want / H100.link_bandwidth:
+                    fail(f"roofline meshed {name_}: {rows[name_]}")
+            del ops, v
+        finally:
+            dist.destroy_process_group()
+    free(dev)
+    return rows
+
+
 def drive_roofline(dev, N_t, N_d, N_m, time_fn, report):
     """The roofline phase.  (a) F and F* at the paper shape for ddddd,
     sssss and hhhhh, run once under ``launch.roofline.OpCounter`` (the
@@ -4881,6 +5370,7 @@ def drive_roofline(dev, N_t, N_d, N_m, time_fn, report):
                          f"expected 8 K N_d N_m")
         del op
         free(dev)
+    out["fftmatvec_mesh"] = roofline_mesh(dev, N_t, N_d, N_m)
 
     if full:
         # the flash kernel reports from its launch (it is no custom op)
@@ -4971,10 +5461,14 @@ def drive_roofline(dev, N_t, N_d, N_m, time_fn, report):
     print(f"roofline phase: {out['seconds']:.1f} s", flush=True)
 
 
+MESH_PLANS = ("matvec-hier", "matvec-ring", "rmatvec-ring", "gram-mesh")
+
+
 def drive_lint(dev, N_t, N_d, N_m, report):
     """The plan linter: ``python -m repro_torch.analysis`` at the paper
     shape over every registered backend (on the card ``h100`` too) exits
-    0; the ``h100`` matvec trace holds one node per kernel call (pad, the
+    0, its mesh plans (MESH_PLANS, one rank of a 2 x 4 grid over a fake
+    process group) clean in every cell; the ``h100`` matvec trace holds one node per kernel call (pad, the
     SBGEMV, unpad), the kernels' custom ops; the reference's seeded bad
     plan (an ``unpad`` that downgrades its output,
     ``tests/test_analysis.py``) makes the CLI exit nonzero."""
@@ -4997,6 +5491,16 @@ def drive_lint(dev, N_t, N_d, N_m, report):
     if r.returncode != 0:
         fail(f"python -m repro_torch.analysis exited {r.returncode}:\n"
              f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    # the mesh plans (slice 20): one clean line each a backend and config
+    ok = [line.split() for line in r.stdout.splitlines()
+          if line.startswith("ok ")]
+    n_single = sum(1 for w in ok if w[1] == "matvec")
+    mesh_ok = {p: sum(1 for w in ok if w[1] == p) for p in MESH_PLANS}
+    out["mesh_plans_clean"] = mesh_ok
+    print(f"lint sweep mesh plans clean: {mesh_ok} ({n_single} backend x "
+          f"config cells)", flush=True)
+    if not n_single or any(n != n_single for n in mesh_ok.values()):
+        fail(f"the lint sweep's mesh plans: {mesh_ok}, {n_single} cells")
     if dev.type == "cuda":
         ctx = analysis.PlanContext.from_plan(
             matvec_plan(DOUBLE), ExecOpts(backend="h100"), N_t=N_t, N_d=N_d,

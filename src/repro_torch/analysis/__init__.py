@@ -21,8 +21,9 @@ Entry points: :func:`lint_plan` / :func:`assert_plan_clean` for plans,
 and ``python -m repro_torch.analysis`` to sweep the paper-shape plan
 families across the registered backends.
 
-Twin of ``src/repro/analysis``; the mesh rules and mesh plans wait for
-item 13b (multi-GPU).
+Twin of ``src/repro/analysis``, its mesh rules and mesh plans included:
+a mesh plan traces as one rank of its grid (``context.PlanContext.
+grid``).
 """
 
 from typing import List, Optional
@@ -52,9 +53,12 @@ def lint_operator(op, *, adjoint: Optional[bool] = None,
     ``op`` is a :class:`repro_torch.core.FFTMatvec` (both directions by
     default; pass ``adjoint=True/False`` for one) or a
     :class:`repro_torch.core.gram.GramOperator`.  The plans trace on fake
-    planes on the operator's device (on the card: its kernels' nodes).
+    planes on the operator's device (on the card: its kernels' nodes); a
+    meshed operator's over its own process groups, every rank at once
+    (under fake tensors the collectives communicate nothing).
     """
-    dims = dict(N_t=op.N_t, N_d=op.N_d, N_m=op.N_m, device=op.device)
+    dims = dict(N_t=op.N_t, N_d=op.N_d, N_m=op.N_m, device=op.device,
+                groups=getattr(op, "op", op).groups)
     if hasattr(op, "rows"):                      # GramOperator
         # the circulant mode's square "G" operand has op.rows rows; exact
         # mode derives its rows from the plan

@@ -1,13 +1,14 @@
 """``python -m repro_torch.analysis``: lint the paper plan families.
 
 Sweeps the paper-shape plan matrix (single-device matvec forward and
-adjoint, exact and circulant Gram) across the registered backends and
-precision configs, entirely by abstract tracing: the sweep runs in
-seconds with no device memory at N_m = 5000.  A CUDA backend's plans
-trace only where a card is present (``context.traceable``); without one
-the sweep says so and skips them.  The reference's mesh plans (the
-hierarchical 2-D grid, the ppermute rings, the mesh Gram) wait for item
-13.
+adjoint, exact and circulant Gram, the hierarchical 2-D-grid matvec, the
+ring schedules of F and F*, and the mesh Gram) across the registered
+backends and precision configs, entirely by abstract tracing: the sweep
+runs in seconds with no device memory at N_m = 5000.  The mesh plans
+trace as one rank of the reference's 2 x 4 grid over a fake process
+group (``context.PlanContext.grid``).  A CUDA backend's plans trace only
+where a card is present (``context.traceable``); without one the sweep
+says so and skips them.
 
 Exit status 1 when any error-severity finding fires (``--strict``
 promotes warnings).  ``--json`` emits one machine-readable report;
@@ -30,6 +31,10 @@ from .context import traceable
 from .findings import ERROR, Finding
 from .rules import lint_plan, rule_catalog
 
+# the reference's grid for the mesh plans: 2 x 4 (its measured
+# BENCH_fig4 leg); the paper and smoke dims both tile it
+GRID_ROW, GRID_COL = 2, 4
+
 DEFAULT_CONFIGS = ("ddddd", "dssdd", "sssss")
 
 
@@ -40,6 +45,19 @@ def plan_matrix(cfg: PrecisionConfig) -> Dict[str, Tuple[Plan, dict]]:
         "rmatvec": (matvec_plan(cfg, adjoint=True), {}),
         "gram": (gram_plan(cfg), {}),
         "gram-circulant": (gram_plan(cfg, mode="circulant"), {}),
+        "matvec-hier": (matvec_plan(
+            cfg, psum_axis=("row", "col"), collective="hierarchical",
+            psum_groups=(GRID_ROW, GRID_COL)), {}),
+        "matvec-ring": (matvec_plan(
+            cfg, psum_axis="col", collective="ring",
+            psum_groups=(GRID_COL,)), {}),
+        "rmatvec-ring": (matvec_plan(
+            cfg, adjoint=True, psum_axis="row", collective="ring",
+            psum_groups=(GRID_ROW,)), {}),
+        "gram-mesh": (gram_plan(
+            cfg, mid_psum_axis="col", psum_axis="row",
+            mid_psum_groups=(GRID_COL,), psum_groups=(GRID_ROW,),
+            collective="hierarchical"), {}),
     }
 
 

@@ -13,15 +13,27 @@ the whole traced plan:
 * no device transfers inside a plan body (a ``_to_copy`` to another
   device is a host round trip on the hot path).
 
-Twin of ``src/repro/analysis/invariants.py``.  Its four mesh rules
-(``collective-stage-valid``, ``collective-fallback``,
-``ring-permutation``, ``comm-restores-carrier``) judge the collective
-stages of mesh plans: they wait for item 13b.
+and four over the collective stages of mesh plans:
+
+* collective stages name non-duplicate axes with positive groups, and a
+  comm level only where a reduction consumes it;
+* a requested reduce-scatter or ring that lowers to the flat all-reduce
+  is surfaced (the executor's ``:fallback`` counters);
+* the ring's traced send and receive hops form one Hamiltonian cycle
+  over its group;
+* every reduction restores the carrier's dtype after a reduced-precision
+  collective.
+
+Twin of ``src/repro/analysis/invariants.py``.
 """
 
 from __future__ import annotations
 
-from .context import PlanContext, float_level, node_val, op_name
+from typing import Sequence, Tuple
+
+from repro_torch.core import precision as prec
+
+from .context import DATA_KINDS, PlanContext, float_level, node_val, op_name
 from .findings import ERROR, WARNING, Finding
 from .rules import rule
 
@@ -121,4 +133,166 @@ def check_convert_round_trips(ctx: PlanContext):
             out.append(Finding(
                 "convert-round-trip", WARNING,
                 f"no-op convert chain at {a}", detail=path))
+    return out
+
+
+@rule("collective-stage-valid", "invariants",
+      "collective stages name non-duplicate axes with positive static "
+      "groups; comm levels only appear where they apply")
+def check_collective_stages(ctx: PlanContext):
+    out = []
+    for idx, s in ctx.stages("psum", "gemv_psum"):
+        axes = s.axes
+        if not axes:
+            out.append(Finding(
+                "collective-stage-valid", ERROR,
+                f"{s.kind} stage has no mesh axis to reduce over",
+                stage=idx))
+            continue
+        if len(set(axes)) != len(axes):
+            out.append(Finding(
+                "collective-stage-valid", ERROR,
+                f"duplicate mesh axes in collective axis tuple {axes}",
+                stage=idx))
+        if s.groups is not None and any(g < 1 for g in s.groups):
+            out.append(Finding(
+                "collective-stage-valid", ERROR,
+                f"non-positive static group size in {s.groups}",
+                stage=idx))
+        if s.collective in ("reduce_scatter", "ring") and s.groups is None:
+            out.append(Finding(
+                "collective-stage-valid", WARNING,
+                f"{s.collective!r} requested without static groups — "
+                f"the lowering cannot build its schedule and will fall "
+                f"back to the flat all-reduce",
+                stage=idx))
+    for idx, s in ctx.stages(*DATA_KINDS):
+        if s.comm is not None:
+            out.append(Finding(
+                "collective-stage-valid", WARNING,
+                f"comm level set on a {s.kind!r} stage — only the "
+                f"gemv_psum super-stage consumes it",
+                stage=idx))
+    return out
+
+
+@rule("collective-fallback", "invariants",
+      "a requested reduce_scatter/ring decomposition that lowers to the "
+      "flat all-reduce is surfaced, not silent")
+def check_collective_fallback(ctx: PlanContext):
+    # the executor's own fallback counters, recorded while the trace ran
+    # the stage loop, are the ground truth (pipeline._psum_start)
+    wanted = {s.collective for _, s in ctx.stages("psum")
+              if s.collective in ("reduce_scatter", "ring")}
+    if not wanted:
+        return []
+    counters = ctx.trace_counters
+    out = []
+    for kind in sorted(wanted):
+        n = counters.get(f"collective:{kind}:fallback", 0)
+        if n:
+            out.append(Finding(
+                "collective-fallback", WARNING,
+                f"plan requests collective={kind!r} but {n} stage "
+                f"lowering(s) fell back to the flat all-reduce (a "
+                f"mis-sized carrier or missing static groups) — see the "
+                f"'collective:{kind}:fallback' counter"))
+    return out
+
+
+def _ring_findings(perm: Sequence[Tuple[int, int]], g: int,
+                   where: str) -> list:
+    """Validate a permutation as one Hamiltonian ring over g ranks: every
+    rank once a source and once a destination, and the edges from rank 0
+    visiting all g ranks."""
+    srcs = [src for src, _ in perm]
+    dsts = [dst for _, dst in perm]
+    if sorted(srcs) != list(range(g)) or sorted(dsts) != list(range(g)):
+        return [Finding(
+            "ring-permutation", ERROR,
+            f"permutation does not cover every rank of the {g}-group "
+            f"exactly once as source and destination — partials are "
+            f"dropped or double-counted",
+            detail=f"{where}: perm={list(perm)}")]
+    step = dict(perm)
+    seen, r = set(), 0
+    while r not in seen:
+        seen.add(r)
+        r = step[r]
+    if len(seen) != g:
+        return [Finding(
+            "ring-permutation", ERROR,
+            f"permutation splits the {g}-group into disjoint cycles "
+            f"(visited {len(seen)} of {g} ranks from rank 0) — the ring "
+            f"reduction never sees the missing ranks' partials",
+            detail=f"{where}: perm={list(perm)}")]
+    return []
+
+
+@rule("ring-permutation", "invariants",
+      "the send/receive hops of a ring form one Hamiltonian cycle over the "
+      "minor-axis group, each receive matching a send")
+def check_ring_permutation(ctx: PlanContext):
+    # the peers of the traced c10d send / recv_ nodes, hop by hop: on the
+    # fake grid every rank of the group (the whole permutation, as the
+    # reference's traced ppermute eqns carry it); over an operator's own
+    # groups this rank alone, held to the step the canonical-order sum
+    # assumes (send to me + 1, receive from me - 1)
+    out = []
+    for idx, s in ctx.stages("psum"):
+        if s.collective != "ring" or not s.groups:
+            continue
+        g = s.groups[-1]
+        hops = ctx.ring_hops(s)
+        found = []
+        for k in range(max((len(h) for h in hops.values()), default=0)):
+            sends = [(me, h[k][0]) for me, h in sorted(hops.items())]
+            recvs = [(h[k][1], me) for me, h in sorted(hops.items())]
+            where = f"hop {k}: sends={sends} receives={recvs}"
+            if len(hops) < g:
+                if any((dst, src) != ((me + 1) % g, (me - 1) % g)
+                       for (me, dst), (src, _) in zip(sends, recvs)):
+                    found.append(Finding(
+                        "ring-permutation", ERROR,
+                        f"a rank hops off the ring's step over its "
+                        f"{g}-group (send to rank + 1, receive from rank "
+                        f"- 1) — the canonical-order sum adds the wrong "
+                        f"partials", detail=where))
+            else:
+                found += _ring_findings(sends, g, f"hop {k}")
+                if sorted(recvs) != sorted(sends):
+                    found.append(Finding(
+                        "ring-permutation", ERROR,
+                        f"a rank receives from a rank that does not send "
+                        f"to it — the hop waits forever", detail=where))
+            if found:       # the first hop that goes wrong
+                break
+        out += [Finding(f.rule, f.severity, f.message, stage=idx,
+                        detail=f.detail) for f in found]
+    return out
+
+
+@rule("comm-restores-carrier", "invariants",
+      "every collective stage restores the carrier dtype after a "
+      "reduced-precision reduction")
+def check_comm_restore(ctx: PlanContext):
+    out = []
+    prev_level = ctx.highest_level
+    for idx, s in ctx.expanded:
+        if s.kind in DATA_KINDS:
+            prev_level = s.level
+            continue
+        if s.kind != "psum":
+            continue
+        want = prec.real_dtype(prev_level)
+        for got in ctx.trace_stage_group((s,), prev_level):
+            if got.dtype != want:
+                out.append(Finding(
+                    "comm-restores-carrier", ERROR,
+                    f"collective at comm level {s.level!r} returns the "
+                    f"carrier at {str(got.dtype).replace('torch.', '')} "
+                    f"instead of restoring "
+                    f"{str(want).replace('torch.', '')} — every downstream "
+                    f"stage silently runs degraded",
+                    stage=idx))
     return out

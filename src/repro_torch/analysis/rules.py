@@ -22,7 +22,8 @@ Entry points:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 from repro_torch.core.pipeline import ExecOpts, Plan
 
@@ -93,27 +94,32 @@ def lint_plan(plan: Plan, opts: Optional[ExecOpts] = None, *, N_t: int,
               N_d: int, N_m: int, S: int = 1, rows: Optional[int] = None,
               families: Optional[Sequence[str]] = None,
               names: Optional[Sequence[str]] = None,
-              device=None) -> List[Finding]:
+              device=None,
+              groups: Optional[Mapping] = None) -> List[Finding]:
     """Statically lint one lowered plan; returns its findings.
 
     The plan is traced abstractly at the given dims (fake planes through
     ``make_fx``: nothing executes, nothing allocates).  ``rows``
     overrides the derived input row count (square "G"-operand plans);
     ``device`` is where an operator's data lives, for opts that probe the
-    backend from it.  A plan that fails to *trace* is itself reported as
-    a ``trace-failure`` error finding.
+    backend from it.  A mesh plan's collectives trace over ``groups`` (an
+    operator's process groups), or over a fake process group made for
+    the lint where the process has none (:meth:`PlanContext.grid`).  A
+    plan that fails to *trace* is itself reported as a ``trace-failure``
+    error finding.
     """
     ctx = PlanContext.from_plan(plan, opts, N_t=N_t, N_d=N_d, N_m=N_m,
-                                S=S, rows=rows, device=device)
+                                S=S, rows=rows, device=device, groups=groups)
     findings: List[Finding] = []
-    for r in all_rules(families, names):
-        try:
-            findings.extend(r.check(ctx))
-        except Exception as e:  # a rule that cannot even run is a finding
-            findings.append(Finding(
-                "trace-failure", ERROR,
-                f"rule {r.name!r} could not inspect the plan: {e}",
-                detail=type(e).__name__))
+    with ctx.grid():
+        for r in all_rules(families, names):
+            try:
+                findings.extend(r.check(ctx))
+            except Exception as e:  # a rule that cannot run is a finding
+                findings.append(Finding(
+                    "trace-failure", ERROR,
+                    f"rule {r.name!r} could not inspect the plan: {e}",
+                    detail=type(e).__name__))
     findings.sort(key=lambda f: (f.severity != ERROR, f.rule,
                                  f.stage if f.stage is not None else -1))
     return findings

@@ -33,7 +33,9 @@ assembles the global block).  F reduces its partial products over cols
 dims (slow -> fast); with more than one row the reductions are
 hierarchical (staged per tier, the executed form of the comm-aware
 blocking :mod:`repro_torch.core.partition` models), and ``mesh="auto"``
-picks the grid with :func:`choose_grid` over the world size.
+picks the grid with :func:`choose_grid` over the world size.  An inner
+product of two shards sums over :meth:`FFTMatvec.dot_group` (the
+solvers' steering scalars).
 """
 
 from __future__ import annotations
@@ -304,6 +306,32 @@ class FFTMatvec:
             raise ValueError(f"space must be 'm' or 'd', got {space!r}")
         return self.col_axis if space == "m" else self.row_axis
 
+    def local_rows(self, space: str) -> int:
+        """The rows of this rank's ``space`` shard: N_m / p_c for "m",
+        N_d / p_r for "d" (the global counts off a mesh)."""
+        self._space_axis(space)
+        return self.F_hat_re.shape[2 if space == "m" else 1]
+
+    def dot_group(self, space: str):
+        """The process group a ``space`` vector's long axis is sharded
+        over, the one its inner products sum over: the col group for "m"
+        (replicated over the rows), the row group for "d"; None off a
+        mesh."""
+        if self.mesh is None:
+            return None
+        axes = _as_axes(self._space_axis(space))
+        return self.groups[_axis_key(axes)] if axes else None
+
+    def grid_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over every rank of the grid, in place (over the
+        rows, then over the cols): the same value on every rank, for
+        decisions every rank must take alike.  Off a mesh, ``t``."""
+        for space in ("d", "m"):
+            group = self.dot_group(space)
+            if group is not None:
+                t = pipeline.all_reduce(t, group)
+        return t
+
     def local_block(self, x, space: str) -> torch.Tensor:
         """This rank's shard of a global block on the operator's device:
         ``space="m"`` an (N_m, N_t[, S]) block, sharded over the cols;
@@ -311,10 +339,8 @@ class FFTMatvec:
         mesh, the whole block."""
         if self.mesh is None:
             return as_tensor(x, self.device)
-        axis = self._space_axis(space)
-        n = (self.N_m // self.grid_shape()[1] if space == "m"
-             else self.N_d // self.grid_shape()[0])
-        i = self._axis_index(axis)
+        n = self.local_rows(space)
+        i = self._axis_index(self._space_axis(space))
         return as_tensor(x[i * n:(i + 1) * n], self.device)
 
     def gather_block(self, y: torch.Tensor, space: str) -> torch.Tensor:
@@ -380,8 +406,8 @@ class FFTMatvec:
         return x
 
     def _apply(self, x, *, adjoint: bool):
-        rows = self.F_hat_re.shape[1 if adjoint else 2]
-        x = self._local_input(x, rows, "rmatvec" if adjoint else "matvec")
+        x = self._local_input(x, self.local_rows("d" if adjoint else "m"),
+                              "rmatvec" if adjoint else "matvec")
         y = pipeline.run_plan(self.plan(adjoint=adjoint), x,
                               {"F": (self.F_hat_re, self.F_hat_im)},
                               N_t=self.N_t, opts=self.resolved_opts())

@@ -171,8 +171,9 @@ class GramOperator:
         operands = {"F": (op.F_hat_re, op.F_hat_im)}
         if self.mode == "circulant":
             operands["G"] = (self.G_hat_re, self.G_hat_im)
-        local = op.F_hat_re.shape[2 if self.space == "parameter" else 1]
-        x = op._local_input(v, local, "gram")
+        x = op._local_input(
+            v, op.local_rows("m" if self.space == "parameter" else "d"),
+            "gram")
         y = pipeline.run_plan(self.plan(), x, operands, N_t=self.N_t,
                               opts=op.resolved_opts())
         return y.to(self.io_dtype)

@@ -13,6 +13,12 @@ Every Hessian action runs through the fused data-space
 :class:`~repro_torch.core.gram.GramOperator`, one pipeline per action,
 and the dense assembly batches S-wide identity blocks through it so each
 pipeline is SBGEMM-backed.
+
+On a process grid (exact Gram only) every rank calls each method
+together with its shards (``FFTMatvec.local_block``): the actions and
+solves take and return this rank's rows, the matrix-free solves sum their
+inner products over the group that shards them, and the assembled
+Hessian and the EIG come out whole and the same on every rank.
 """
 
 from __future__ import annotations
@@ -51,23 +57,28 @@ class GaussianInverseProblem:
         """H_d = F G_pr F^T + G_n assembled from S-wide identity blocks:
         ceil(N_d*N_t / chunk) SBGEMM-backed fused-Gram pipelines.  The
         default 8 columns is the width at which the SBGEMM kernels take
-        the least time a column on an H100 (PERF.md)."""
+        the least time a column on an H100 (PERF.md).  On a mesh each
+        block goes in as this rank's rows and comes back gathered, so
+        every rank holds the whole H_d."""
         op, Nd, Nt = self.op, self.op.N_d, self.op.N_t
         n = Nd * Nt
         chunk = max(1, min(chunk, n))
         eye = torch.eye(n, dtype=op.io_dtype, device=op.device)
         cols = []
         for s0 in range(0, n, chunk):
-            E = eye[:, s0:s0 + chunk].reshape(Nd, Nt, -1)
-            cols.append(self.hessian_action_block(E).reshape(n, -1))
+            E = op.local_block(eye[:, s0:s0 + chunk].reshape(Nd, Nt, -1),
+                               "d")
+            H = op.gather_block(self.hessian_action_block(E), "d")
+            cols.append(H.reshape(n, -1))
         return torch.cat(cols, dim=1)
 
     # -- matrix-free Hessian action -----------------------------------------
     def hessian_action(self, v_flat) -> torch.Tensor:
-        """(F G_pr F^T + G_n) v for a flattened data-space vector: one
-        fused Gram pipeline per action."""
+        """(F G_pr F^T + G_n) v for a flattened data-space vector (on a
+        mesh, this rank's rows of it): one fused Gram pipeline per
+        action."""
         op = self.op
-        v = as_tensor(v_flat, op.device).reshape(op.N_d, op.N_t)
+        v = as_tensor(v_flat, op.device).reshape(op.local_rows("d"), op.N_t)
         out = self.prior_var * self.gram.apply(v) + self.noise_var * v
         return out.reshape(-1)
 
@@ -81,26 +92,28 @@ class GaussianInverseProblem:
     def map_point(self, d_obs, m_prior=None, *, method: str = "cg",
                   tol: float = 1e-10, maxiter: int = 500) -> torch.Tensor:
         """Solve for the MAP point.  d_obs: (N_d, N_t) SOTI.  Returns
-        (N_m, N_t) SOTI.  method: "cg" (matrix-free, the port's
+        (N_m, N_t) SOTI (on a mesh, this rank's shards of both and of
+        ``m_prior``).  method: "cg" (matrix-free, the port's
         :func:`repro_torch.solvers.pcg` on the data-space Hessian) or
         "dense"."""
         from repro_torch import solvers  # deferred: solvers layer on core
 
         op = self.op
         d_obs = as_tensor(d_obs, op.device)
-        m_prior = (torch.zeros((op.N_m, op.N_t), dtype=op.io_dtype,
-                               device=op.device)
+        m_prior = (torch.zeros((op.local_rows("m"), op.N_t),
+                               dtype=op.io_dtype, device=op.device)
                    if m_prior is None else as_tensor(m_prior, op.device))
-        resid = (d_obs - op.matvec(m_prior)).reshape(-1)
+        resid = d_obs - op.matvec(m_prior)
         if method == "dense":
             H = self.assemble_data_space_hessian()
-            w = torch.linalg.solve(H, resid)
+            w = torch.linalg.solve(H, op.gather_block(resid, "d").reshape(-1))
+            w = op.local_block(w.reshape(op.N_d, op.N_t), "d")
         elif method == "cg":
-            w = solvers.pcg(self.hessian_action, resid, tol=tol,
-                            maxiter=maxiter).x
+            w = solvers.pcg(self.hessian_action, resid.reshape(-1), tol=tol,
+                            maxiter=maxiter, group=op.dot_group("d")).x
+            w = w.reshape(resid.shape)
         else:
             raise ValueError(f"unknown MAP method {method!r}")
-        w = w.reshape(op.N_d, op.N_t)
         return m_prior + self.prior_var * op.rmatvec(w)
 
     # -- Krylov-subsystem MAP solves (multi-RHS capable) ---------------------
@@ -116,8 +129,9 @@ class GaussianInverseProblem:
         (``method="lsqr"``) or CGNR on the normal equations
         (``method="cgnr"``, its F*F through the fused parameter-space
         Gram).  ``d_obs`` may be a stacked (N_d, N_t, S) block: all S
-        observation sets share each F / F* application.  Returns
-        ``(m_map, SolveResult)``.
+        observation sets share each F / F* application.  On a mesh
+        ``d_obs``, ``m_prior`` and ``m_map`` are this rank's shards.
+        Returns ``(m_map, SolveResult)``.
         """
         from repro_torch import solvers  # deferred: solvers layer on core
 
@@ -150,7 +164,8 @@ class GaussianInverseProblem:
     def expected_information_gain(self, *, chunk: int = 8) -> torch.Tensor:
         """KL(post || prior) for the linear-Gaussian problem (closed form,
         paper Remark 1): 0.5 * logdet(I + G_n^{-1} F G_pr F^T), through
-        the chunked SBGEMM-backed Hessian assembly."""
+        the chunked SBGEMM-backed Hessian assembly (the same on every
+        rank of a mesh)."""
         H = self.assemble_data_space_hessian(chunk=chunk)
         _, logdet = torch.linalg.slogdet(H / self.noise_var)
         return 0.5 * logdet

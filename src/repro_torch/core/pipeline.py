@@ -365,6 +365,12 @@ def _ring_hop(t: torch.Tensor, group, dst: int, src: int) -> torch.Tensor:
     return recv.to(t.device) if staged else recv
 
 
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place and return it (through host
+    memory for a card tensor on a gloo group, as every reduction here)."""
+    return _start_collective("all_reduce", t, t, group)()
+
+
 def _ring_all_reduce(q: torch.Tensor, group, g: int) -> torch.Tensor:
     """All-reduce over ``group`` (g ranks) as g-1 ring hops that
     circulate the original partials, then a local sum in canonical

@@ -36,7 +36,7 @@ compiles nothing, so here:
   weak scaling is the same shape.
 
 A single card stands in for the reference's ``pod16x16`` mesh (mesh name
-``h100x1``); ``--mesh multi`` and ``--mesh both`` wait for item 13b.
+``h100x1``); ``--mesh multi`` and ``--mesh both`` wait for item 13c.
 Records keep the reference's JSON keys and add the card's name and power
 limit, as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
 prints them.
@@ -72,7 +72,7 @@ from .roofline import (CollectiveStats, OpCounter, _tensors, model_flops,
 MESH_NAME = "h100x1"          # one card: the reference's pod16x16 stand-in
 CARD_BYTES = 80e9             # the H100's 80 GB of HBM3
 FULL_DEPTH_OPS = 60_000       # ops a full-depth memory run may dispatch
-_MULTI = ("multi-pod meshes wait for ROADMAP.md queue 1 item 13b "
+_MULTI = ("multi-pod meshes wait for ROADMAP.md queue 1 item 13c "
           "(multi-GPU); the port runs on one card")
 
 

@@ -3,7 +3,7 @@
 Functions, not module constants: importing this module touches no process
 group.  A mesh is a ``torch.distributed.device_mesh.DeviceMesh``; the
 functions that only read one use its ``shape`` and ``mesh_dim_names``.
-The LM's production meshes (pod/data/model) wait for ROADMAP.md item 13b.
+The LM's production meshes (pod/data/model) wait for ROADMAP.md item 13c.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import math
 def make_production_mesh(*, multi_pod: bool = False):
     """The LM's 16x16 (or 2x16x16 multi-pod) mesh: not ported."""
     raise NotImplementedError("the LM's production meshes wait for ROADMAP.md "
-                              "item 13b (the LM's sharding)")
+                              "item 13c (the LM's sharding)")
 
 
 def mesh_shape_dict(mesh) -> dict:

@@ -29,7 +29,14 @@ allocated):
   ``cat`` and ``constant_pad_nd``, and every kernel), plus the step's
   argument reads and output writes that no such op already counted
   (:meth:`OpCounter.count_io`);
-* collectives: ``c10d`` ops (none in a plan on one card).
+* collectives: ``c10d`` ops, each op's operand bytes, as the
+  reference's ``parse_collectives`` counts them: what the op reads and
+  sends, never the buffer it receives into (a ring hop's ``recv_``, the
+  output of a reduce-scatter or an all-gather).  A meshed plan's
+  reductions; none on one card.  Gloo's staging of a card tensor through
+  host memory runs as ``_to_copy`` and ``copy_``, raw bytes only, never
+  floor bytes (:func:`plan_collective_bytes` gives a meshed matvec's
+  count).
 
 A kernel counts each input byte read once and each output byte written
 once, and a complex GEMV or GEMM 8 FLOPs per complex multiply-add.
@@ -107,6 +114,16 @@ _NO_TRAFFIC = _names(
     "sym_numel", "sym_storage_offset", "device", "is_same_size")
 
 _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
+# c10d ops whose first argument is the buffer they write: their operand
+# is the second; ops that send nothing add no operand bytes, and a wait
+# is no collective
+_OUTPUT_FIRST = _names(
+    "_allgather_base_", "allgather_", "allgather_coalesced_",
+    "allgather_into_tensor_coalesced_", "_reduce_scatter_base_",
+    "reduce_scatter_", "reduce_scatter_tensor_coalesced_", "alltoall_base_",
+    "alltoall_", "gather_", "scatter_")
+_NO_OPERAND = _names("recv_", "recv_any_source_", "barrier",
+                     "monitored_barrier_")
 
 
 def fft_flops(func_name: str, args, out) -> int:
@@ -143,6 +160,14 @@ def _tensors(tree):
 def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
+
+
+def _collective_operand_bytes(name: str, args) -> int:
+    """The bytes a collective op reads and sends (its operand), not the
+    buffer it receives into."""
+    if name in _NO_OPERAND:
+        return 0
+    return _nbytes(args[1] if name in _OUTPUT_FIRST else args[0])
 
 
 def _dtype_key(tensors) -> str:
@@ -271,9 +296,10 @@ class OpCounter(TorchDispatchMode):
             return out
         name = func.overloadpacket.__name__
         if ns in _COLLECTIVE_NAMESPACES:
-            b = _nbytes((args, kwargs))
-            self.coll_counts[name] += 1
-            self.coll_bytes[name] += b
+            if name != "wait_tensor":
+                self.coll_counts[name] += 1
+                self.coll_bytes[name] += _collective_operand_bytes(name,
+                                                                   args)
             return out
         if ns == "prim" or func.is_view or name in _NO_TRAFFIC:
             return out
@@ -296,6 +322,38 @@ class OpCounter(TorchDispatchMode):
                   _nbytes(ins) + _nbytes(outs), name in _MATERIALIZE_OPS,
                   ins + outs)
         return out
+
+
+def plan_collective_bytes(op, *, adjoint: bool = False) -> int:
+    """The ``c10d`` operand bytes :class:`OpCounter` counts on one rank for
+    one ``matvec`` (``rmatvec`` with ``adjoint``) of the meshed operator
+    ``op`` on one right-hand side, as the reference's ``parse_collectives``
+    counts them on its lowering.  B is the plan's reduction operand, this
+    rank's output rows x N_t at the comm level; each collective the
+    lowering launches counts what it sends: hierarchical, B a mesh dim; a
+    reduce-scatter B, then the all-gather B/g, and B/g more over an outer
+    tier; a ring B a hop, g - 1 hops, and B more over an outer tier; its
+    fallback, or a plain psum, B.  Chunking splits B, never adds to it.
+    0 off a mesh."""
+    from repro_torch.core import precision as prec
+    total = 0
+    for stage in op.plan(adjoint=adjoint):
+        if stage.kind != "gemv_psum":
+            continue
+        psum = stage.psum_stage()
+        rows = op.local_rows("m" if adjoint else "d")
+        B = rows * op.N_t * prec.real_dtype(psum.level).itemsize
+        g = psum.groups[-1] if psum.groups else None
+        outer = len(psum.axes) > 1
+        if psum.collective == "hierarchical":
+            total += len(psum.axes) * B
+        elif psum.collective == "reduce_scatter" and g and rows % g == 0:
+            total += B + B // g + (B // g if outer else 0)
+        elif psum.collective == "ring" and g:
+            total += (g - 1) * B + (B if outer else 0)
+        else:
+            total += B
+    return total
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,15 @@ Pipeline per admitted request:
               on the operator's device, no host copy), converged flag,
               iteration count and residual history.
 
+On a process grid the engine is SPMD: every rank builds it over its
+meshed operator and calls ``serve`` with the same requests.  Requests
+carry the global ``d_obs`` and route by the operator's global data
+shape; each rank cuts its rows (``FFTMatvec.local_block``), the solve's
+inner products sum over the grid, and each outcome's ``x`` is the
+gathered global block, as the single-device engine returns it.  The
+fingerprint covers the whole operator, so buckets, cache keys and cold
+or warm tunes agree on every rank.
+
 Reuse counters.  PyTorch runs eagerly, so there is no trace to reuse; the
 engine counts what a trace costs the reference here.  ``n_appliers`` is
 the number of distinct ``(family, variant)`` callables the engine has
@@ -86,6 +95,7 @@ class SolveOutcome:
     """Demuxed per-request result of a (possibly coalesced) solve."""
     uid: int
     x: torch.Tensor                 # (N_m, N_t) MAP point, operator's device
+                                    # (the whole block on every rank of a grid)
     converged: bool
     n_iters: int                    # iterations this column actually updated
     relres: float                   # final relative residual of this column
@@ -112,19 +122,34 @@ def _digest(h, plane: torch.Tensor) -> None:
         h.update(chunk.cpu().numpy())
 
 
+def _grid_digest(op, digest: bytes) -> bytes:
+    """Every rank's ``digest`` of its shard, gathered over the rows and
+    then the cols (one fixed rank order) and hashed: the same bytes on
+    every rank of the grid.  Off a mesh, ``digest``."""
+    if op.mesh is None:
+        return digest
+    t = torch.frombuffer(bytearray(digest), dtype=torch.uint8).to(op.device)
+    for space in ("d", "m"):
+        t = op.gather_block(t, space)
+    return hashlib.sha1(t.cpu().numpy().tobytes()).digest()
+
+
 def operator_fingerprint(op) -> str:
     """Coalescing identity of an operator: problem shape, a SHA-1 of the
     stored Fourier blocks, the backend fingerprint and the dispatch
     table's fields, the process grid and the reduction precision.  Two
     requests share a batch only when their solves run the same pipeline on
-    the same operator data (on a mesh, this rank's shard of it)."""
+    the same operator data.  On a mesh the SHA-1 covers every rank's shard
+    (each rank's digest gathered in rank order, a collective), so every
+    rank has the same fingerprint."""
     r = op.opts.resolve(op.device)
     h = hashlib.sha1()
     _digest(h, op.F_hat_re)
     _digest(h, op.F_hat_im)
+    digest = _grid_digest(op, h.digest())
     disp = ";".join(f"{f.name}={getattr(r.table, f.name)}"
                     for f in dataclasses.fields(r.table))
-    return (f"{op.N_t}x{op.N_d}x{op.N_m}/F={h.hexdigest()[:12]}"
+    return (f"{op.N_t}x{op.N_d}x{op.N_m}/F={digest.hex()[:12]}"
             f"/{r.spec.fingerprint()}/disp={disp}/grid={op.grid_shape()}"
             f"/comm={op.comm_level}")
 
@@ -137,8 +162,10 @@ class SolveEngine:
     operators:
         one FFTMatvec or a sequence, each registered under its
         fingerprint; requests route by ``d_obs`` shape (ambiguous shapes
-        are a construction error).  Operators should be the
-        highest-precision build (``autotune`` recasts down per bucket).
+        are a construction error).  Meshed operators take every rank
+        of their grid building the engine together.  Operators should
+        be the highest-precision build (``autotune`` recasts down per
+        bucket).
     cache, cache_path:
         optional :class:`~repro_torch.tune.TuningCache` (or a path) backing
         the warm tuning path, shared across engines and processes.
@@ -245,8 +272,8 @@ class SolveEngine:
         cfg, op_t = self._config_for(fp, bucket)
         gram_fn = self._applier(op_t, "gram")
         rmatmat = self._applier(op_t, "rmatmat")
-        D = torch.stack([torch.as_tensor(r.d_obs, device=op_t.device)
-                         for r in requests], dim=-1).to(op_t.io_dtype)
+        D = torch.stack([op_t.local_block(r.d_obs, "d") for r in requests],
+                        dim=-1).to(op_t.io_dtype)
         rhs = rmatmat(D)
         damp = requests[0].damp         # batches group on damp
         normal = (lambda v: gram_fn(v) + damp * v) if damp else gram_fn
@@ -254,7 +281,9 @@ class SolveEngine:
         budget = np.array([r.max_iters for r in requests], int)
         res = pcg(normal, rhs, tol=tol_col, maxiter=int(budget.max()),
                   col_maxiter=budget, multi_rhs=True,
-                  precision=self.solver_precision)
+                  precision=self.solver_precision,
+                  group=op_t.dot_group("m"))
+        X = op_t.gather_block(res.x, "m")
         self.stats["batches"] += 1
         self.stats["coalesced"].append(len(requests))
 
@@ -265,7 +294,7 @@ class SolveEngine:
             h = hist[:max(iters, 1), s]
             relres = float(h[-1])
             outcomes.append(SolveOutcome(
-                uid=r.uid, x=res.x[..., s],
+                uid=r.uid, x=X[..., s],
                 converged=bool(relres < r.tol), n_iters=iters,
                 relres=relres, residual_history=h,
                 config=cfg.to_string(), coalesced=len(requests)))

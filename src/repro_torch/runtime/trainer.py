@@ -15,7 +15,7 @@ The step runs eagerly on the pipeline's device.  Each step waits for the
 device (``torch.cuda.synchronize``), as the reference blocks on its loss,
 so the wall time is the step's; the metrics are read to the host only on
 ``log_every`` steps.  Elastic re-meshing needs more than one device:
-:meth:`Trainer.remesh` raises (ROADMAP item 13b).
+:meth:`Trainer.remesh` raises (ROADMAP item 13c).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from ..models import api
 from ..optim import AdamW, Compressor, cosine_schedule, wsd_schedule
 
 _MESH = ("{} needs more than one device: meshes and sharded state are "
-         "ROADMAP item 13b (multi-device)")
+         "ROADMAP item 13c (multi-device)")
 
 
 @dataclasses.dataclass

@@ -13,6 +13,13 @@ fused parameter-space Gram and ``rmatmat``.
 The loop is host-driven (per-iteration residual recording and early
 exit); each iteration costs one operator application plus O(1)
 reductions, whose (S,) results are read back to the host.
+
+On a process grid every rank runs the same solve on its shards (SPMD):
+the vectors are this rank's shards in the spaces ``FFTMatvec.
+local_block`` uses, and every inner product sums over the group that
+shards them (``FFTMatvec.dot_group``), so every rank steers on the same
+global scalars and takes the same branches, its collectives in the same
+order.
 """
 
 from __future__ import annotations
@@ -35,6 +42,14 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().to("cpu", torch.float64).numpy()
 
 
+def dot_group(op, space: str):
+    """The group ``op``'s ``space`` vectors' inner products sum over
+    (``FFTMatvec.dot_group``); None for an operator off a mesh or without
+    one."""
+    fn = getattr(op, "dot_group", None)
+    return None if fn is None else fn(space)
+
+
 def _budget(col_maxiter, maxiter: int, S: int) -> np.ndarray:
     if col_maxiter is None:
         return np.full((S,), maxiter, dtype=int)
@@ -45,8 +60,8 @@ def _budget(col_maxiter, maxiter: int, S: int) -> np.ndarray:
 def pcg(A: Callable, b, *, x0=None, tol=1e-10, maxiter: int = 500,
         M: Optional[Callable] = None, multi_rhs: Optional[bool] = None,
         col_maxiter=None,
-        precision: Union[SolverPrecision, str] = SolverPrecision()
-        ) -> SolveResult:
+        precision: Union[SolverPrecision, str] = SolverPrecision(),
+        group=None) -> SolveResult:
     """Preconditioned CG for SPD ``A``, S stacked right-hand sides.
 
     ``b``'s minor axis is the RHS stack when ``multi_rhs`` is true
@@ -67,6 +82,10 @@ def pcg(A: Callable, b, *, x0=None, tol=1e-10, maxiter: int = 500,
     steering dots run at the orthogonalize level (accumulated in f64), and
     x/r/p updates at the recurrence level.  ``precision`` also accepts a
     3-char string ("sds") or ``"auto"`` (derived from the tightest ``tol``).
+
+    ``group``: on a process grid, the group that shards ``b``'s long axis
+    (``FFTMatvec.dot_group`` of its space); ``b``, ``x0`` and the result
+    are then this rank's shards, and every inner product sums over it.
     """
     precision = resolve_precision(precision, float(np.min(tol)))
     b = torch.as_tensor(b)
@@ -98,11 +117,11 @@ def pcg(A: Callable, b, *, x0=None, tol=1e-10, maxiter: int = 500,
         r = b.to(rec_dt) - apply_A(x)
     z = user_shaped(M, r).to(rec_dt) if M is not None else r
     p = z
-    rz = col_dot(r, z, ortho)
-    b_norm = _host(col_norm(b, ortho))
+    rz = col_dot(r, z, ortho, group)
+    b_norm = _host(col_norm(b, ortho, group))
     b_norm = np.where(b_norm == 0, 1.0, b_norm)
 
-    relres = _host(col_norm(r, ortho)) / b_norm
+    relres = _host(col_norm(r, ortho, group)) / b_norm
     conv = relres < tol_col              # converged columns (stay frozen)
     frozen = conv | (budget <= 0)        # converged or out of budget
     col_iters = np.zeros((S,), dtype=int)
@@ -117,11 +136,11 @@ def pcg(A: Callable, b, *, x0=None, tol=1e-10, maxiter: int = 500,
             break
         active = torch.as_tensor(~frozen, device=b.device)
         Ap = apply_A(p)
-        alpha = rz / _safe(col_dot(p, Ap, ortho))
+        alpha = rz / _safe(col_dot(p, Ap, ortho, group))
         alpha = torch.where(active, alpha, 0.0).to(rec_dt)
         x = (x + p * alpha).to(rec_dt)
         r = (r - Ap * alpha).to(rec_dt)
-        relres_new = _host(col_norm(r, ortho)) / b_norm
+        relres_new = _host(col_norm(r, ortho, group)) / b_norm
         # frozen columns report the residual they froze at
         relres = np.where(frozen, relres, relres_new)
         history.append(relres)
@@ -131,7 +150,7 @@ def pcg(A: Callable, b, *, x0=None, tol=1e-10, maxiter: int = 500,
         if frozen.all():
             break
         z = user_shaped(M, r).to(rec_dt) if M is not None else r
-        rz_new = col_dot(r, z, ortho)
+        rz_new = col_dot(r, z, ortho, group)
         beta = rz_new / _safe(rz)
         beta = torch.where(torch.as_tensor(~frozen, device=b.device), beta,
                            0.0).to(rec_dt)
@@ -157,7 +176,9 @@ def cg_normal_equations(op, d_obs, *, damp: float = 0.0, tol=1e-10,
     :class:`~repro_torch.core.gram.GramOperator` whenever ``op`` exposes
     ``.gram()``; plain callable-pair operators use the composed
     product.  ``tol`` / ``col_maxiter`` may be per-column vectors as in
-    :func:`pcg`."""
+    :func:`pcg`.  On a meshed operator ``d_obs`` and the result are this
+    rank's shards (``op.local_block``), and the inner products sum over
+    ``op.dot_group("m")``."""
     precision = resolve_precision(precision, float(np.min(tol)))
     rec_dt = precision.recurrence_dtype()
 
@@ -172,4 +193,5 @@ def cg_normal_equations(op, d_obs, *, damp: float = 0.0, tol=1e-10,
 
     rhs = op.rmatmat(d_obs).to(rec_dt)
     return pcg(normal_op, rhs, tol=tol, maxiter=maxiter, M=M,
-               col_maxiter=col_maxiter, precision=precision)
+               col_maxiter=col_maxiter, precision=precision,
+               group=dot_group(op, "m"))

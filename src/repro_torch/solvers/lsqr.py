@@ -8,6 +8,10 @@ application (``matmat`` / ``rmatmat``), with the rotation scalars carried
 per column.  Operator applications run at the apply level, the
 bidiagonalization norms at the orthogonalize level (accumulated in f64),
 the u/v/w/x updates at the recurrence level.
+
+On a meshed operator ``d_obs`` and the result are this rank's shards
+(``op.local_block``): the u norms sum over the row group, the v norms
+over the col group (``op.dot_group``), so every rank steers alike.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Union
 import numpy as np
 import torch
 
-from .cg import _budget, _host, _safe
+from .cg import _budget, _host, _safe, dot_group
 from .precision import SolverPrecision, col_norm, resolve_precision
 from .result import SolveResult
 
@@ -48,6 +52,7 @@ def lsqr(op, d_obs, *, damp: float = 0.0, tol=1e-10, maxiter: int = 500,
     rec_dt = precision.recurrence_dtype()
     app_dt = precision.apply_dtype()
     ortho = precision.orthogonalize
+    d_group, m_group = dot_group(op, "d"), dot_group(op, "m")
 
     def A(v):
         return op.matmat(v.to(app_dt)).to(rec_dt)
@@ -55,10 +60,10 @@ def lsqr(op, d_obs, *, damp: float = 0.0, tol=1e-10, maxiter: int = 500,
     def At(v):
         return op.rmatmat(v.to(app_dt)).to(rec_dt)
 
-    beta = col_norm(b, ortho)                       # (S,) f64
+    beta = col_norm(b, ortho, d_group)              # (S,) f64
     u = (b / _safe(beta)).to(rec_dt)
     v = At(u)
-    alpha = col_norm(v, ortho)
+    alpha = col_norm(v, ortho, m_group)
     v = (v / _safe(alpha)).to(rec_dt)
     w = v
     x = torch.zeros_like(v)
@@ -83,10 +88,10 @@ def lsqr(op, d_obs, *, damp: float = 0.0, tol=1e-10, maxiter: int = 500,
         active = torch.as_tensor(~frozen, device=b.device)
         # continue the bidiagonalization (shared across the batch)
         u = A(v) - u * alpha.to(rec_dt)
-        beta = col_norm(u, ortho)
+        beta = col_norm(u, ortho, d_group)
         u = (u / _safe(beta)).to(rec_dt)
         v_next = At(u) - v * beta.to(rec_dt)
-        alpha = col_norm(v_next, ortho)
+        alpha = col_norm(v_next, ortho, m_group)
         v = (v_next / _safe(alpha)).to(rec_dt)
 
         # eliminate the damping term (extra rotation)

@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import pipeline as _pipeline
 from repro_torch.core import precision as _prec
 
 SOLVER_PHASES = ("apply", "orthogonalize", "recurrence")
@@ -109,18 +110,26 @@ SINGLE = SolverPrecision.from_string("sss")
 TPU_MIXED = SolverPrecision.from_string("hss")
 
 
-def col_dot(a: torch.Tensor, b: torch.Tensor, level: str) -> torch.Tensor:
+def col_dot(a: torch.Tensor, b: torch.Tensor, level: str,
+            group=None) -> torch.Tensor:
     """Per-RHS-column inner product <a, b> of (..., S) tensors: both sides
     rounded to ``level``, products summed in f64 over every axis but the
     last.  Returns an (S,) f64 tensor.  A column reduction, not an einsum:
     einsum lowers this to S batched dot products of length N_m*N_t, which
-    cuBLAS runs on a handful of blocks."""
+    cuBLAS runs on a handful of blocks.
+
+    ``group`` is the process group that shards the vectors' long axis on
+    a grid (``FFTMatvec.dot_group``): this rank's f64 sums are then summed
+    over it, so every rank holds the inner product of the global
+    vectors."""
     dt = _prec.real_dtype(level)
     af = a.to(dt).to(torch.float64).reshape(-1, a.shape[-1])
     bf = b.to(dt).to(torch.float64).reshape(-1, b.shape[-1])
-    return (af * bf).sum(dim=0)
+    out = (af * bf).sum(dim=0)
+    return out if group is None else _pipeline.all_reduce(out, group)
 
 
-def col_norm(a: torch.Tensor, level: str) -> torch.Tensor:
-    """Per-column L2 norm at ``level`` (accumulated in f64)."""
-    return torch.sqrt(col_dot(a, a, level))
+def col_norm(a: torch.Tensor, level: str, group=None) -> torch.Tensor:
+    """Per-column L2 norm at ``level`` (accumulated in f64; over
+    ``group`` as :func:`col_dot`)."""
+    return torch.sqrt(col_dot(a, a, level, group))

@@ -29,7 +29,9 @@ On a process grid every rank runs ``autotune`` together: each feeds its
 shard of the global probe input, measures errors on the gathered global
 outputs and takes the slowest rank's time, so all ranks choose the same
 configs; eq. (6) prices the grid (``p_r``, ``p_c``) and the reduction
-level (``comm_level``).
+level (``comm_level``).  A cache hit counts only when every rank hits
+(a rank that misses times, with collectives), and a tile map is derived
+from block energies summed over the grid.
 """
 
 from __future__ import annotations
@@ -117,7 +119,9 @@ class _GridHarness:
     def time(self, op, v, variant):
         x, space = self._io(op, v)
         out, t = self.inner.time(op, x, variant)
-        slowest = torch.tensor([t], dtype=torch.float64, device=op.device)
+        # gloo takes the maximum of a host tensor (ranks may share a card)
+        on = "cpu" if dist.get_backend() == "gloo" else op.device
+        slowest = torch.tensor([t], dtype=torch.float64, device=on)
         dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
         return op.gather_block(out, space), float(slowest)
 
@@ -183,14 +187,11 @@ def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
     operator's ``grid_shape()`` (explicit values, an explicit (1, 1) too,
     override it) and ``comm_level`` to the operator's reduction level; the
     cache keys on both.  On a mesh every rank calls this together (see the
-    module head); tile refinement there waits for ROADMAP.md item 13b.
+    module head).
     """
     p_r, p_c = operator_grid(op, p_r, p_c)
     if comm_level is None:
         comm_level = op.comm_level
-    if op.mesh is not None and tiles:
-        raise NotImplementedError("tile refinement on a meshed operator "
-                                  "waits for ROADMAP.md item 13b")
     if ladder is None:
         ladder = ("d", "s") if op.precision.highest() == "d" else ("s", "h")
     ladder = tuple(ladder)
@@ -226,6 +227,12 @@ def autotune(op, *, tol: float, v=None, ladder: Sequence[str] | None = None,
                              else timer) is not None,
             tiles=tile_shape, comm_level=comm_level)
         cached = cache.lookup_config(key, tol)
+        if op.mesh is not None:
+            misses = op.grid_sum(torch.tensor(
+                [float(cached is None)], dtype=torch.float64,
+                device=op.device))
+            if misses.item():
+                cached = None
         if cached is not None:
             recs = cache.records(key)
             rec = next(r for r in recs if r.config == cached)

@@ -42,6 +42,13 @@ def block_norms(F_re, F_im=None,
     Computed in f64 on the planes' device, a few bins at a time (at the
     paper shape a whole f64 copy would be 4 GB); returns a numpy (R, C)
     float64 array."""
+    return cell_energy(F_re, F_im, shape).sqrt().cpu().numpy()
+
+
+def cell_energy(F_re, F_im=None,
+                shape: tuple[int, int] = (2, 2)) -> torch.Tensor:
+    """The squared per-cell norms of :func:`block_norms`, an (R, C) f64
+    tensor on the planes' device."""
     R, C = shape
     K, _, n = F_re.shape
     energy = torch.empty((K, n), dtype=torch.float64, device=F_re.device)
@@ -52,10 +59,9 @@ def block_norms(F_re, F_im=None,
             e += F_im[sl].to(torch.float64).square().sum(dim=1)
         energy[sl] = e
     rows, cols = tile_bounds(R, K), tile_bounds(C, n)
-    out = torch.stack([torch.stack([
+    return torch.stack([torch.stack([
         energy[rows[r]:rows[r + 1], cols[c]:cols[c + 1]].sum()
         for c in range(C)]) for r in range(R)])
-    return out.sqrt().cpu().numpy()
 
 
 def tile_weights(norms) -> tuple:
@@ -134,8 +140,18 @@ def tile_map_for_operator(op, cfg: PrecisionConfig, tol: float, *,
                           comm_level: str | None = None):
     """Block-norm analysis + derivation for a live ``FFTMatvec``.  Returns
     ``(tile_map_or_None, weights)``; the weights let the caller evaluate
-    the matching tile-aware bound."""
-    w = tile_weights(block_norms(op.F_hat_re, op.F_hat_im, shape))
+    the matching tile-aware bound.
+
+    On a mesh each rank's gemv rounds its own (K, N_d/p_r, N_m/p_c) block
+    through the map (the partition the kernels see, as in the JAX
+    package, whose gemv expands the map over the block ``shard_map``
+    hands it).  So the cells are cells of a local block: each rank's cell
+    energies are summed over the grid, and every rank derives the same
+    weights and the same map."""
+    energy = cell_energy(op.F_hat_re, op.F_hat_im, shape)
+    if op.mesh is not None:
+        energy = op.grid_sum(energy)
+    w = tile_weights(energy.sqrt().cpu().numpy())
     tiles = derive_tile_map(cfg, tol, op.N_t, op.N_d, op.N_m, shape=shape,
                             weights=w, p_r=p_r, p_c=p_c, adjoint=adjoint,
                             kappa=kappa, input_level=input_level,

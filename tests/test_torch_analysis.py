@@ -10,8 +10,12 @@ reference's:
   shape (fake planes: nothing is allocated);
 * seeded: each deliberately broken lowering fires exactly its rule.
   Seeds patch the executor's dispatch points
-  (``pipeline._STAGE_IMPLS``), so the plans stay valid and the lowering
-  misbehaves.
+  (``pipeline._STAGE_IMPLS``, ``pipeline._ring_hop``), so the
+  plans stay valid and the lowering misbehaves;
+* mesh plans (the reference's 2 x 4 grid) trace as one rank over torch's
+  fake process group: the sweep's mesh plans lint clean, and the
+  reference's seeded collective faults fire the rule and severity
+  ``tests/test_analysis.py`` asserts for each.
 
 The card's backend (``h100``) traces only where a card is present (a
 CPU-only torch cannot fake views of card tensors); ``chip_smoke.py``
@@ -25,6 +29,7 @@ import json
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch import analysis
 from repro_torch.analysis import cli as analysis_cli
@@ -298,6 +303,157 @@ def test_seeded_nondeterministic_resolve_fires(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# Mesh plans: one rank of the grid over a fake process group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", CPU_BACKENDS)
+@pytest.mark.parametrize("cfg_s", ["ddddd", "dssdd", "sssss"])
+def test_clean_mesh_plans(backend, cfg_s):
+    plans = analysis_cli.plan_matrix(PrecisionConfig.from_string(cfg_s))
+    for name in ("matvec-hier", "matvec-ring", "rmatvec-ring", "gram-mesh"):
+        analysis.assert_plan_clean(plans[name][0], ExecOpts(backend=backend),
+                                   **DIMS)
+    # the fake process group lives only for the lint
+    assert not dist.is_initialized()
+
+
+def test_a_mesh_trace_holds_its_collectives_and_local_planes():
+    plan = analysis_cli.plan_matrix(PrecisionConfig.from_string("ddddd"))[
+        "gram-mesh"][0]
+    ctx = analysis.PlanContext.from_plan(plan, OPTS, **DIMS)
+    assert [tuple(v.shape) for v in ctx.out_avals] == [(N_M // 4, N_T)]
+    names = [analysis.op_name(n) for n, _, _ in ctx.eqns()]
+    # the mid reduction of two Fourier planes, the final of one carrier
+    assert names.count("c10d.allreduce_") == 3
+    assert (ctx.N_d_local, ctx.N_m_local) == (N_D // 2, N_M // 4)
+    assert ctx.trace_counters["psum"] == 2
+    ring = analysis.PlanContext.from_plan(
+        matvec_plan(PrecisionConfig.from_string("sssss"), psum_axis="col",
+                    collective="ring", psum_groups=(4,)), OPTS, **DIMS)
+    names = [analysis.op_name(n) for n, _, _ in ring.eqns()]
+    assert names.count("c10d.send") == names.count("c10d.recv_") == 3
+
+
+def test_seeded_unrestored_comm_fires(monkeypatch):
+    # a reduced-precision collective that keeps the comm dtype instead of
+    # restoring the carrier
+    def leaky(stage, x, operands, N_t, S, opts):
+        comm_dt = prec.real_dtype(stage.level)
+        planes = x if isinstance(x, tuple) else (x,)
+        out = []
+        for p in planes:
+            q = p.to(comm_dt).contiguous()
+            dist.all_reduce(q, group=pipeline._group(opts, stage.axes))
+            out.append(q)
+        return tuple(out) if isinstance(x, tuple) else out[0]
+
+    monkeypatch.setitem(pipeline._STAGE_IMPLS, "psum", leaky)
+    plan = matvec_plan(PrecisionConfig.from_string("ddddd"),
+                       psum_axis="col", psum_groups=(4,), comm_level="s")
+    opts = dataclasses.replace(OPTS, overlap=None)
+    found = analysis.lint_plan(plan, opts, **DIMS)
+    # the root cause and its symptom: the collective is the matvec's last
+    # stage, so the comm dtype reaches the output
+    assert fired(found) == {"comm-restores-carrier",
+                            "silent-output-downgrade"}
+    assert all(f.severity == analysis.ERROR for f in found)
+    only = analysis.lint_plan(plan, opts, **DIMS,
+                              names=("comm-restores-carrier",))
+    assert len(only) == 1 and only[0].stage is not None
+
+
+def test_seeded_invalid_ring_fires(monkeypatch):
+    # a pair-swap "ring": every rank once, but two disjoint 2-cycles
+    _pair_swap(monkeypatch)
+    plan = matvec_plan(PrecisionConfig.from_string("sssss"),
+                       psum_axis="col", collective="ring", psum_groups=(4,))
+    found = analysis.lint_plan(plan, OPTS, **DIMS)
+    assert fired(found) == {"ring-permutation"}
+    assert all(f.severity == analysis.ERROR for f in found)
+    assert any("disjoint cycles" in f.message for f in found)
+
+
+def _pair_swap(monkeypatch):
+    hop = pipeline._ring_hop
+
+    def swapped(t, group, dst, src):
+        me = dist.get_rank(group)
+        return hop(t, group, me ^ 1, me ^ 1)
+
+    monkeypatch.setattr(pipeline, "_ring_hop", swapped)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_ring_on_one_ranks_groups(monkeypatch, seeded):
+    # over a process's own groups a trace holds this rank's hops alone:
+    # they must take the ring's step, which the pair swap leaves
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.core.fftmatvec import axis_groups
+    if seeded:
+        _pair_swap(monkeypatch)
+    plan = matvec_plan(PrecisionConfig.from_string("sssss"),
+                       psum_axis="col", collective="ring", psum_groups=(4,))
+    dist.init_process_group("fake", store=FakeStore(), rank=2, world_size=4)
+    try:
+        groups = axis_groups(init_device_mesh("cpu", (4,),
+                                              mesh_dim_names=("col",)),
+                             {"col"})
+        found = analysis.lint_plan(plan, OPTS, **DIMS, groups=groups,
+                                   names=("ring-permutation",))
+    finally:
+        dist.destroy_process_group()
+    if not seeded:
+        assert found == []
+        return
+    assert fired(found) == {"ring-permutation"}
+    assert all(f.severity == analysis.ERROR for f in found)
+    assert any("ring's step" in f.message and "(2, 3)" in f.detail
+               for f in found)
+
+
+def test_seeded_fallback_collective_fires():
+    # a ring without static groups cannot build its schedule: the static
+    # rule flags the request, the executor's fallback counter confirms it
+    plan = matvec_plan(PrecisionConfig.from_string("sssss"),
+                       psum_axis="col", collective="ring")
+    found = analysis.lint_plan(plan, OPTS, **DIMS)
+    assert fired(found) == {"collective-stage-valid", "collective-fallback"}
+    assert all(f.severity == analysis.WARNING for f in found)
+
+
+def test_seeded_invalid_collective_stages_fire():
+    base = matvec_plan(PrecisionConfig.from_string("sssss"),
+                       psum_axis="col", psum_groups=(4,))
+    for bad, what in (
+            (dict(axis=("col", "col"), groups=(2, 2)), "duplicate"),
+            (dict(groups=(0,)), "non-positive")):
+        plan = tuple(dataclasses.replace(s, **bad) if s.kind == "gemv_psum"
+                     else s for s in base)
+        found = analysis.lint_plan(plan, OPTS, **DIMS,
+                                   names=("collective-stage-valid",))
+        assert fired(found) == {"collective-stage-valid"}
+        assert any(what in f.message and f.severity == analysis.ERROR
+                   for f in found)
+    stray = tuple(dataclasses.replace(s, comm="h") if s.kind == "pad"
+                  else s for s in base)
+    found = analysis.lint_plan(stray, OPTS, **DIMS,
+                               names=("collective-stage-valid",))
+    assert [f.severity for f in found] == [analysis.WARNING]
+
+
+def test_seeded_unhashable_mesh_stage_fires():
+    plan = matvec_plan(PrecisionConfig.from_string("sssss"),
+                       psum_axis="col", psum_groups=(4,))
+    bad = tuple(dataclasses.replace(s, groups=[4])
+                if s.kind == "gemv_psum" else s for s in plan)
+    found = analysis.lint_plan(bad, OPTS, **DIMS, families=("recompile",))
+    assert fired(found) == {"static-unhashable"}
+    assert any("groups" in f.detail for f in found)
+
+
+# ---------------------------------------------------------------------------
 # Recompile hazards: the executed cross-check
 # ---------------------------------------------------------------------------
 
@@ -349,7 +505,8 @@ def test_rule_registry_and_catalog():
         "silent-output-downgrade", "x64-promotion", "accum-below-stage",
         "reorder-level", "tile-above-stage", "no-zero-fill-assembly",
         "no-device-transfer", "convert-round-trip", "static-unhashable",
-        "hash-unstable", "resolve-deterministic"}
+        "hash-unstable", "resolve-deterministic", "collective-stage-valid",
+        "collective-fallback", "ring-permutation", "comm-restores-carrier"}
     order = [(analysis.FAMILIES.index(r.family), r.name) for r in cat]
     assert order == sorted(order)
     with pytest.raises(ValueError, match="duplicate"):

@@ -9,7 +9,6 @@ and satisfies the adjoint identity.
 """
 
 import dataclasses
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,9 +31,6 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 
 SHAPE = (16, 4, 40)                    # N_t, N_d, N_m: short-wide, m*4 <= n
-# a stand-in mesh: the dims a grid reads (no process group behind it)
-_FAKE_MESH = types.SimpleNamespace(mesh_dim_names=("row", "col"),
-                                   shape=(1, 2))
 TOL = {"d": 1e-13, "s": 1e-5, "h": 2e-2}
 PALLAS_INTERPRET = JaxExecOpts(backend="cpu-interpret",
                                dispatch=JaxTable(force="pallas"),
@@ -205,18 +201,51 @@ def test_single_column_blocks_match_matvec(op_d, data):
 
 @pytest.mark.parametrize("call", [
     # the operator runs on a process grid since item 13a
-    # (tests/test_torch_mesh.py); the LM's sharding, the dry run's
-    # multi-pod meshes and tile refinement on a mesh wait for item 13b
+    # (tests/test_torch_mesh.py), its solve path since item 13b
+    # (tests/test_torch_mesh_solvers.py); the LM's sharding and the dry
+    # run's multi-pod meshes wait for item 13c
     lambda op, m: dryrun.lower_fftmatvec_cell(mesh="pod16x16", op=op),
     lambda op, m: make_production_mesh(),
     lambda op, m: input_shard_specs(None, None, dp=("data",),
                                     mesh_shape={"data": 2}),
-    lambda op, m: dataclasses.replace(op, mesh=_FAKE_MESH).autotune(
-        1e-3, tiles=True),
 ])
 def test_later_slices_raise_not_implemented(op_d, data, call):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call(op_d, torch.as_tensor(data["m"]))
+
+
+def test_tile_refinement_on_a_mesh(data, tmp_path):
+    """Tile refinement on a meshed operator, here a one-rank gloo grid in
+    this process (ranks: tests/test_torch_mesh_solvers.py): a one-rank
+    reduction is the identity, so it chooses, maps and measures as the
+    operator on one device."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    def timer(cfg, fn, arg):
+        h = int(hashlib.sha1(cfg.to_string().encode()).hexdigest()[:6], 16)
+        return 1e-3 * cfg.cost_rank() + 1e-8 * (h / 0xFFFFFF)
+
+    N_m = SHAPE[2]
+    F = data["F"] * np.where(np.arange(N_m) < N_m // 2, 1.0, 1e-6)
+    kw = dict(tol=1e-5, ladder=("d", "s"), timer=timer, tiles=(2, 2),
+              v=torch.as_tensor(data["m"]), full_result=True)
+    want = FFTMatvec.from_block_column(F, device="cpu").autotune(**kw)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        op = FFTMatvec.from_block_column(
+            F, device="cpu", mesh=make_test_mesh((1, 1), ("row", "col")))
+        got = op.autotune(**kw)
+        y = got.op.matvec(torch.as_tensor(data["m"]))
+    finally:
+        dist.destroy_process_group()
+    assert got.config.tiles is not None
+    assert got.config == want.config and got.errors == want.errors
+    assert torch.equal(y, want.op.matvec(torch.as_tensor(data["m"])))
 
 
 def test_exec_opts_resolve_per_device():

@@ -139,7 +139,7 @@ def test_fftmatvec_grid_reads_a_calibrated_cache(tmp_path):
                                 overlap_calibrated=True))
     assert tmesh.fftmatvec_grid(t, chunks=4, hide_s=1e-4, spec=CPU_TORCH,
                                 cache=cache) == want
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(NotImplementedError, match="item 13c"):
         tmesh.make_production_mesh()
 
 
